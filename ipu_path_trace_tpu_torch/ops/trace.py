@@ -1,0 +1,211 @@
+"""K1: the trace kernel - one sample per pixel through the bounce loop.
+
+Replaces ``ipu_path_trace_tpu/ops/trace_pallas.py::trace_sample_pallas``.
+``trace_sample`` launches ``csrc/trace.cu`` for CUDA tensors; for CPU
+tensors it runs ``trace_sample_plain``, the plain PyTorch version
+(render/wavefront.trace_sample_with_uniforms, the port of the
+reference's XLA twin).
+
+Two noise modes, as the reference kernel: ``noise`` (host noise, the
+(4 + 4L, P) row layout of render/wavefront.sample_noise) or ``seed``
+(two uint32 words keying the in-kernel Philox4x32-10 stream; see
+csrc/common.cuh).  ``philox_noise`` replays that stream on the host in
+the host-noise layout, which is how the plain version serves the
+hardware mode.  The Owen-Sobol mode is not ported (ROADMAP queue 1
+item 10).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..core.scene import Scene
+from ..core.vecmath import Vec3
+from . import _lib
+
+_AA_TYPES = {"uniform": 0, "normal": 1, "truncated-normal": 2}
+_MASK32 = 0xFFFFFFFF
+
+
+class TraceOut(NamedTuple):
+    radiance: Vec3
+    esc_dir: Vec3
+    esc_w: Vec3
+    escaped: torch.Tensor  # bool
+    path_len: torch.Tensor  # int32
+
+
+def pack_scene(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat f32 tables: 12 floats per sphere (cx cy cz r | rgb colour |
+    rgb emission | emissive material), 15 per disc (nx ny nz cx cy cz r |
+    ...), and a 1-float dummy for an empty class, never read: the kernel
+    loops over the counts."""
+    ns, nd = scene.num_spheres, scene.num_discs
+    f = torch.float32
+    sph = torch.cat([
+        scene.sphere_center, scene.sphere_radius[:, None], scene.colour[:ns],
+        scene.emission[:ns], scene.emissive[:ns, None].to(f),
+        scene.material[:ns, None].to(f)], dim=1).reshape(-1)
+    dsc = torch.cat([
+        scene.disc_normal, scene.disc_center, scene.disc_radius[:, None],
+        scene.colour[ns:], scene.emission[ns:], scene.emissive[ns:, None].to(f),
+        scene.material[ns:, None].to(f)], dim=1).reshape(-1)
+    dummy = torch.zeros(1, dtype=f, device=sph.device)
+    return (sph.contiguous() if ns else dummy), (dsc.contiguous() if nd else dummy)
+
+
+def tan_fov(fov: float, width: int, height: int, device) -> tuple[float, float]:
+    """f32 tan(fov/2) and tan((h/w) fov/2), computed on ``device`` exactly
+    as pixel_to_ray computes them there."""
+    half = torch.tensor(fov, dtype=torch.float32, device=device) * 0.5
+    ratio = (torch.tensor(float(height), device=device)
+             / torch.tensor(float(width), device=device))
+    return float(torch.tan(half)), float(torch.tan(ratio * half))
+
+
+def trace_params(scene: Scene, settings, *, width: int, height: int,
+                 max_path_length: int, aa_noise_type: str,
+                 seed: tuple[int, int] | None, device) -> _lib.TraceParams:
+    if aa_noise_type not in _AA_TYPES:
+        raise ValueError(f"Invalid AA noise type: {aa_noise_type!r}")
+    tx, ty = tan_fov(settings.fov, width, height, device)
+    s0, s1 = (0, 0) if seed is None else (int(seed[0]) & _MASK32, int(seed[1]) & _MASK32)
+    return _lib.TraceParams(
+        tanfov_x=tx, tanfov_y=ty, aa_scale=settings.aa_scale,
+        refr_index=settings.refractive_index, stop_prob=settings.stop_prob,
+        aperture=settings.aperture, focal=settings.focal_distance,
+        azimuth=settings.azimuth, width=width, height=height,
+        max_path_length=max_path_length, roulette_depth=settings.roulette_depth,
+        aa_type=_AA_TYPES[aa_noise_type], num_s=scene.num_spheres,
+        num_d=scene.num_discs, pad0=0, seed0=s0, seed1=s1)
+
+
+# ---------------------------------------------------------------- Philox ----
+
+def _mulhilo32(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) words of the 64-bit product of the constant ``a`` and the
+    uint32 values in int64 ``b``, without int64 overflow."""
+    hp = a * (b >> 16)  # < 2^48
+    lp = a * (b & 0xFFFF)
+    s = lp + ((hp & 0xFFFF) << 16)  # < 2^49
+    return (hp >> 16) + (s >> 32), s & _MASK32
+
+
+def philox4x32_10(c: list[torch.Tensor], k0: int, k1: int) -> list[torch.Tensor]:
+    """Philox4x32-10 on int64 tensors holding uint32 words (the counter
+    words broadcast); the same rounds as csrc/common.cuh::philox4x32_10."""
+    x0, x1, x2, x3 = c
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(0xD2511F53, x0)
+        hi1, lo1 = _mulhilo32(0xCD9E8D57, x2)
+        x0, x1, x2, x3 = hi1 ^ x1 ^ k0, lo1, hi0 ^ x3 ^ k1, lo0
+        k0 = (k0 + 0x9E3779B9) & _MASK32
+        k1 = (k1 + 0xBB67AE85) & _MASK32
+    return [x0, x1, x2, x3]
+
+
+def _u24(bits: torch.Tensor) -> torch.Tensor:
+    return ((bits >> 8) + 1).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def draw_aa_jitter(u1: torch.Tensor, u2: torch.Tensor, aa_noise_type: str):
+    """AA jitter pair from two uniforms: uniform, normal (Box-Muller) or
+    truncated-normal clipped at +/- 3 sigma."""
+    if aa_noise_type == "uniform":
+        return 2.0 * u1 - 1.0, 2.0 * u2 - 1.0
+    two_pi = 2.0 * math.pi
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    z1 = r * torch.cos(two_pi * u2)
+    z2 = r * torch.sin(two_pi * u2)
+    if aa_noise_type == "truncated-normal":
+        z1, z2 = torch.clamp(z1, -3.0, 3.0), torch.clamp(z2, -3.0, 3.0)
+    return z1, z2
+
+
+def philox_noise(seed: tuple[int, int], sample_index: int, n: int,
+                 max_path_length: int, aa_noise_type: str, device) -> torch.Tensor:
+    """The hardware-mode stream of one sample in the host-noise layout
+    (4 + 4L, n): group g of lane p is Philox((p, sample, g, 0), seed)."""
+    lane = torch.arange(n, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(lane)
+    k0, k1 = int(seed[0]) & _MASK32, int(seed[1]) & _MASK32
+    rows = []
+    for g in range(1 + max_path_length):
+        words = philox4x32_10([lane, zero + (sample_index & _MASK32), zero + g, zero], k0, k1)
+        rows.extend(_u24(w) for w in words)
+    rows[0], rows[1] = draw_aa_jitter(rows[0], rows[1], aa_noise_type)
+    return torch.stack(rows)
+
+
+# ---------------------------------------------------------------- K1 ----
+
+def trace_sample_plain(scene: Scene, settings, cols, rows, seed=None, *,
+                       noise=None, sample_index: int = 0, width: int, height: int,
+                       max_path_length: int, aa_noise_type: str = "normal") -> TraceOut:
+    """Plain PyTorch version of the trace kernel."""
+    from ..render.params import StaticConfig
+    from ..render.wavefront import trace_sample_with_uniforms
+
+    if cols.is_cuda:
+        trace_sample_plain.cuda_runs += 1
+    n = cols.shape[0]
+    if noise is None:
+        noise = philox_noise(seed, sample_index, n, max_path_length, aa_noise_type,
+                             cols.device)
+    cfg = StaticConfig(width=width, height=height, max_path_length=max_path_length,
+                       aa_noise_type=aa_noise_type)
+    st = trace_sample_with_uniforms(scene, settings, cfg, cols, rows, noise[0:2],
+                                    noise[2:4], noise[4:].reshape(max_path_length, 4, n))
+    return TraceOut(st.radiance, st.esc_dir, st.esc_w, st.escaped, st.path_len)
+
+
+trace_sample_plain.cuda_runs = 0
+
+
+def trace_sample(scene: Scene, settings, cols, rows, seed=None, *, noise=None,
+                 sample_index: int = 0, width: int, height: int,
+                 max_path_length: int, aa_noise_type: str = "normal") -> TraceOut:
+    """Trace one sample per pixel: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.
+
+    Exactly one of ``seed`` ((2,) uint32 words; hardware mode, sample
+    ``sample_index`` of the Philox stream) or ``noise`` ((4 + 4L, P) f32
+    host noise).  ``cols``/``rows`` are (P,) f32 pixel coordinates.
+    """
+    if (seed is None) == (noise is None):
+        raise ValueError("pass exactly one of seed= or noise=")
+    kw = dict(width=width, height=height, max_path_length=max_path_length,
+              aa_noise_type=aa_noise_type)
+    if cols.device.type == "cpu":
+        return trace_sample_plain(scene, settings, cols, rows, seed, noise=noise,
+                                  sample_index=sample_index, **kw)
+    n = cols.shape[0]
+    operands = [cols, rows] + ([] if noise is None else [noise])
+    dev = _lib.require_cuda("trace", *operands)
+    if cols.dtype != torch.float32 or rows.dtype != torch.float32 or rows.shape != (n,):
+        raise ValueError("trace: cols/rows must be (P,) float32")
+    if noise is not None and (noise.dtype != torch.float32
+                              or noise.shape != (4 + 4 * max_path_length, n)):
+        raise ValueError(f"trace: noise must be ({4 + 4 * max_path_length}, {n}) float32")
+    prm = trace_params(scene, settings, seed=seed, device=dev, **kw)
+    sph, dsc = pack_scene(scene.to(dev))
+    rad = torch.empty((3, n), dtype=torch.float32, device=dev)
+    escd = torch.empty_like(rad)
+    escw = torch.empty_like(rad)
+    escm = torch.empty(n, dtype=torch.int32, device=dev)
+    plen = torch.empty(n, dtype=torch.int32, device=dev)
+    err = _lib.library().pt_trace(
+        ctypes.byref(prm), _lib.ptr(sph), _lib.ptr(dsc), _lib.ptr(cols), _lib.ptr(rows),
+        _lib.ptr(noise), sample_index, n, _lib.ptr(rad), _lib.ptr(escd), _lib.ptr(escw),
+        _lib.ptr(escm), _lib.ptr(plen), _lib.stream(dev))
+    _lib.check(err, "trace")
+    trace_sample.launches += 1
+    return TraceOut(Vec3.unstack(rad), Vec3.unstack(escd), Vec3.unstack(escw),
+                    escm != 0, plen)
+
+
+trace_sample.launches = 0

@@ -41,6 +41,12 @@ QUICK_FILES = {
     "test_film_io.py",
     "test_scenefile.py",
     "test_quick_tier.py",
+    # PyTorch/CUDA port vs the JAX package (CPU, small shapes, ~1 min total):
+    "test_torch_core.py",
+    "test_torch_nif.py",
+    "test_torch_trace.py",
+    "test_torch_megastep.py",
+    "test_torch_app.py",
 }
 
 # Files deliberately absent from the quick tier (each needs a reason —
