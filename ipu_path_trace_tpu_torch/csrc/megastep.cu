@@ -10,6 +10,8 @@
 // (nif_dev.cuh), so neither the trace state nor the escape records nor
 // the activations ever reach device memory: the step reads the pixel
 // coordinates (and host noise, in that mode) and writes 4 words per ray.
+// The kernel is instantiated per RNG mode and per chain (bf16, or int8 as
+// the TPU kernel's quant branch); the launcher picks by its arguments.
 //
 // What bounds it: the NIF chain's multiply-adds (nif_dev.cuh), as on the
 // TPU, plus the trace's divergent per-ray loop.  The TPU kernel shades
@@ -38,7 +40,7 @@ inline MegaSmem mega_smem_plan(const TraceParams& prm, const NifNet& net) {
   return s;
 }
 
-template <bool kHostNoise>
+template <bool kHostNoise, bool kInt8>
 __global__ void __launch_bounds__(kThreads, 2) megastep_kernel(
     TraceParams prm, NifNet net, MegaSmem plan, const float* __restrict__ sph_g,
     const float* __restrict__ dsc_g, const float* __restrict__ cols,
@@ -91,7 +93,7 @@ __global__ void __launch_bounds__(kThreads, 2) megastep_kernel(
         equirect_uv(s_escd[q], s_escd[kRaysPerBlock + q], s_escd[2 * kRaysPerBlock + q],
                     prm.azimuth, &t.u[tid], &t.v[tid]);
       __syncthreads();
-      nif_tile(net, t);  // ends with a barrier
+      nif_chain<kInt8>(net, t);  // ends with a barrier
       if (tid < kTile) {  // bgr -> rgb flip times the escape weights
         s_env[q] = s_escw[q] * t.out[2 * kTile + tid];
         s_env[kRaysPerBlock + q] = s_escw[kRaysPerBlock + q] * t.out[kTile + tid];
@@ -109,6 +111,22 @@ __global__ void __launch_bounds__(kThreads, 2) megastep_kernel(
   }
 }
 
+template <bool kHostNoise, bool kInt8>
+int launch_megastep(const TraceParams& prm, const NifNet& net, const MegaSmem& plan,
+                    const float* sph, const float* dsc, const float* cols, const float* rows,
+                    const float* noise, int samples, int n, float* rad, int* plen,
+                    cudaStream_t stream) {
+  const int smem = (int)plan.nif.total;
+  cudaError_t err = cudaFuncSetAttribute(megastep_kernel<kHostNoise, kInt8>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + kRaysPerBlock - 1) / kRaysPerBlock;
+  if (blocks == 0) return 0;
+  megastep_kernel<kHostNoise, kInt8><<<blocks, kThreads, smem, stream>>>(
+      prm, net, plan, sph, dsc, cols, rows, noise, samples, n, rad, plen);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace pt
 
 // noise == nullptr selects hardware (Philox) mode seeded by prm->seed0/1;
@@ -118,20 +136,16 @@ extern "C" int pt_megastep(const pt::TraceParams* prm, const pt::NifNet* net, co
                            const float* noise, int samples, int n, float* rad, int* plen,
                            void* stream) {
   const pt::MegaSmem plan = pt::mega_smem_plan(*prm, *net);
-  const int smem = (int)plan.nif.total;
-  cudaError_t err = noise ? cudaFuncSetAttribute(pt::megastep_kernel<true>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-                          : cudaFuncSetAttribute(pt::megastep_kernel<false>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + pt::kRaysPerBlock - 1) / pt::kRaysPerBlock;
-  if (blocks == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (noise && net->int8)
+    return pt::launch_megastep<true, true>(*prm, *net, plan, sph, dsc, cols, rows, noise,
+                                           samples, n, rad, plen, s);
   if (noise)
-    pt::megastep_kernel<true><<<blocks, pt::kThreads, smem, s>>>(*prm, *net, plan, sph, dsc, cols,
-                                                                 rows, noise, samples, n, rad, plen);
-  else
-    pt::megastep_kernel<false><<<blocks, pt::kThreads, smem, s>>>(*prm, *net, plan, sph, dsc, cols,
-                                                                  rows, noise, samples, n, rad, plen);
-  return (int)cudaGetLastError();
+    return pt::launch_megastep<true, false>(*prm, *net, plan, sph, dsc, cols, rows, noise,
+                                            samples, n, rad, plen, s);
+  if (net->int8)
+    return pt::launch_megastep<false, true>(*prm, *net, plan, sph, dsc, cols, rows, noise,
+                                            samples, n, rad, plen, s);
+  return pt::launch_megastep<false, false>(*prm, *net, plan, sph, dsc, cols, rows, noise,
+                                           samples, n, rad, plen, s);
 }

@@ -1,14 +1,18 @@
 // K2: escaped-ray env shade - equirect (u, v), NIF chain, bgr -> rgb flip
 // and the escape weights, for the rays of one trace sample.
+// K4: the NIF at given (u, v) -> (3, P) f32 in network channel order.
 //
-// Replaces ipu_path_trace_tpu/ops/nif_pallas.py::nif_env_shade_pallas
-// (kernel body _env_shade_kernel, :307).  A block of pt::kThreads threads
-// shades a tile of pt::kTile rays; nif_dev.cuh says what bounds the chain
-// and how the weights stream from L2.
+// Replace ipu_path_trace_tpu/ops/nif_pallas.py::nif_env_shade_pallas
+// (kernel body _env_shade_kernel, :307) and ::nif_apply_pallas_t (kernel
+// body _kernel, :287).  A block of pt::kThreads threads runs a tile of
+// pt::kTile rays; each kernel is instantiated for the bf16 and the int8
+// chain (K5) and the launcher picks by NifNet::int8.  nif_dev.cuh says
+// what bounds the chain and how the weights stream from L2.
 #include "nif_dev.cuh"
 
 namespace pt {
 
+template <bool kInt8>
 __global__ void __launch_bounds__(kThreads, 2) env_shade_kernel(NifNet net, NifSmem plan,
                                                              const float* __restrict__ escd,
                                                              const float* __restrict__ escw,
@@ -25,7 +29,7 @@ __global__ void __launch_bounds__(kThreads, 2) env_shade_kernel(NifNet net, NifS
     t.v[tid] = v;
   }
   __syncthreads();
-  nif_tile(net, t);
+  nif_chain<kInt8>(net, t);
   if (tid < kTile && p < n) {
     out[p] = escw[p] * t.out[2 * kTile + tid];
     out[n + p] = escw[n + p] * t.out[kTile + tid];
@@ -33,18 +37,56 @@ __global__ void __launch_bounds__(kThreads, 2) env_shade_kernel(NifNet net, NifS
   }
 }
 
+template <bool kInt8>
+__global__ void __launch_bounds__(kThreads, 2) nif_apply_kernel(NifNet net, NifSmem plan,
+                                                             const float* __restrict__ u,
+                                                             const float* __restrict__ v, int n,
+                                                             float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const NifTile t(smem, plan);
+  const int tid = threadIdx.x;
+  const int p = blockIdx.x * kTile + tid;
+  if (tid < kTile) {
+    t.u[tid] = p < n ? u[p] : 0.0f;
+    t.v[tid] = p < n ? v[p] : 0.0f;
+  }
+  __syncthreads();
+  nif_chain<kInt8>(net, t);
+  if (tid < kTile && p < n) {
+    out[p] = t.out[tid];
+    out[n + p] = t.out[kTile + tid];
+    out[2 * n + p] = t.out[2 * kTile + tid];
+  }
+}
+
+// Sets the kernel's dynamic shared memory, then launches one tile per block.
+template <typename Kernel, typename... Args>
+int launch_tiles(Kernel kernel, const NifSmem& plan, int n, void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)plan.total);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + kTile - 1) / kTile;
+  if (blocks == 0) return 0;
+  kernel<<<blocks, kThreads, plan.total, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace pt
 
 extern "C" int pt_env_shade(const pt::NifNet* net, const float* escd, const float* escw,
                             float azimuth, int n, float* out, void* stream) {
   const pt::NifSmem plan = pt::nif_smem_plan(*net, 0);
-  cudaError_t err = cudaFuncSetAttribute(pt::env_shade_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)plan.total);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + pt::kTile - 1) / pt::kTile;
-  if (blocks == 0) return 0;
-  pt::env_shade_kernel<<<blocks, pt::kThreads, plan.total, (cudaStream_t)stream>>>(
-      *net, plan, escd, escw, azimuth, n, out);
-  return (int)cudaGetLastError();
+  return net->int8 ? pt::launch_tiles(pt::env_shade_kernel<true>, plan, n, stream, *net, plan,
+                                      escd, escw, azimuth, n, out)
+                   : pt::launch_tiles(pt::env_shade_kernel<false>, plan, n, stream, *net, plan,
+                                      escd, escw, azimuth, n, out);
+}
+
+extern "C" int pt_nif_apply(const pt::NifNet* net, const float* u, const float* v, int n,
+                            float* out, void* stream) {
+  const pt::NifSmem plan = pt::nif_smem_plan(*net, 0);
+  return net->int8 ? pt::launch_tiles(pt::nif_apply_kernel<true>, plan, n, stream, *net, plan,
+                                      u, v, n, out)
+                   : pt::launch_tiles(pt::nif_apply_kernel<false>, plan, n, stream, *net, plan,
+                                      u, v, n, out);
 }

@@ -3,7 +3,8 @@
 Counterpart of ``ipu_path_trace_tpu/film/imageio.py``'s writers and
 reader (single-part scanline EXR, NONE compression, HALF/FLOAT
 channels).  PNGs are written with the standard library's zlib, so the
-port needs no imaging package.
+port needs no imaging package; for the same reason HDR images load from
+OpenEXR only.
 """
 
 from __future__ import annotations
@@ -126,6 +127,16 @@ def read_exr(path: str) -> np.ndarray:
                 blob, dt, count=w, offset=cur)
             cur += w * np.dtype(dt).itemsize
     return np.stack([out["R"], out["G"], out["B"]], axis=-1)
+
+
+def load_hdr_image(path: str) -> np.ndarray:
+    """Read an HDR image as float32 radiance (H, W, 3): OpenEXR through
+    ``read_exr``.  Other formats need an imaging package the port does not
+    depend on, so they raise."""
+    if not path.lower().endswith(".exr"):
+        raise ValueError(f"cannot read {path!r}: the port loads HDR images from OpenEXR "
+                         "(.exr, scanline, no compression) only")
+    return read_exr(path)
 
 
 def save_images(path: str, hdr_at_step: np.ndarray, ldr: np.ndarray) -> None:

@@ -1,2 +1,2 @@
-"""The port's kernels: each module holds one CUDA kernel's wrapper (with
-its launch counter) and the kernel's plain PyTorch version."""
+"""The port's kernels: each module holds its CUDA kernels' wrappers (each
+with its launch counter) and the kernels' plain PyTorch versions."""

@@ -95,7 +95,7 @@ class NifNet(ctypes.Structure):
 
     _fields_ = [
         ("num_layers", ctypes.c_int), ("embed_dim", ctypes.c_int),
-        ("max_width", ctypes.c_int), ("log_flag", ctypes.c_int),
+        ("max_width", ctypes.c_int), ("log_flag", ctypes.c_int), ("int8", ctypes.c_int),
         ("fan_in", ctypes.c_int * NIF_MAX_LAYERS),
         ("fan_out", ctypes.c_int * NIF_MAX_LAYERS),
         ("skip", ctypes.c_int * NIF_MAX_LAYERS),
@@ -103,6 +103,9 @@ class NifNet(ctypes.Structure):
         ("k_pad", ctypes.c_int * NIF_MAX_LAYERS),
         ("w", ctypes.c_void_p * NIF_MAX_LAYERS),
         ("b", ctypes.c_void_p * NIF_MAX_LAYERS),
+        ("mult", ctypes.c_void_p * NIF_MAX_LAYERS),
+        ("mult_skip", ctypes.c_void_p),
+        ("inv_next", ctypes.c_float * NIF_MAX_LAYERS),
         ("max_v", ctypes.c_float), ("mean", ctypes.c_float * 3),
     ]
 
@@ -118,11 +121,12 @@ def library() -> ctypes.CDLL:
     lib.pt_trace.argtypes = [ctypes.POINTER(TraceParams), _P, _P, _P, _P, _P, _I, _I,
                              _P, _P, _P, _P, _P, _P]
     lib.pt_env_shade.argtypes = [ctypes.POINTER(NifNet), _P, _P, ctypes.c_float, _I, _P, _P]
+    lib.pt_nif_apply.argtypes = [ctypes.POINTER(NifNet), _P, _P, _I, _P, _P]
     lib.pt_megastep.argtypes = [ctypes.POINTER(TraceParams), ctypes.POINTER(NifNet),
                                 _P, _P, _P, _P, _P, _I, _I, _P, _P, _P]
     lib.pt_error_string.argtypes = [_I]
     lib.pt_error_string.restype = ctypes.c_char_p
-    for fn in (lib.pt_trace, lib.pt_env_shade, lib.pt_megastep):
+    for fn in (lib.pt_trace, lib.pt_env_shade, lib.pt_nif_apply, lib.pt_megastep):
         fn.restype = ctypes.c_int
     return lib
 

@@ -9,10 +9,10 @@ tensors.  Returns the SUM over the step's samples of radiance (env light
 applied) and of path length.
 
 Ported modes: hardware (Philox, ``seed``) and host noise (``noise`` of
-shape (S, 4 + 4L, P)), bf16 chain.  Per-block budgets and ``with_stats``
+shape (S, 4 + 4L, P)), each with the bf16 chain (``NifModel``) or the
+int8 chain (``QuantNifModel``).  Per-block budgets and ``with_stats``
 (ROADMAP queue 1 item 9), ``env_skip`` (item 11), Sobol (item 10) and the
-measurement stubs (item 16) raise NotImplementedError; a model that is not
-bf16 raises ValueError (the int8 chain is queue 2, K5).
+measurement stubs (item 16) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from ..core.scene import Scene
 from ..core.vecmath import Vec3
 from ..models.nif import NifModel
 from . import _lib
-from .nif import net_struct, nif_env_shade_plain
+from .nif import model_tensors, net_struct, nif_env_shade_plain
 from .trace import pack_scene, trace_params, trace_sample_plain
 
 
@@ -89,7 +89,7 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     n = cols.shape[0]
     samples = _samples(settings, noise)
     operands = [cols, rows] + ([] if noise is None else [noise])
-    dev = _lib.require_cuda("megastep", *operands, *model.kernels, *model.biases)
+    dev = _lib.require_cuda("megastep", *operands, *model_tensors(model))
     if cols.dtype != torch.float32 or rows.dtype != torch.float32 or rows.shape != (n,):
         raise ValueError("megastep: cols/rows must be (P,) float32")
     if noise is not None and (noise.dtype != torch.float32 or noise.shape

@@ -5,8 +5,9 @@ and ``trace_sample_with_uniforms`` are the reference's masked-lane
 wavefront over the whole batch; they are the plain version of the trace
 kernel (ops/trace.py).  ``render_step`` runs one progressive step and
 dispatches like the reference's ``render_step_impl``: the fused megastep
-kernel when ``cfg.use_fused_step`` and the env is a NIF, otherwise the
-trace kernel plus the env shade per sample.
+kernel when ``cfg.use_fused_step`` and the env is a NIF (bf16 or int8),
+otherwise the trace kernel per sample plus the env-shade kernel (NIF) or
+``eval_env`` (constant or texture env, e.g. a baked NIF).
 
 Randomness: hardware mode keys the kernels' Philox stream with two seed
 words per step (sample s of the step is counter word 1 = s); host-noise

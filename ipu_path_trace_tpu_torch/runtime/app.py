@@ -9,7 +9,9 @@ accumulate them into the host ``Film``, and write PNG + EXR at every
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import time
 
 import numpy as np
@@ -18,9 +20,10 @@ import torch
 from ..core.records import from_device_batch, to_device_batch
 from ..core.scene import default_scene
 from ..film.film import Film
-from ..film.imageio import save_images
-from ..models.envlight import ConstantEnv, NifEnv
+from ..film.imageio import load_hdr_image, save_images
+from ..models.envlight import ConstantEnv, NifEnv, TextureEnv, bake_nif_env
 from ..models.nif import analyse_nif, load_nif_assets
+from ..models.quant import quantize_nif
 from ..render.params import RenderSettings, StaticConfig
 from ..render.wavefront import render_step
 from .config import Config
@@ -40,17 +43,35 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def parse_env_assets(assets: str, device: torch.device):
-    """'constant:R,G,B' or a NIF assets dir -> (env, (meta, weights) or None)."""
+def parse_env_assets(assets: str, device: torch.device, nif_precision: str = "auto"):
+    """Build the environment light from the --assets argument:
+    'constant:R,G,B', 'texture:<file.exr>' or a NIF assets dir ->
+    (env, (meta, weights) or None).
+
+    ``nif_precision='int8'`` quantises the NIF for the int8 chain
+    (models/quant.py): a QAT asset's ``quant_amax.json`` sidecar gives the
+    activation grids its fine-tune trained against; without one they are
+    calibrated on a (u, v) lattice at load.
+    """
     if assets.startswith("constant:"):
         rgb = [float(x) for x in assets.split(":", 1)[1].split(",")]
         if len(rgb) != 3:
             raise ValueError("constant env expects 'constant:R,G,B'")
         return ConstantEnv(colour=tuple(rgb)), None
     if assets.startswith("texture:"):
-        raise NotImplementedError("texture environments are not ported yet "
-                                  "(ROADMAP.md queue 1 item 20)")
+        img = load_hdr_image(assets.split(":", 1)[1])
+        return TextureEnv(texture=torch.from_numpy(img).to(device)), None
     model, meta, weights = load_nif_assets(assets, torch.bfloat16, device)
+    if nif_precision == "int8":
+        amax = None
+        sidecar = os.path.join(assets, "quant_amax.json")
+        if os.path.exists(sidecar):
+            with open(sidecar) as f:
+                amax = [float(a) for a in json.load(f)["amax"]]
+            log.info("int8 NIF: using QAT activation grids from %s", sidecar)
+        else:
+            log.info("int8 NIF: no quant_amax.json sidecar - lattice-calibrating (PTQ)")
+        model = quantize_nif(weights, meta, amax=amax, device=device)
     return NifEnv(model=model), (meta, weights)
 
 
@@ -75,12 +96,22 @@ class PathTracerApp:
         if cfg.env_skip == "auto":
             log.info("--env-skip auto resolves to off: the env-skip guard is not ported "
                      "yet (ROADMAP.md queue 1 item 11)")
-        self.env, nif_info = parse_env_assets(cfg.assets, self.device)
+        self.env, nif_info = parse_env_assets(cfg.assets, self.device, cfg.nif_precision)
         if nif_info is not None:
-            info = analyse_nif(nif_info[1], cfg.width * cfg.height)
+            meta, weights = nif_info
+            info = analyse_nif(weights, cfg.width * cfg.height)
             log.info("NIF layers: %d, hidden size: %d, FLOPs per sample: %d, "
                      "parameters: %.1f KiB", info["layers"], info["hidden_size"],
                      info["flops"], info["parameters_kib"])
+            if cfg.nif_mode == "baked":
+                h, w = meta.image_shape[:2] if len(meta.image_shape) >= 2 else (2048, 4096)
+                t0 = time.monotonic()
+                self.env = bake_nif_env(self.env, int(h), int(w),
+                                        max_batch_size=cfg.max_nif_batch_size)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                log.info("Baked NIF env to %dx%d texture in %.3f seconds (--nif-mode baked)",
+                         int(h), int(w), time.monotonic() - t0)
 
     def build(self) -> None:
         cfg = self.cfg

@@ -32,7 +32,6 @@ _UNPORTED = [
     (("--partials-type",), dict(default="half", choices=["half", "float"]),
      "queue 1 item 20 (f32 NIF chain in the kernels)"),
     (("--available-memory-proportion",), dict(type=float, default=0.6), "queue 1 item 20"),
-    (("--max-nif-batch-size",), dict(type=int, default=30 * 1472), "queue 2, K4 (baked env)"),
     (("--ui-port",), dict(type=int, default=0), "queue 1 item 17 (ui)"),
     (("--use-pallas",), dict(action=argparse.BooleanOptionalAction, default=True),
      "queue 1 item 20 (the port always runs its kernels)"),
@@ -40,8 +39,6 @@ _UNPORTED = [
     (("--cache-dir",), dict(default=""), "queue 1 item 19"),
     (("--profile-dir",), dict(default=""), "queue 1 item 16"),
     (("--device-timing",), dict(action="store_true"), "queue 1 item 16"),
-    (("--nif-mode",), dict(default="fused", choices=["fused", "baked"]), "queue 2, K4 (baked env)"),
-    (("--nif-precision",), dict(default="auto", choices=["auto", "int8"]), "queue 1 item 14 (int8)"),
     (("--scene",), dict(default=""), "queue 1 item 20 (core/scenefile.py)"),
     (("--device-film",), dict(action="store_true"), "queue 1 item 20"),
     (("--metrics-file",), dict(default=""), "queue 1 item 16"),
@@ -99,7 +96,15 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["uniform", "normal", "truncated-normal"])
     p.add_argument("--max-path-length", type=int, default=10)
     p.add_argument("--assets", required=True,
-                   help="NIF assets directory, or 'constant:R,G,B'.")
+                   help="NIF assets directory, 'constant:R,G,B' or 'texture:<file.exr>'.")
+    p.add_argument("--max-nif-batch-size", type=int, default=30 * 1472,
+                   help="NIF evaluations per launch when baking (--nif-mode baked).")
+    p.add_argument("--nif-mode", default="fused", choices=["fused", "baked"],
+                   help="'fused' evaluates the NIF per escaped ray; 'baked' decodes it once "
+                        "into an equirect texture and looks escaped rays up bilinearly.")
+    p.add_argument("--nif-precision", default="auto", choices=["auto", "int8"],
+                   help="'int8' quantises the NIF for the int8 chain (a QAT asset's "
+                        "quant_amax.json sets the activation grids).")
     p.add_argument("--aperture", type=float, default=0.0,
                    help="Thin-lens aperture radius; 0 = pinhole.")
     p.add_argument("--focal-distance", type=float, default=1.0)

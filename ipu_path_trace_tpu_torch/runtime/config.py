@@ -30,13 +30,21 @@ class Config:
     seed: int = 1
     aa_noise_type: str = "normal"
     max_path_length: int = 10
-    assets: str = ""  # NIF assets dir, or "constant:r,g,b"
+    assets: str = ""  # NIF assets dir, "constant:r,g,b" or "texture:<file.exr>"
     aperture: float = 0.0
     focal_distance: float = 1.0
     layout: str = "coherent"  # coherent | raster
     # The env-skip guard is not ported: "auto" resolves to off (and says
     # so), "on" raises (ROADMAP.md queue 1 item 11).
     env_skip: str = "auto"
+    # "auto" runs the NIF as stored (bf16 chain); "int8" quantises it for
+    # the int8 chain (models/quant.py), with a QAT asset's quant_amax.json.
+    nif_precision: str = "auto"
+    # "fused" evaluates the NIF per escaped ray; "baked" decodes it once
+    # into an equirect texture (models/envlight.bake_nif_env) of the
+    # asset's original_image_shape, in chunks of max_nif_batch_size.
+    nif_mode: str = "fused"
+    max_nif_batch_size: int = 30 * 1472
     # Where the render runs.  "cuda" launches the kernels; "cpu" runs
     # their plain versions (the port's simulator).  A CUDA request on a
     # machine without CUDA raises: nothing falls back to the CPU.
@@ -59,6 +67,12 @@ class Config:
             raise ValueError(f"unknown --layout '{self.layout}' (choices: coherent, raster)")
         if self.env_skip not in ("auto", "on", "off"):
             raise ValueError(f"unknown --env-skip '{self.env_skip}' (choices: auto, on, off)")
+        if self.nif_precision not in ("auto", "int8"):
+            raise ValueError(f"unknown --nif-precision '{self.nif_precision}' (choices: auto, int8)")
+        if self.nif_mode not in ("fused", "baked"):
+            raise ValueError(f"unknown --nif-mode '{self.nif_mode}' (choices: fused, baked)")
+        if self.max_nif_batch_size < 1:
+            raise ValueError("max-nif-batch-size must be >= 1")
 
     def rounded_samples_per_pixel(self) -> int:
         """Round spp up to a multiple of samples-per-step."""

@@ -47,6 +47,8 @@ QUICK_FILES = {
     "test_torch_trace.py",
     "test_torch_megastep.py",
     "test_torch_app.py",
+    "test_torch_quant.py",
+    "test_torch_envbake.py",
 }
 
 # Files deliberately absent from the quick tier (each needs a reason —

@@ -153,7 +153,7 @@ def test_cli_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--adaptive"], ["--sampler", "sobol"], ["--device-film"], ["--nif-precision", "int8"],
+    ["--adaptive"], ["--sampler", "sobol"], ["--device-film"], ["--denoise"],
     ["--ipus", "2"], ["--scene", "assets/scenes/three_spheres.json"], ["--env-skip", "on"]])
 def test_cli_unported_flags_name_their_roadmap_item(tmp_path, flag):
     argv = ["-o", str(tmp_path / "x.png"), "--assets", "constant:1,1,1",
