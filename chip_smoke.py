@@ -15,19 +15,36 @@ Phases, one line each:
                 both (lattice-calibrated) and on the int8 asset (its QAT grids);
   5. K3       - megastep kernel vs its plain version, host noise, 256x256,
                 4 samples, bf16 and int8;
+  5b. modes   - K1 in Owen-Sobol mode (12 and 4 + 4L dims, bit for bit) and
+                K3, bf16 and int8, in Sobol mode, with per-block budgets and
+                the statistics (hardware and host noise), with the env-skip,
+                and with all of them at once, vs their plain versions at
+                256x256; and K3 with the env-skip on and off on the enclosed
+                scene (nothing escapes), which must agree bit for bit;
   6. main     - the CLI (runtime/cli.main) at 1104x1000, 16 spp in steps of
                 8: assets/urban_alley_synth_nif fused and unfused; the int8
-                asset with --nif-precision int8 fused and unfused; and
-                --nif-mode baked (bf16, then int8).  Every kernel's launch
-                counter is set to 0 just before each run and read just after;
-                the app's log (each step's, save's and bake's seconds) goes to
-                stdout;
+                asset with --nif-precision int8 fused and unfused;
+                --nif-mode baked (bf16, then int8); --device-film (saving
+                every step, then only at the last); --device-film --adaptive;
+                --sampler sobol fused and unfused; --env-skip on (the open
+                default scene); --scene <enclosed> (--env-skip auto must
+                resolve on; on the default scene off); and the int8 asset
+                with --device-film --adaptive --sampler sobol.  Every
+                kernel's launch counter is set to 0 just before each run and
+                read just after (a fused run's auto env-skip probe launches
+                K1 twice); the app's log (each step's, save's and bake's
+                seconds) goes to stdout.  The device-film frames must equal
+                the host film's, and fused and unfused frames agree in mean
+                luminance within 5 standard errors;
   7. full frame - at the main path's shapes (1104x1000, a ragged last
                 block): K1 (Philox), K2 (on that sample's escapes, bf16 and
-                int8), K3 (Philox, 8 samples, bf16 and int8) and K4 (one
-                bake chunk of 10 rows of 4096, bf16 and int8) vs their plain
-                versions, then each kernel and its plain version timed (CUDA
-                events, after warm-up).
+                int8), K3 (Philox, 8 samples, bf16 and int8), K4 (one bake
+                chunk of 10 rows of 4096, bf16 and int8) and phase 5b's
+                modes vs their plain versions, then each kernel and its
+                plain version timed (CUDA events, after warm-up), K3 with
+                the env-skip on and off on both scenes (on the enclosed one
+                the skip must take K3 under a quarter of its time), and the
+                adaptive step against the uniform one.
 Then a JSON line with the kernels, the nvidia-smi line again, and the last
 line {"ok": true, "device": {...}}.  Any failed check exits non-zero and
 prints no result.  Tolerances are the reference's own:
@@ -41,7 +58,16 @@ prints no result.  Tolerances are the reference's own:
   * the int8 chain to median 1e-3 and max 8e-2, and the int8 env shade to
     median 1e-3, fewer than 1% of lanes above 1e-2 and max 0.5
     (tests/test_quant.py:126-127, 274-276: a feature next to a rounding tie
-    may take a neighbouring int8 code).
+    may take a neighbouring int8 code);
+  * the new modes of K1 and K3 bit for bit, except K3's bf16 radiance and
+    the square root of its lum2 (whose relative error is that of the
+    samples' luminance): median 5e-3 and max 8e-2 on all but at most one
+    lane in 10^4, and every lane below 0.25.  From 256x256 up, a lane of
+    the bf16 chain passes 8e-2 about once in 10^5 in every RNG mode,
+    Philox included: the error of one sample's env term sets its lane's
+    (the trace parts agree bit for bit), and the worst lanes measured are
+    0.124 (Sobol) and 0.125 (Philox), and 0.13 over the full bake lattice,
+    so a max over a million lanes is a tail statistic.
 """
 
 from __future__ import annotations
@@ -66,10 +92,45 @@ MAIN_W, MAIN_H, MAIN_SPP, MAIN_SPS = 1104, 1000, 16, 8
 FLIP_FRACTION = 5e-3
 TRACE_RTOL, TRACE_ATOL = 1e-4, 3e-5
 NIF_MEDIAN, NIF_MAX = 5e-3, 8e-2
+# The bf16 chain's rounding tail: past 8e-2 on about one lane in 10^5, in
+# every RNG mode (Philox included), at its worst 0.13 on one evaluation.
+NIF_TAIL_FRACTION, NIF_TAIL_MAX = 1e-4, 0.25
 INT8_MEDIAN, INT8_SHADE_FRACTION, INT8_SHADE_MAX = 1e-3, 1e-2, 0.5
 BAKE_ROWS = 30 * 1472 // 4096  # rows per bake chunk at the default --max-nif-batch-size
+SOBOL_DIMS = 12  # the CLI's default --sobol-dims
+SOBOL_KEY = 0x5EED5EED
+ADAPTIVE_MIN = 2  # below --samples-per-step 8, so the controller's budgets vary
+# The camera inside an emissive diffuse shell: no path escapes, so every
+# NIF sub-tile of K3 skips the chain (tests/test_megastep.py:129-135).
+ENCLOSED_SCENE = {"objects": [
+    {"type": "sphere", "center": [0.0, 0.0, 0.0], "radius": 50.0, "colour": [0.5, 0.5, 0.5],
+     "material": "diffuse", "emission": [0.2, 0.2, 0.2]},
+    {"type": "sphere", "center": [0.0, -0.5, -3.0], "radius": 0.5, "colour": [0.8, 0.3, 0.3],
+     "material": "specular"},
+]}
 
 failures: list[str] = []
+
+
+class LogLines(logging.Handler):
+    """Keeps the app's log messages of the current CLI run."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def env_skip_auto(self) -> str | None:
+        """'on'/'off' as the auto env-skip probe resolved, None if none ran."""
+        got = [ln.rsplit("-> ", 1)[1] for ln in self.lines if ln.startswith("--env-skip auto")]
+        return got[-1] if got else None
+
+    def seconds(self, prefix: str) -> list[float]:
+        """The '... in <s> seconds' of each message that starts with prefix."""
+        return [float(ln.split(" in ", 1)[1].split()[0]) for ln in self.lines
+                if ln.startswith(prefix)]
 
 
 def phase(name: str, ok: bool, **info) -> None:
@@ -91,6 +152,43 @@ def nvidia_smi() -> str:
         raise SystemExit(f"chip_smoke: nvidia-smi failed (rc {res.returncode}): "
                          f"{res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def as_tensor(x) -> torch.Tensor:
+    return x.stack() if hasattr(x, "stack") else x
+
+
+def trace_exact(name, got, ref) -> float:
+    """K1 against its plain version, every output bit for bit."""
+    pairs = [(as_tensor(getattr(got, f)), as_tensor(getattr(ref, f))) for f in got._fields]
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    phase(name, all(torch.equal(a, b) for a, b in pairs), max_abs_err=f"{err:.3e}")
+    return err
+
+
+def mode_check(name, got, ref, int8: bool) -> float:
+    """K3 in a new mode against its plain version: path lengths bit for
+    bit; radiance and sqrt(lum2) bit for bit with the int8 chain, within
+    the bf16 NIF budget, but for the chain's rounding tail, with the bf16
+    chain."""
+    pairs = [(got.radiance.stack(), ref.radiance.stack())]
+    stats_ok = (got.lum2 is None) == (ref.lum2 is None)
+    if ref.lum2 is not None and got.lum2 is not None:
+        pairs.append((got.lum2.sqrt()[None], ref.lum2.sqrt()[None]))
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
+    med = mx = tail = 0.0
+    for a, b in pairs:
+        rel = rel_err(a, b)
+        med, mx = max(med, float(rel.median())), max(mx, float(rel.max()))
+        tail = max(tail, float((rel > NIF_MAX).any(dim=0).float().mean()))
+    close = (all(torch.equal(a, b) for a, b in pairs) if int8
+             else med < NIF_MEDIAN and tail <= NIF_TAIL_FRACTION and mx < NIF_TAIL_MAX)
+    phase(name, stats_ok and finite and close and torch.equal(got.path_len, ref.path_len),
+          path_len_equal=torch.equal(got.path_len, ref.path_len), median_rel=f"{med:.2e}",
+          max_rel=f"{mx:.2e}", lanes_above_8e2=f"{tail:.2e}", max_abs_err=f"{err:.3e}",
+          stats=ref.lum2 is not None)
+    return err
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -210,11 +308,16 @@ def main() -> None:
 
     from ipu_path_trace_tpu_torch.core.records import to_device_batch
     from ipu_path_trace_tpu_torch.core.scene import default_scene
+    from ipu_path_trace_tpu_torch.core.scenefile import scene_from_dict
     from ipu_path_trace_tpu_torch.core.vecmath import Vec3
+    from ipu_path_trace_tpu_torch.models.envlight import NifEnv
     from ipu_path_trace_tpu_torch.models.nif import load_nif_assets
     from ipu_path_trace_tpu_torch.models.quant import quantize_nif
     from ipu_path_trace_tpu_torch.ops import _lib, megastep, nif, trace
-    from ipu_path_trace_tpu_torch.render.params import RenderSettings
+    from ipu_path_trace_tpu_torch.render.adaptive import (adaptive_caps, adaptive_render_step,
+                                                          compute_budgets)
+    from ipu_path_trace_tpu_torch.render.params import RenderSettings, StaticConfig
+    from ipu_path_trace_tpu_torch.render.wavefront import render_step
     from ipu_path_trace_tpu_torch.runtime import cli
     from ipu_path_trace_tpu_torch.runtime.app import parse_env_assets
     from ipu_path_trace_tpu_torch.runtime.worklist import coherent_order, create_tracing_jobs
@@ -237,12 +340,68 @@ def main() -> None:
     q8 = parse_env_assets(str(ROOT / INT8_ASSET), dev, "int8")[0].model  # the QAT grids
     q8_canonical = quantize_nif(weights, meta, device=dev)  # lattice-calibrated
     q8_mixed = quantize_nif(mixed_weights, mixed_meta, device=dev)
+    enclosed = scene_from_dict(ENCLOSED_SCENE, dev)
     gen = np.random.default_rng(2024)
 
-    def grid(w, h):
-        wl = coherent_order(create_tracing_jobs(w, h), scene, w, h, 90.0)
+    def grid(w, h, on=None):
+        wl = coherent_order(create_tracing_jobs(w, h), on or scene, w, h, 90.0)
         work = to_device_batch(wl, dev)
         return work.u.float(), work.v.float()
+
+    def sobol_ctx(cols, rows, width):
+        """(pixel id, per-lane base from the numpy seed, key) of Sobol mode."""
+        pid = rows.to(torch.int32) * width + cols.to(torch.int32)
+        base = torch.from_numpy(gen.integers(0, 4096, cols.shape[0]).astype(np.int32)).to(dev)
+        return pid, base, SOBOL_KEY
+
+    def random_budgets(n, most):
+        groups = -(-n // megastep.BUDGET_BLOCK)
+        return torch.from_numpy(gen.integers(1, most + 1, groups).astype(np.int32)).to(dev)
+
+    def mode_checks(tag, cols, rows, kw, settings, seed, noise):
+        """Phase 5b's checks at one shape: K1 Sobol, then K3's modes with
+        both chains (host noise covers the budgets), then env-skip on
+        against off on the enclosed scene."""
+        sob = sobol_ctx(cols, rows, kw["width"])
+        for dims in (SOBOL_DIMS, 4 + 4 * kw["max_path_length"]):
+            err["trace_sobol"] = max(err.get("trace_sobol", 0.0), trace_exact(
+                f"K1 sobol {dims} dims {tag}",
+                trace.trace_sample(scene, settings, cols, rows, seed, sample_index=3, sobol=sob,
+                                   sobol_dims=dims, **kw),
+                trace.trace_sample_plain(scene, settings, cols, rows, seed, sample_index=3,
+                                         sobol=sob, sobol_dims=dims, **kw)))
+        budgets = random_budgets(cols.shape[0], noise.shape[0])
+        sobol = dict(sobol=sob, sobol_dims=SOBOL_DIMS)
+        stats = dict(budgets=budgets, with_stats=True)
+        modes = [("sobol", "sobol", dict(seed=seed, **sobol)),
+                 ("budgets+stats", "budgets_stats", dict(seed=seed, **stats)),
+                 ("budgets+stats host-noise", "budgets_stats", dict(noise=noise, **stats)),
+                 ("env-skip", "env_skip", dict(seed=seed, env_skip=True)),
+                 ("sobol+budgets+stats+env-skip", "sobol_budgets_stats",
+                  dict(seed=seed, env_skip=True, **sobol, **stats))]
+        ecols, erows = grid(kw["width"], kw["height"], enclosed)
+        for m in (model, q8):
+            int8 = is_int8(m)
+            prefix, label8 = ("megastep_int8", "int8 ") if int8 else ("megastep", "")
+            for label, key, args in modes:
+                key = f"{prefix}_{key}"
+                err[key] = max(err.get(key, 0.0), mode_check(
+                    f"K3 {label8}{label} {tag}",
+                    megastep.render_megastep(scene, settings, m, cols, rows, **args, **kw),
+                    megastep.render_megastep_plain(scene, settings, m, cols, rows, **args, **kw),
+                    int8))
+            on, off = (megastep.render_megastep(enclosed, settings, m, ecols, erows, seed,
+                                                env_skip=skip, with_stats=True, **kw)
+                       for skip in (True, False))
+            phase(f"K3 {label8}env-skip on = off, enclosed {tag}",
+                  all(torch.equal(as_tensor(a), as_tensor(b)) for a, b in zip(on, off))
+                  and float((on.radiance.stack() > 0.0).float().mean()) > 0.99)
+            key = f"{prefix}_env_skip_enclosed"
+            err[key] = max(err.get(key, 0.0), mode_check(
+                f"K3 {label8}env-skip enclosed {tag}", on,
+                megastep.render_megastep_plain(enclosed, settings, m, ecols, erows, seed,
+                                               env_skip=True, with_stats=True, **kw),
+                int8))
 
     # 3. K1 ------------------------------------------------------------------
     L = 10
@@ -298,9 +457,14 @@ def main() -> None:
             megastep.render_megastep_plain(scene, settings, m, cols, rows, noise=noise3_t,
                                            **kw))
 
+    # 5b. the Sobol, budget/statistics and env-skip modes -------------------
+    mode_checks("256x256", cols, rows, kw, settings, (13, 14), noise3_t)
+
     # 6. main path through the CLI ------------------------------------------
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
+    enclosed_json = out_dir / "enclosed.json"
+    enclosed_json.write_text(json.dumps(ENCLOSED_SCENE))
     counters = (trace.trace_sample, nif.nif_env_shade, megastep.render_megastep,
                 nif.nif_apply_t)
     plains = (trace.trace_sample_plain, nif.nif_env_shade_plain,
@@ -308,26 +472,48 @@ def main() -> None:
     steps = MAIN_SPP // MAIN_SPS
     bake_chunks = -(-meta.image_shape[0] // BAKE_ROWS)
     int8_flags = ["--nif-precision", "int8"]
-    # (name, asset, flags, fused, launches of trace, env shade, megastep, nif apply)
+    adaptive = ["--device-film", "--adaptive", "--adaptive-min", str(ADAPTIVE_MIN)]
+    sobol_flags = ["--sampler", "sobol"]
+    # A fused NIF run resolves the default --env-skip auto with a probe of
+    # two K1 launches; the unfused and baked runs have no skip to resolve.
+    probe = 2
+    fused_want = [probe, 0, steps, 0]
+    # (name, asset, flags, fused, launches of trace, env shade, megastep, nif
+    # apply, what --env-skip auto resolves to: "on", "off" or None = no probe)
     runs = [
-        ("main fused", ASSET, [], True, [0, 0, steps, 0]),
-        ("main unfused", ASSET, [], False, [MAIN_SPP, MAIN_SPP, 0, 0]),
-        ("main int8 fused", INT8_ASSET, int8_flags, True, [0, 0, steps, 0]),
-        ("main int8 unfused", INT8_ASSET, int8_flags, False, [MAIN_SPP, MAIN_SPP, 0, 0]),
-        ("main baked", ASSET, ["--nif-mode", "baked"], True, [MAIN_SPP, 0, 0, bake_chunks]),
+        ("main fused", ASSET, [], True, fused_want, "off"),
+        ("main unfused", ASSET, [], False, [MAIN_SPP, MAIN_SPP, 0, 0], None),
+        ("main int8 fused", INT8_ASSET, int8_flags, True, fused_want, "off"),
+        ("main int8 unfused", INT8_ASSET, int8_flags, False, [MAIN_SPP, MAIN_SPP, 0, 0], None),
+        ("main baked", ASSET, ["--nif-mode", "baked"], True, [MAIN_SPP, 0, 0, bake_chunks],
+         None),
         ("main baked int8", INT8_ASSET, int8_flags + ["--nif-mode", "baked"], True,
-         [MAIN_SPP, 0, 0, bake_chunks]),
+         [MAIN_SPP, 0, 0, bake_chunks], None),
+        ("device film", ASSET, ["--device-film"], True, fused_want, "off"),
+        # Fetched and saved at the last step only: what the device film saves.
+        ("device film save-interval 2", ASSET, ["--device-film", "--save-interval", "2"], True,
+         fused_want, "off"),
+        ("device film adaptive", ASSET, adaptive, True, fused_want, "off"),
+        ("sobol fused", ASSET, sobol_flags, True, fused_want, "off"),
+        ("sobol unfused", ASSET, sobol_flags, False, [MAIN_SPP, MAIN_SPP, 0, 0], None),
+        ("env-skip on open scene", ASSET, ["--env-skip", "on"], True, [0, 0, steps, 0], None),
+        ("enclosed scene", ASSET, ["--scene", str(enclosed_json)], True, fused_want, "on"),
+        ("int8 device film adaptive sobol", INT8_ASSET, int8_flags + adaptive + sobol_flags,
+         True, fused_want, "off"),
     ]
-    lum, launches = {}, {}
+    lum, launches, frames, wall, step_s, save_s = {}, {}, {}, {}, {}, {}
     # The app's per-step, per-save and bake seconds, on stdout (cli.main's
     # own logging set-up then keeps this handler).
     logging.basicConfig(stream=sys.stdout, level=logging.INFO,
                         format="  app: %(asctime)s %(message)s")
-    for name, asset, flags, fused, want in runs:
+    app_log = LogLines()
+    logging.getLogger().addHandler(app_log)
+    for name, asset, flags, fused, want, want_skip in runs:
         png = out_dir / f"{name.replace(' ', '_')}.png"
         argv = ["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(MAIN_SPP),
                 "--samples-per-step", str(MAIN_SPS), "--assets", str(ROOT / asset),
                 "-o", str(png), *flags]
+        app_log.lines.clear()
         for f in counters:
             f.launches = 0
         for f in plains:
@@ -342,25 +528,43 @@ def main() -> None:
         launches[name] = dict(zip(("trace", "env_shade", "megastep", "nif_apply"), got))
         mean, se, hdr = frame_luminance(png.with_suffix(".exr"))
         lum[name] = (mean, se)
-        phase(name, rc == 0 and got == want and not any(plain_cuda)
+        frames[name] = hdr
+        wall[name] = secs
+        step_s[name] = app_log.seconds("Completed render step")
+        save_s[name] = app_log.seconds("Saved images")
+        skip = app_log.env_skip_auto()
+        phase(name, rc == 0 and got == want and not any(plain_cuda) and skip == want_skip
               and bool(np.isfinite(hdr).all()) and hdr.shape == (MAIN_H, MAIN_W, 3),
               launches_trace_shade_megastep_apply=got, plain_runs_on_cuda=plain_cuda,
-              mean_luminance=f"{mean:.6f}", mc_se=f"{se:.2e}",
+              env_skip_auto=skip, mean_luminance=f"{mean:.6f}", mc_se=f"{se:.2e}",
               mpaths_per_s_incl_setup=f"{MAIN_W * MAIN_H * MAIN_SPP / secs / 1e6:.2f}",
               wall_s=f"{secs:.2f}")
 
     def gap(a, b):
         return abs(lum[a][0] - lum[b][0]), 5.0 * math.hypot(lum[a][1], lum[b][1])
 
-    for a, b in (("main fused", "main unfused"), ("main int8 fused", "main int8 unfused")):
+    for a, b in (("main fused", "main unfused"), ("main int8 fused", "main int8 unfused"),
+                 ("sobol fused", "sobol unfused")):
         g, bound = gap(a, b)
         phase(f"{a} vs unfused", g <= bound, luminance_gap=f"{g:.3e}", bound_5se=f"{bound:.3e}")
+    # Same seeds, same samples: the film rebuilt from the device's running
+    # sums is the host film's step-wise sum, up to the order of f32 adds.
+    for name in ("device film", "device film save-interval 2"):
+        rel = float(np.max(np.abs(frames[name] - frames["main fused"])
+                           / (np.abs(frames["main fused"]) + 1e-6)))
+        phase(f"{name} = host film", rel < 1e-5, max_rel=f"{rel:.2e}")
     for a, b in (("main int8 fused", "main fused"), ("main baked", "main fused"),
-                 ("main baked int8", "main int8 fused")):
+                 ("main baked int8", "main int8 fused"), ("device film adaptive", "main fused"),
+                 ("sobol fused", "main fused"),
+                 ("int8 device film adaptive sobol", "main int8 fused")):
         g, bound = gap(a, b)
         print(f"[gap] {a} vs {b}: mean luminance {lum[a][0]:.6f} vs {lum[b][0]:.6f}, "
               f"gap {g:.3e} ({g / lum[b][0]:.2%}), 5 SE {bound:.3e} (information only)",
               flush=True)
+    for name in ("main fused", "device film", "device film save-interval 2",
+                 "device film adaptive"):
+        print(f"[timing] film: {name}: wall {wall[name]:.3f} s, steps {step_s[name]} s, "
+              f"saves {save_s[name]} s", flush=True)
 
     # 7. checks and timing at the main path's shapes ------------------------
     # 1,104,000 lanes end in a partial block, so the kernels' tail masks run
@@ -392,16 +596,29 @@ def main() -> None:
         err[name] = max(err[name], apply_check(
             f"K4 {'int8 ' if is_int8(m) else ''}bake chunk {BAKE_ROWS}x{bake_w}", m, bake_u,
             bake_v))
+    # Phase 5b's modes at the main path's shapes, host noise for 8 samples
+    # made on the card.
+    noise_gen = torch.Generator(device=dev).manual_seed(2025)
+    noise8 = torch.rand((MAIN_SPS, 4 + 4 * kw["max_path_length"], cols.shape[0]),
+                        generator=noise_gen, device=dev)
+    noise8[:, 0:2] = torch.randn((MAIN_SPS, 2, cols.shape[0]), generator=noise_gen, device=dev)
+    mode_checks("1104x1000", cols, rows, kw, settings, seed, noise8)
+    del noise8
     times = {}
 
+    def versus(a, b, a_reps, b_reps):
+        """b, a, a, b: two versions in turns on one card; ms per call of each."""
+        b1 = cuda_ms(b, b_reps)
+        a1 = cuda_ms(a, a_reps)
+        a2 = cuda_ms(a, a_reps)
+        b2 = cuda_ms(b, b_reps)
+        return (a1 + a2) / 2, (b1 + b2) / 2
+
     def turns(name, kernel, plain, k_reps, p_reps, k_per=1, unit="full-frame sample"):
-        """plain, kernel, kernel, plain: the two versions in turns, one card;
-        ms per unit (a kernel launch may render k_per)."""
-        a = cuda_ms(plain, p_reps)
-        b = cuda_ms(kernel, k_reps)
-        c = cuda_ms(kernel, k_reps)
-        e = cuda_ms(plain, p_reps)
-        times[name] = ((b + c) / 2 / k_per, (a + e) / 2)
+        """The kernel and its plain version in turns; ms per unit (a kernel
+        launch may render k_per)."""
+        k, p = versus(kernel, plain, k_reps, p_reps)
+        times[name] = (k / k_per, p)
         print(f"[timing] {name}: kernel {times[name][0]:.3f} ms, plain "
               f"{times[name][1]:.3f} ms per {unit}", flush=True)
 
@@ -426,19 +643,97 @@ def main() -> None:
         print(f"[timing] {name} fused step device rate: "
               f"{MAIN_W * MAIN_H / times[name][0] / 1e3:.1f} Mpaths/s (information only)")
 
+    # The new modes.  Budgets of 8 for every block (the uniform step's
+    # work) time the budget and statistics path itself; the plain version
+    # renders one sample (budgets of 1).
+    sob = sobol_ctx(cols, rows, MAIN_W)
+    groups = -(-cols.shape[0] // megastep.BUDGET_BLOCK)
+    eights = torch.full((groups,), MAIN_SPS, dtype=torch.int32, device=dev)
+    ones = torch.ones_like(eights)
+    sobol = dict(sobol=sob, sobol_dims=SOBOL_DIMS)
+    turns("trace_sobol",
+          lambda: trace.trace_sample(scene, settings, cols, rows, seed, **sobol, **kw),
+          lambda: trace.trace_sample_plain(scene, settings, cols, rows, seed, **sobol, **kw),
+          10, 2)
+    ecols, erows = grid(MAIN_W, MAIN_H, enclosed)
+    for name, m, sc, c, r, k_args, p_args in (
+            ("megastep_sobol", model, scene, cols, rows, sobol, sobol),
+            ("megastep_budgets_stats", model, scene, cols, rows,
+             dict(budgets=eights, with_stats=True), dict(budgets=ones, with_stats=True)),
+            ("megastep_env_skip", model, scene, cols, rows, dict(env_skip=True),
+             dict(env_skip=True)),
+            ("megastep_env_skip_enclosed", model, enclosed, ecols, erows, dict(env_skip=True),
+             dict(env_skip=True)),
+            ("megastep_int8_sobol_budgets_stats", q8, scene, cols, rows,
+             dict(budgets=eights, with_stats=True, **sobol),
+             dict(budgets=ones, with_stats=True, **sobol))):
+        turns(name,
+              lambda: megastep.render_megastep(sc, settings, m, c, r, seed, **k_args, **kw),
+              lambda: megastep.render_megastep_plain(sc, one, m, c, r, seed, **p_args, **kw),
+              3, 2, k_per=MAIN_SPS)
+    # The env-skip guard: its cost where nearly every sub-tile escapes,
+    # and its saving where none does (there K3 is the trace alone, so
+    # 1 - on/off is the NIF chain's share of K3).
+    guard = {}
+    for tag, sc, c, r in (("open", scene, cols, rows), ("enclosed", enclosed, ecols, erows)):
+        for m, suffix in ((model, ""), (q8, " int8")):
+            on, off = versus(
+                lambda: megastep.render_megastep(sc, settings, m, c, r, seed, env_skip=True, **kw),
+                lambda: megastep.render_megastep(sc, settings, m, c, r, seed, **kw), 3, 3)
+            guard[tag + suffix] = (on / MAIN_SPS, off / MAIN_SPS)
+            print(f"[timing] K3{suffix} env-skip on vs off, {tag} scene: {on / MAIN_SPS:.3f} vs "
+                  f"{off / MAIN_SPS:.3f} ms per full-frame sample ({on / off - 1:+.2%})",
+                  flush=True)
+    for suffix in ("", " int8"):
+        on, off = guard["enclosed" + suffix]
+        phase(f"K3{suffix} env-skip fires on the enclosed scene", on < 0.25 * off,
+              on_ms=f"{on:.3f}", off_ms=f"{off:.3f}", chain_share=f"{1 - on / off:.2%}")
+    # The adaptive step against the uniform one, from the state of one
+    # cold (uniform) and one adaptive step of the device film.
+    static = StaticConfig(width=MAIN_W, height=MAIN_H, max_path_length=kw["max_path_length"],
+                          adaptive_min=ADAPTIVE_MIN)
+    env = NifEnv(model)
+    work = to_device_batch(
+        coherent_order(create_tracing_jobs(MAIN_W, MAIN_H), scene, MAIN_W, MAIN_H, 90.0), dev)
+    lum2 = torch.zeros(work.u.shape[0], dtype=torch.float32, device=dev)
+    for s in range(2):
+        work, lum2 = adaptive_render_step(scene, settings, static, work, lum2, (9, s), env)
+    min_spp, cap = adaptive_caps(static, MAIN_SPS)
+    budgets = compute_budgets(work.r, work.g, work.b, lum2, work.sample_count,
+                              block_size=megastep.BUDGET_BLOCK, samples_per_step=MAIN_SPS,
+                              min_spp=min_spp, max_spp=cap)
+    ada, uni = versus(lambda: adaptive_render_step(scene, settings, static, work, lum2, seed, env),
+                      lambda: render_step(scene, settings, static, work, seed, env), 3, 3)
+    times["adaptive_step"] = (ada, uni)
+    print(f"[timing] adaptive step {ada:.3f} ms vs uniform step {uni:.3f} ms ({ada / uni - 1:+.2%});"
+          f" budgets min {int(budgets.min())} max {int(budgets.max())} (cap {cap}), total "
+          f"{int(budgets.sum())} of {groups * MAIN_SPS}", flush=True)
+
+    k1 = "ipu_path_trace_tpu/ops/trace_pallas.py:549"
     k2 = "ipu_path_trace_tpu/ops/nif_pallas.py:432"
     k3 = "ipu_path_trace_tpu/ops/megastep_pallas.py:433"
     k4 = "ipu_path_trace_tpu/ops/nif_pallas.py:349"
     k5 = "ipu_path_trace_tpu/ops/nif_pallas.py:257"  # the int8 chain inside K2, K3 and K4
     rows_out = [
-        ("trace", "csrc/trace.cu", "ipu_path_trace_tpu/ops/trace_pallas.py:549",
-         launches["main unfused"]["trace"]),
+        ("trace", "csrc/trace.cu", k1, launches["main unfused"]["trace"]),
         ("env_shade", "csrc/nif.cu", k2, launches["main unfused"]["env_shade"]),
         ("env_shade_int8", "csrc/nif.cu", k5, launches["main int8 unfused"]["env_shade"]),
         ("megastep", "csrc/megastep.cu", k3, launches["main fused"]["megastep"]),
         ("megastep_int8", "csrc/megastep.cu", k5, launches["main int8 fused"]["megastep"]),
         ("nif_apply", "csrc/nif.cu", k4, launches["main baked"]["nif_apply"]),
         ("nif_apply_int8", "csrc/nif.cu", k5, launches["main baked int8"]["nif_apply"]),
+        # The modes of this slice, each with the launches of the CLI run
+        # that drove it.
+        ("trace_sobol", "csrc/trace.cu", k1, launches["sobol unfused"]["trace"]),
+        ("megastep_sobol", "csrc/megastep.cu", k3, launches["sobol fused"]["megastep"]),
+        ("megastep_budgets_stats", "csrc/megastep.cu", k3,
+         launches["device film adaptive"]["megastep"]),
+        ("megastep_env_skip", "csrc/megastep.cu", k3,
+         launches["env-skip on open scene"]["megastep"]),
+        ("megastep_env_skip_enclosed", "csrc/megastep.cu", k3,
+         launches["enclosed scene"]["megastep"]),
+        ("megastep_int8_sobol_budgets_stats", "csrc/megastep.cu", k5,
+         launches["int8 device film adaptive sobol"]["megastep"]),
     ]
     report = {"kernels": [
         {"name": n, "route": "cuda", "source": f"ipu_path_trace_tpu_torch/{src}", "replaces": rep,
@@ -448,7 +743,9 @@ def main() -> None:
         raise SystemExit(f"chip_smoke: failed phases: {failures}")
     (out_dir / "report.json").write_text(json.dumps(
         {**report, "nvidia_smi": smi, "build_seconds": build_s, "ptxas": ptxas,
-         "main_launches": launches, "main_luminance": lum}, indent=1))
+         "main_launches": launches, "main_luminance": lum, "main_wall_s": wall,
+         "main_step_s": step_s, "main_save_s": save_s, "env_skip_on_off_ms": guard,
+         "adaptive_vs_uniform_step_ms": times["adaptive_step"]}, indent=1))
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,12 +18,16 @@
 // (jitter pair + lens pair), group 1 + b is bounce b.  The stream does not
 // depend on the launch geometry, so the trace and megastep kernels draw
 // identical numbers for the same seed, and ops/trace.py::philox_noise
-// replays it on the host.
+// replays it on the host.  Sobol mode (SobolNoise) takes the first
+// prm.sobol_dims dims (whole groups) from the lane's Owen-scrambled Sobol
+// sequence (render/qmc.py) and the groups past them from Philox as above.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sobol_dirs.cuh"
 
 #define PT_HD __device__ __forceinline__
 
@@ -41,9 +45,15 @@ constexpr int kDiscF = 15;  // nx ny nz cx cy cz r | cr cg cb | er eg eb | emiss
 // Mirrored by ops/_lib.py::TraceParams (ctypes); keep the field order.
 struct TraceParams {
   float tanfov_x, tanfov_y, aa_scale, refr_index, stop_prob, aperture, focal, azimuth;
-  int width, height, max_path_length, roulette_depth, aa_type, num_s, num_d, pad0;
+  int width, height, max_path_length, roulette_depth, aa_type, num_s, num_d;
+  int sobol_dims;  // Sobol mode: leading noise rows from the sequence (a multiple of 4)
   uint32_t seed0, seed1;
+  uint32_t sobol_key, pad0;  // Sobol mode: the render-wide scramble key
 };
+
+// Noise source of a kernel instantiation: Philox (hardware), host rows,
+// or the Owen-Sobol prefix with a Philox tail.
+enum RngMode { kRngPhilox = 0, kRngHost = 1, kRngSobol = 2 };
 
 enum AaType { kAaUniform = 0, kAaNormal = 1, kAaTruncatedNormal = 2 };
 
@@ -103,6 +113,71 @@ struct HostNoise {
     for (int j = 0; j < 4; ++j) out[j] = __ldg(lane0 + (long long)(4 * g + j) * stride);
   }
 };
+
+// Owen-scrambled Sobol (render/qmc.py, in uint32 registers).
+PT_HD uint32_t lowbias32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+PT_HD uint32_t laine_karras(uint32_t x, uint32_t seed) {
+  x += seed;
+  x ^= x * 0x6C50B47Cu;
+  x ^= x * 0xB82F1E52u;
+  x ^= x * 0xC7AFE638u;
+  x ^= x * 0x8D22F6E6u;
+  return x;
+}
+
+struct SobolNoise {
+  static constexpr bool kJitterDistributed = false;
+  uint32_t h;  // scrambled index word: laine_karras(reverse_bits(idx), pixel seed)
+  uint32_t key;
+  int dims;
+  PhiloxNoise tail;  // groups at and past dims / 4
+
+  // Dimension d of the sample: the XOR of the reversed direction numbers
+  // of h's set bits, then the dimension's output scramble.  The sum runs
+  // over all 32 bits with each bit as a mask, not over the set bits
+  // alone: every lane of a warp then reads the same constant-memory
+  // word at each step (a broadcast) and no lane diverges.  Nothing is
+  // hoisted across dims: the 32 per-bit masks would cost 32 registers.
+  PT_HD float unit(int d) const {
+    uint32_t acc;
+    if (d == 0) {
+      acc = __brev(h);  // dimension 0 is the identity matrix
+    } else {
+      acc = 0u;
+#pragma unroll
+      for (int k = 0; k < 32; ++k) acc ^= (0u - ((h >> (31 - k)) & 1u)) & kSobolRevDirs[d][k];
+    }
+    return u24(__brev(laine_karras(acc, lowbias32(key + (uint32_t)d * 0x9E3779B9u))));
+  }
+
+  PT_HD void group(int g, float out[4]) const {
+    if (4 * g < dims) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[j] = unit(4 * g + j);
+    } else {
+      tail.group(g, out);
+    }
+  }
+};
+
+// Sample `sample` of lane `lane`: Sobol point idx of pixel pixel_id.
+PT_HD SobolNoise sobol_noise(const TraceParams& prm, int pixel_id, uint32_t idx, uint32_t lane,
+                             uint32_t sample) {
+  SobolNoise s;
+  s.h = laine_karras(__brev(idx), lowbias32((uint32_t)pixel_id + prm.sobol_key));
+  s.key = prm.sobol_key;
+  s.dims = prm.sobol_dims;
+  s.tail = PhiloxNoise{prm.seed0, prm.seed1, lane, sample};
+  return s;
+}
 
 // AA jitter from two uniforms: uniform, normal (Box-Muller) or
 // truncated-normal clipped at +/- 3 sigma (ops/trace_pallas.draw_aa_jitter).

@@ -29,6 +29,11 @@ class Film:
         self.height = height
         self.hdr = np.zeros((height, width, 3), np.float32)
 
+    def reset(self) -> None:
+        """Zero the film (the device film rebuilds it from the running
+        sums at every fetch)."""
+        self.hdr[:] = 0.0
+
     def accumulate(self, records: np.ndarray) -> None:
         """Add one step's trace records: each adds rgb / sampleCount;
         padding records (0xFFFF coords) and empty records are skipped."""

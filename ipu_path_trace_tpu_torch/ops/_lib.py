@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface.  At first use they
-are compiled by nvcc for sm_90a into one shared library under
-``build/kernels/`` at the root of the checkout (named by a hash of the
-sources and flags, so an edit rebuilds) and loaded with ctypes.  Nothing
-here runs at import time: the CPU tests import every module of the port
-on machines without nvcc or a GPU.
+The sources under ``csrc/`` have a plain C interface.  At first use
+nvcc compiles each of them for sm_90a, all at once in parallel processes,
+and links the objects into one shared library under ``build/kernels/`` at
+the root of the checkout (named by a hash of the sources and flags, so an
+edit rebuilds), which is loaded with ctypes.  Nothing here runs at import
+time: the CPU tests import every module of the port on machines without
+nvcc or a GPU.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("trace.cu", "nif.cu", "megastep.cu")
-HEADERS = ("common.cuh", "nif_dev.cuh")
+HEADERS = ("common.cuh", "nif_dev.cuh", "sobol_dirs.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
     # replays its plain version instead of diverging on tangent rays and
     # Fresnel choices.  The NIF chain's products run on the tensor cores.
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers and spills go to the build log
 )
 NIF_MAX_LAYERS = 16  # csrc/nif_dev.cuh kNifMaxLayers
@@ -66,12 +67,25 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{tag}.{Path(src).stem}.o") for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [src for src, proc in zip(SOURCES, procs) if proc.returncode]
+    tmp = out.with_name(f"{tag}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        failed = ["link"] if link.returncode else []
+    out.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{''.join(logs)[-4000:]}")
     os.replace(tmp, out)
     return out
 
@@ -85,8 +99,8 @@ class TraceParams(ctypes.Structure):
             "aperture", "focal", "azimuth")]
         + [(n, ctypes.c_int) for n in (
             "width", "height", "max_path_length", "roulette_depth", "aa_type",
-            "num_s", "num_d", "pad0")]
-        + [("seed0", ctypes.c_uint32), ("seed1", ctypes.c_uint32)]
+            "num_s", "num_d", "sobol_dims")]
+        + [(n, ctypes.c_uint32) for n in ("seed0", "seed1", "sobol_key", "pad0")]
     )
 
 
@@ -118,12 +132,13 @@ _I = ctypes.c_int
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels; declares every signature."""
     lib = ctypes.CDLL(str(build()))
-    lib.pt_trace.argtypes = [ctypes.POINTER(TraceParams), _P, _P, _P, _P, _P, _I, _I,
+    lib.pt_trace.argtypes = [ctypes.POINTER(TraceParams), _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _P, _P, _P, _P, _P, _P]
     lib.pt_env_shade.argtypes = [ctypes.POINTER(NifNet), _P, _P, ctypes.c_float, _I, _P, _P]
     lib.pt_nif_apply.argtypes = [ctypes.POINTER(NifNet), _P, _P, _I, _P, _P]
     lib.pt_megastep.argtypes = [ctypes.POINTER(TraceParams), ctypes.POINTER(NifNet),
-                                _P, _P, _P, _P, _P, _I, _I, _P, _P, _P]
+                                _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                                _P]
     lib.pt_error_string.argtypes = [_I]
     lib.pt_error_string.restype = ctypes.c_char_p
     for fn in (lib.pt_trace, lib.pt_env_shade, lib.pt_nif_apply, lib.pt_megastep):

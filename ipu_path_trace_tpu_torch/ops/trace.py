@@ -6,13 +6,15 @@ tensors it runs ``trace_sample_plain``, the plain PyTorch version
 (render/wavefront.trace_sample_with_uniforms, the port of the
 reference's XLA twin).
 
-Two noise modes, as the reference kernel: ``noise`` (host noise, the
-(4 + 4L, P) row layout of render/wavefront.sample_noise) or ``seed``
-(two uint32 words keying the in-kernel Philox4x32-10 stream; see
-csrc/common.cuh).  ``philox_noise`` replays that stream on the host in
-the host-noise layout, which is how the plain version serves the
-hardware mode.  The Owen-Sobol mode is not ported (ROADMAP queue 1
-item 10).
+Three noise modes, as the reference kernel: ``noise`` (host noise, the
+(4 + 4L, P) row layout of render/wavefront.sample_noise), ``seed`` (two
+uint32 words keying the in-kernel Philox4x32-10 stream; see
+csrc/common.cuh), and ``seed`` with ``sobol=(pixel_id, base, key)``: the
+first ``sobol_dims`` rows from each lane's Owen-scrambled Sobol sequence
+at index base + sample_index (render/qmc.py), the rest from Philox.
+``philox_noise`` replays the Philox stream on the host in the host-noise
+layout, and render/wavefront.sobol_prefix writes the Sobol rows over it:
+that is how the plain version serves the hardware modes.
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ def tan_fov(fov: float, width: int, height: int, device) -> tuple[float, float]:
 
 def trace_params(scene: Scene, settings, *, width: int, height: int,
                  max_path_length: int, aa_noise_type: str,
-                 seed: tuple[int, int] | None, device) -> _lib.TraceParams:
+                 seed: tuple[int, int] | None, device, sobol=None,
+                 sobol_dims: int = 0) -> _lib.TraceParams:
     if aa_noise_type not in _AA_TYPES:
         raise ValueError(f"Invalid AA noise type: {aa_noise_type!r}")
     tx, ty = tan_fov(settings.fov, width, height, device)
@@ -81,7 +84,25 @@ def trace_params(scene: Scene, settings, *, width: int, height: int,
         azimuth=settings.azimuth, width=width, height=height,
         max_path_length=max_path_length, roulette_depth=settings.roulette_depth,
         aa_type=_AA_TYPES[aa_noise_type], num_s=scene.num_spheres,
-        num_d=scene.num_discs, pad0=0, seed0=s0, seed1=s1)
+        num_d=scene.num_discs, sobol_dims=sobol_dims if sobol is not None else 0,
+        seed0=s0, seed1=s1, sobol_key=0 if sobol is None else int(sobol[2]) & _MASK32, pad0=0)
+
+
+def check_sobol(sobol, sobol_dims: int, max_path_length: int, seed, n: int) -> None:
+    """The Sobol mode's operands: (pixel_id, base, key) with (P,) int32
+    ids and bases, hardware mode (a seed for the Philox tail), and a
+    prefix of whole groups within the noise layout."""
+    if sobol is None:
+        if sobol_dims:
+            raise ValueError("sobol_dims needs sobol=(pixel_id, base, key)")
+        return
+    if seed is None:
+        raise ValueError("sobol mode is hardware mode (host noise carries its own Sobol rows)")
+    if sobol_dims < 4 or sobol_dims % 4 or sobol_dims > 4 + 4 * max_path_length:
+        raise ValueError(f"sobol_dims {sobol_dims} must be a multiple of 4 in [4, 4 + 4L]")
+    for t in sobol[:2]:
+        if t.dtype != torch.int32 or t.shape != (n,):
+            raise ValueError("sobol pixel_id/base must be (P,) int32")
 
 
 # ---------------------------------------------------------------- Philox ----
@@ -145,10 +166,11 @@ def philox_noise(seed: tuple[int, int], sample_index: int, n: int,
 
 def trace_sample_plain(scene: Scene, settings, cols, rows, seed=None, *,
                        noise=None, sample_index: int = 0, width: int, height: int,
-                       max_path_length: int, aa_noise_type: str = "normal") -> TraceOut:
+                       max_path_length: int, aa_noise_type: str = "normal", sobol=None,
+                       sobol_dims: int = 0) -> TraceOut:
     """Plain PyTorch version of the trace kernel."""
     from ..render.params import StaticConfig
-    from ..render.wavefront import trace_sample_with_uniforms
+    from ..render.wavefront import QmcCtx, sobol_prefix, trace_sample_with_uniforms
 
     if cols.is_cuda:
         trace_sample_plain.cuda_runs += 1
@@ -156,6 +178,9 @@ def trace_sample_plain(scene: Scene, settings, cols, rows, seed=None, *,
     if noise is None:
         noise = philox_noise(seed, sample_index, n, max_path_length, aa_noise_type,
                              cols.device)
+        if sobol is not None:
+            noise = sobol_prefix(noise, QmcCtx(*sobol), sample_index, sobol_dims,
+                                 aa_noise_type)
     cfg = StaticConfig(width=width, height=height, max_path_length=max_path_length,
                        aa_noise_type=aa_noise_type)
     st = trace_sample_with_uniforms(scene, settings, cfg, cols, rows, noise[0:2],
@@ -168,40 +193,49 @@ trace_sample_plain.cuda_runs = 0
 
 def trace_sample(scene: Scene, settings, cols, rows, seed=None, *, noise=None,
                  sample_index: int = 0, width: int, height: int,
-                 max_path_length: int, aa_noise_type: str = "normal") -> TraceOut:
+                 max_path_length: int, aa_noise_type: str = "normal", sobol=None,
+                 sobol_dims: int = 0) -> TraceOut:
     """Trace one sample per pixel: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.
 
     Exactly one of ``seed`` ((2,) uint32 words; hardware mode, sample
     ``sample_index`` of the Philox stream) or ``noise`` ((4 + 4L, P) f32
     host noise).  ``cols``/``rows`` are (P,) f32 pixel coordinates.
+    ``sobol=(pixel_id, base, key)`` with ``sobol_dims`` > 0 (hardware
+    mode only) draws the first ``sobol_dims`` rows from the Owen-Sobol
+    sequence at index base + sample_index.
     """
     if (seed is None) == (noise is None):
         raise ValueError("pass exactly one of seed= or noise=")
+    n = cols.shape[0]
+    check_sobol(sobol, sobol_dims, max_path_length, seed, n)
     kw = dict(width=width, height=height, max_path_length=max_path_length,
               aa_noise_type=aa_noise_type)
     if cols.device.type == "cpu":
         return trace_sample_plain(scene, settings, cols, rows, seed, noise=noise,
-                                  sample_index=sample_index, **kw)
-    n = cols.shape[0]
-    operands = [cols, rows] + ([] if noise is None else [noise])
+                                  sample_index=sample_index, sobol=sobol,
+                                  sobol_dims=sobol_dims, **kw)
+    operands = [cols, rows] + ([] if noise is None else [noise]) + (
+        [] if sobol is None else list(sobol[:2]))
     dev = _lib.require_cuda("trace", *operands)
     if cols.dtype != torch.float32 or rows.dtype != torch.float32 or rows.shape != (n,):
         raise ValueError("trace: cols/rows must be (P,) float32")
     if noise is not None and (noise.dtype != torch.float32
                               or noise.shape != (4 + 4 * max_path_length, n)):
         raise ValueError(f"trace: noise must be ({4 + 4 * max_path_length}, {n}) float32")
-    prm = trace_params(scene, settings, seed=seed, device=dev, **kw)
+    prm = trace_params(scene, settings, seed=seed, device=dev, sobol=sobol,
+                       sobol_dims=sobol_dims, **kw)
     sph, dsc = pack_scene(scene.to(dev))
     rad = torch.empty((3, n), dtype=torch.float32, device=dev)
     escd = torch.empty_like(rad)
     escw = torch.empty_like(rad)
     escm = torch.empty(n, dtype=torch.int32, device=dev)
     plen = torch.empty(n, dtype=torch.int32, device=dev)
+    pid, base = (None, None) if sobol is None else sobol[:2]
     err = _lib.library().pt_trace(
         ctypes.byref(prm), _lib.ptr(sph), _lib.ptr(dsc), _lib.ptr(cols), _lib.ptr(rows),
-        _lib.ptr(noise), sample_index, n, _lib.ptr(rad), _lib.ptr(escd), _lib.ptr(escw),
-        _lib.ptr(escm), _lib.ptr(plen), _lib.stream(dev))
+        _lib.ptr(noise), _lib.ptr(pid), _lib.ptr(base), sample_index, n, _lib.ptr(rad),
+        _lib.ptr(escd), _lib.ptr(escw), _lib.ptr(escm), _lib.ptr(plen), _lib.stream(dev))
     _lib.check(err, "trace")
     trace_sample.launches += 1
     return TraceOut(Vec3.unstack(rad), Vec3.unstack(escd), Vec3.unstack(escw),

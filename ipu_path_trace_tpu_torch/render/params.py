@@ -2,8 +2,9 @@
 
 Counterpart of ``ipu_path_trace_tpu/render/params.py`` with the same
 field names and defaults.  PyTorch runs eagerly, so the split between
-"static" and "traced" fields only survives as documentation; fields
-whose feature the port does not have yet are validated by
+"static" and "traced" fields only survives as documentation; the fields
+whose feature the port does not have yet (``use_pallas=False``,
+``pallas_interpret``, ``megastep_stub``) are validated by
 ``render.wavefront.render_step`` and raise when set.
 """
 
@@ -25,11 +26,11 @@ class StaticConfig(NamedTuple):
     use_fused_step: bool = True  # megastep kernel; off = trace + env shade per sample
     pallas_interpret: int = 0  # the port passes host noise explicitly instead
     megastep_stub: str = ""  # not ported (ROADMAP queue 1 item 16)
-    adaptive_min: int = 8  # adaptive sampling (ROADMAP queue 1 item 9)
-    adaptive_max_factor: float = 16.0
-    env_skip: bool = False  # not ported (ROADMAP queue 1 item 11)
-    sampler: str = "prng"  # "sobol" not ported (ROADMAP queue 1 item 10)
-    sobol_dims: int = 12
+    adaptive_min: int = 8  # adaptive sampling: per-block budget floor (render/adaptive.py)
+    adaptive_max_factor: float = 16.0  # budget cap = factor * samples_per_step
+    env_skip: bool = False  # megastep skips the NIF chain for sub-tiles with no escape
+    sampler: str = "prng"  # "prng" (Philox) or "sobol" (render/qmc.py prefix)
+    sobol_dims: int = 12  # leading dims on the Sobol sequence (camera 4 + 4 per bounce)
 
 
 def _f32(x) -> float:
@@ -49,7 +50,7 @@ class RenderSettings(NamedTuple):
     samples_per_step: int
     aperture: float  # thin-lens radius; 0 = pinhole
     focal_distance: float  # focus-plane distance along -z
-    sobol_key: int = 0  # uint32 (unused until --sampler sobol is ported)
+    sobol_key: int = 0  # uint32 Owen-Sobol scramble key (--sampler sobol)
 
     @staticmethod
     def make(

@@ -14,7 +14,13 @@ words per step (sample s of the step is counter word 1 = s); host-noise
 mode takes an explicit (S, 4 + 4L, P) array in the kernels' row layout
 ([0:2] AA jitter already distributed, [2:4] lens uniforms,
 [4+4b : 8+4b] bounce b), which ``sample_noise``/``step_noise`` draw from
-a ``torch.Generator``.
+a ``torch.Generator``.  With ``cfg.sampler == "sobol"`` the first
+``sobol_dims_used(cfg)`` rows come from each lane's Owen-scrambled Sobol
+sequence (render/qmc.py) at index base + s, where base is the lane's
+count of samples so far: the worklist's ``sample_count`` with the device
+film, or the ``sobol_base`` the caller passes (the host film zeroes the
+counts every step).  The rows past that prefix come from the Philox
+stream, in the kernels and in ``sample_noise``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,45 @@ from ..core.scene import Material, Scene
 from ..core.vecmath import Vec3
 from ..models.envlight import NifEnv, eval_env
 from .params import RenderSettings, StaticConfig
+
+
+class QmcCtx(NamedTuple):
+    """Per-lane context of the Owen-Sobol sampler: sample s of a step
+    draws point base + s of pixel ``pixel_id``'s scrambled sequence."""
+
+    pixel_id: torch.Tensor  # (P,) int32 v * width + u
+    base: torch.Tensor  # (P,) int32 samples so far
+    key: int  # uint32 render-wide scramble key (settings.sobol_key)
+
+
+def make_qmc_ctx(work: WorkBatch, cfg: StaticConfig, settings: RenderSettings,
+                 base=None) -> QmcCtx | None:
+    """The Sobol context of a step, or None for the prng sampler;
+    ``base`` (an int or (P,) tensor) overrides ``work.sample_count``."""
+    if cfg.sampler != "sobol":
+        return None
+    pixel_id = work.v.to(torch.int32) * cfg.width + work.u.to(torch.int32)
+    if base is None:
+        base = work.sample_count
+    base = torch.as_tensor(base, dtype=torch.int32, device=pixel_id.device)
+    return QmcCtx(pixel_id=pixel_id, base=base.expand_as(pixel_id).contiguous(),
+                  key=settings.sobol_key)
+
+
+def sobol_dims_used(cfg: StaticConfig) -> int:
+    """Leading noise rows carried by the Sobol sequence: a whole
+    number of bounces after the 4 camera dims, capped by the layout."""
+    if cfg.sampler != "sobol":
+        return 0
+    d = max(4, (cfg.sobol_dims // 4) * 4)
+    return min(d, 4 + 4 * cfg.max_path_length)
+
+
+def _kernel_sobol(cfg: StaticConfig, ctx: QmcCtx | None) -> dict:
+    """The kernels' Sobol arguments (empty for the prng sampler)."""
+    if ctx is None:
+        return {}
+    return dict(sobol=(ctx.pixel_id, ctx.base, ctx.key), sobol_dims=sobol_dims_used(cfg))
 
 
 def apply_thin_lens(d: Vec3, settings: RenderSettings, l1, l2) -> tuple[Vec3, Vec3]:
@@ -139,18 +184,71 @@ def trace_sample_with_uniforms(scene: Scene, settings: RenderSettings, cfg: Stat
     return state
 
 
-def sample_noise(gen: torch.Generator, n: int, cfg: StaticConfig, device="cpu") -> torch.Tensor:
-    """(4 + 4L, n) host noise for one sample, drawn from ``gen`` (a CPU
-    generator) and moved to ``device``."""
-    aa = aa_noise(gen, (2, n), cfg.aa_noise_type)
-    rest = torch.rand((2 + 4 * cfg.max_path_length, n), generator=gen)
-    return torch.cat([aa, rest]).to(device)
+def sobol_prefix(noise: torch.Tensor, ctx: QmcCtx, sample_idx: int, dims: int,
+                 aa_noise_type: str) -> torch.Tensor:
+    """``noise`` (4 + 4L, n) with its first ``dims`` rows replaced by the
+    lanes' Sobol points base + sample_idx: the AA pair through the
+    kernels' jitter transform, the lens and bounce rows as they are."""
+    from ..ops.trace import draw_aa_jitter
+    from .qmc import sobol_uniforms
+
+    us = sobol_uniforms(ctx.base + sample_idx, ctx.pixel_id, ctx.key, range(dims))
+    a1, a2 = draw_aa_jitter(us[0], us[1], aa_noise_type)
+    return torch.cat([torch.stack([a1, a2, *us[2:]]), noise[dims:]])
+
+
+def sample_noise(source, n: int, cfg: StaticConfig, device="cpu", qmc_ctx: QmcCtx | None = None,
+                 sample_idx: int = 0) -> torch.Tensor:
+    """(4 + 4L, n) noise for one sample in the kernels' row layout.
+
+    ``source`` is a ``torch.Generator`` (a CPU generator; host noise moved
+    to ``device``) or two seed words (the Philox stream's sample
+    ``sample_idx``, as the kernels draw it).  With ``qmc_ctx`` the first
+    ``sobol_dims_used(cfg)`` rows are the lanes' Sobol points."""
+    from ..ops.trace import philox_noise
+
+    if isinstance(source, torch.Generator):
+        aa = aa_noise(source, (2, n), cfg.aa_noise_type)
+        rest = torch.rand((2 + 4 * cfg.max_path_length, n), generator=source)
+        noise = torch.cat([aa, rest]).to(device)
+    else:
+        noise = philox_noise(source, sample_idx, n, cfg.max_path_length, cfg.aa_noise_type,
+                             device)
+    dims = sobol_dims_used(cfg) if qmc_ctx is not None else 0
+    if dims:
+        noise = sobol_prefix(noise, qmc_ctx, sample_idx, dims, cfg.aa_noise_type)
+    return noise
 
 
 def step_noise(gen: torch.Generator, n: int, cfg: StaticConfig, samples: int,
-               device="cpu") -> torch.Tensor:
-    """(S, 4 + 4L, n) host noise for ``samples`` samples."""
-    return torch.stack([sample_noise(gen, n, cfg, device) for _ in range(samples)])
+               device="cpu", qmc_ctx: QmcCtx | None = None) -> torch.Tensor:
+    """(S, 4 + 4L, n) host noise for ``samples`` samples (with Sobol rows
+    when ``qmc_ctx`` is given)."""
+    return torch.stack([sample_noise(gen, n, cfg, device, qmc_ctx, s) for s in range(samples)])
+
+
+def dead_block_fraction(scene: Scene, settings: RenderSettings, cfg: StaticConfig, cols, rows,
+                        seed: tuple[int, int], n_samples: int, block_size: int) -> float:
+    """Fraction of ``block_size``-lane blocks of the worklist whose escape
+    weights are all zero, averaged over ``n_samples`` Philox samples: the
+    criterion of the megastep's env-skip guard, at its granularity
+    (ops/megastep.ENV_SKIP_TILE).  The trace is ops/trace.trace_sample:
+    the kernel on CUDA (which equals its plain version bit for bit), the
+    plain version on the CPU.  The ragged tail counts as escaping
+    nothing, as the kernel's masked lanes do."""
+    from ..ops.trace import trace_sample
+
+    n = cols.shape[0]
+    nblk = -(-n // block_size)
+    total = 0.0
+    for s in range(n_samples):
+        st = trace_sample(scene, settings, cols, rows, seed, sample_index=s,
+                          width=cfg.width, height=cfg.height,
+                          max_path_length=cfg.max_path_length, aa_noise_type=cfg.aa_noise_type)
+        escapes = (st.esc_w.stack() != 0.0).any(dim=0)
+        escapes = torch.nn.functional.pad(escapes, (0, nblk * block_size - n))
+        total += float((~escapes.reshape(nblk, block_size).any(dim=1)).float().mean())
+    return total / max(1, n_samples)
 
 
 def _check_ported(cfg: StaticConfig) -> None:
@@ -159,21 +257,22 @@ def _check_ported(cfg: StaticConfig) -> None:
              "queue 1 item 20: the port always runs its kernels"),
             ("pallas_interpret", cfg.pallas_interpret > 0,
              "queue 1 item 20: pass host noise as noise="),
-            ("megastep_stub", bool(cfg.megastep_stub), "queue 1 item 16"),
-            ("env_skip", cfg.env_skip, "queue 1 item 11"),
-            ("sampler='sobol'", cfg.sampler != "prng", "queue 1 item 10")):
+            ("megastep_stub", bool(cfg.megastep_stub), "queue 1 item 16")):
         if on:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md {item})")
 
 
 def render_step(scene: Scene, settings: RenderSettings, cfg: StaticConfig, work: WorkBatch,
-                seed: tuple[int, int] | None, env, *, noise=None) -> WorkBatch:
+                seed: tuple[int, int] | None, env, *, noise=None, sobol_base=None) -> WorkBatch:
     """Run one step's samples over the worklist and accumulate into it.
 
     Hardware mode (``seed`` = two uint32 words) renders
     ``settings.samples_per_step`` samples; host-noise mode (``noise`` of
-    shape (S, 4 + 4L, P), ``seed`` None) renders S.  Accumulation is the
-    reference's: rgb sums, sampleCount += samples, pathLength sums.
+    shape (S, 4 + 4L, P), ``seed`` None) renders S, and the noise carries
+    whatever sampler its maker chose (``step_noise(..., qmc_ctx=)``).
+    ``cfg.sampler == "sobol"`` draws the Sobol prefix in hardware mode, at
+    base ``work.sample_count`` or ``sobol_base`` when given.  Accumulation
+    is the reference's: rgb sums, sampleCount += samples, pathLength sums.
     """
     from ..ops.megastep import render_megastep
     from ..ops.nif import nif_env_shade
@@ -188,8 +287,11 @@ def render_step(scene: Scene, settings: RenderSettings, cfg: StaticConfig, work:
     samples = settings.samples_per_step if noise is None else noise.shape[0]
     kw = dict(width=cfg.width, height=cfg.height, max_path_length=cfg.max_path_length,
               aa_noise_type=cfg.aa_noise_type)
+    if noise is None:
+        kw.update(_kernel_sobol(cfg, make_qmc_ctx(work, cfg, settings, sobol_base)))
     if cfg.use_fused_step and isinstance(env, NifEnv):
-        out = render_megastep(scene, settings, env.model, cols, rows, seed, noise=noise, **kw)
+        out = render_megastep(scene, settings, env.model, cols, rows, seed, noise=noise,
+                              env_skip=cfg.env_skip, **kw)
         rad, plen = out.radiance, out.path_len
     else:
         rad = Vec3.zeros((n,), device=cols.device)

@@ -1,10 +1,13 @@
 """The headless progressive render loop.
 
-Counterpart of the host-film path of
-``ipu_path_trace_tpu/runtime/app.py``: build the (coherent) worklist,
-then per step run ``render_step`` on the device, fetch the records,
-accumulate them into the host ``Film``, and write PNG + EXR at every
-``save_interval`` and at the last step.
+Counterpart of the headless paths of ``ipu_path_trace_tpu/runtime/app.py``:
+build the (coherent) worklist, resolve ``--env-skip``, then per step run
+``render_step`` (or ``adaptive_render_step``) on the device.  With the
+host film (the default) every step's records are fetched and accumulated
+into the host ``Film``; with ``--device-film`` the worklist keeps its
+running sums on the device and is fetched only at ``save_interval`` and
+at the last step, when the film is rebuilt from it.  PNG + EXR are
+written at every ``save_interval`` and at the last step.
 """
 
 from __future__ import annotations
@@ -17,15 +20,18 @@ import time
 import numpy as np
 import torch
 
-from ..core.records import from_device_batch, to_device_batch
+from ..core.records import WorkBatch, from_device_batch, to_device_batch
 from ..core.scene import default_scene
+from ..core.scenefile import load_scene
 from ..film.film import Film
 from ..film.imageio import load_hdr_image, save_images
 from ..models.envlight import ConstantEnv, NifEnv, TextureEnv, bake_nif_env
 from ..models.nif import analyse_nif, load_nif_assets
 from ..models.quant import quantize_nif
+from ..ops.megastep import ENV_SKIP_TILE
+from ..render.adaptive import adaptive_render_step
 from ..render.params import RenderSettings, StaticConfig
-from ..render.wavefront import render_step
+from ..render.wavefront import dead_block_fraction, render_step
 from .config import Config
 from .worklist import coherent_order, create_tracing_jobs
 
@@ -76,14 +82,26 @@ def parse_env_assets(assets: str, device: torch.device, nif_precision: str = "au
 
 
 class PathTracerApp:
+    # Auto --env-skip: turn the skip on when at least this fraction of the
+    # megastep's NIF sub-tiles have no escape, measured over this many
+    # samples (the reference's breakeven rule and threshold).
+    AUTO_ENV_SKIP_THRESHOLD = 0.02
+    AUTO_ENV_SKIP_PROBE_SAMPLES = 2
+
     def __init__(self, config: Config):
         self.cfg = config
         self.device = resolve_device(config.device)
-        self.scene = default_scene(self.device)
+        if config.scene:
+            self.scene = load_scene(config.scene, self.device)
+            log.info("Loaded scene '%s': %d spheres, %d discs", config.scene,
+                     self.scene.num_spheres, self.scene.num_discs)
+        else:
+            self.scene = default_scene(self.device)
         self.env = None
         self.film: Film | None = None
         self.worklist: np.ndarray | None = None
         self.total_spp = 0
+        self.env_skip = config.env_skip == "on"
 
     def init(self) -> None:
         cfg = self.cfg
@@ -91,11 +109,6 @@ class PathTracerApp:
         if self.total_spp != cfg.samples:
             log.info("Rounding SPP to next multiple of %d  (Rounded SPP := %d)",
                      cfg.samples_per_step, self.total_spp)
-        if cfg.env_skip == "on":
-            raise NotImplementedError("--env-skip is not ported yet (ROADMAP.md queue 1 item 11)")
-        if cfg.env_skip == "auto":
-            log.info("--env-skip auto resolves to off: the env-skip guard is not ported "
-                     "yet (ROADMAP.md queue 1 item 11)")
         self.env, nif_info = parse_env_assets(cfg.assets, self.device, cfg.nif_precision)
         if nif_info is not None:
             meta, weights = nif_info
@@ -120,6 +133,35 @@ class PathTracerApp:
             worklist = coherent_order(worklist, self.scene, cfg.width, cfg.height, cfg.fov)
         self.worklist = worklist
         self.film = Film(cfg.width, cfg.height)
+        if cfg.adaptive and not isinstance(self.env, NifEnv):
+            raise ValueError("--adaptive requires a NIF environment (--assets <dir>); the "
+                             "budget controller lives in the fused megastep")
+        self.env_skip = self.resolve_env_skip()
+
+    def resolve_env_skip(self) -> bool:
+        """--env-skip as the megastep's flag.  "auto" traces
+        AUTO_ENV_SKIP_PROBE_SAMPLES Philox samples over the real ordered
+        worklist (K1 on CUDA, its plain version on the CPU), measures the
+        fraction of NIF sub-tiles with no escape - the skip guard's own
+        criterion - and turns the skip on at AUTO_ENV_SKIP_THRESHOLD.  No
+        probe runs when the fused NIF megastep, the only kernel with the
+        skip, will not."""
+        cfg = self.cfg
+        if cfg.env_skip != "auto":
+            return cfg.env_skip == "on"
+        if not (cfg.use_fused_step and isinstance(self.env, NifEnv)):
+            return False
+        cols = torch.from_numpy(self.worklist["u"].astype(np.float32)).to(self.device)
+        rows = torch.from_numpy(self.worklist["v"].astype(np.float32)).to(self.device)
+        t0 = time.monotonic()
+        frac = dead_block_fraction(self.scene, self.settings(), self.static_config(), cols, rows,
+                                   step_seed(torch.Generator().manual_seed(cfg.seed)),
+                                   self.AUTO_ENV_SKIP_PROBE_SAMPLES, ENV_SKIP_TILE)
+        skip = frac >= self.AUTO_ENV_SKIP_THRESHOLD
+        log.info("--env-skip auto: dead-block fraction %.4f at block %d (threshold %.3f, "
+                 "probe %.1fs) -> %s", frac, ENV_SKIP_TILE, self.AUTO_ENV_SKIP_THRESHOLD,
+                 time.monotonic() - t0, "on" if skip else "off")
+        return skip
 
     def settings(self) -> RenderSettings:
         cfg = self.cfg
@@ -135,37 +177,93 @@ class PathTracerApp:
         return StaticConfig(width=cfg.width, height=cfg.height,
                             max_path_length=cfg.max_path_length,
                             aa_noise_type=cfg.aa_noise_type,
-                            use_fused_step=cfg.use_fused_step)
+                            use_fused_step=cfg.use_fused_step,
+                            adaptive_min=cfg.adaptive_min,
+                            adaptive_max_factor=cfg.adaptive_max_factor,
+                            env_skip=self.env_skip, sampler=cfg.sampler,
+                            sobol_dims=cfg.sobol_dims)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def execute(self) -> Film:
         """Render ``total_spp / samples_per_step`` steps into the film."""
         cfg = self.cfg
-        film = self.film
         steps = self.total_spp // cfg.samples_per_step
-        settings, static = self.settings(), self.static_config()
-        # Accumulators start at zero every step; the film keeps the sums.
-        work = to_device_batch(self.worklist, self.device)
         gen = torch.Generator().manual_seed(cfg.seed)  # per-step kernel seed words
         start = time.monotonic()
-        log.info("Render started on %s", self.device)
+        log.info("Render started on %s (%s film)", self.device,
+                 "device" if cfg.device_film else "host")
+        run = self._device_film_steps if cfg.device_film else self._host_film_steps
+        run(steps, gen)
+        elapsed = time.monotonic() - start
+        log.info("Render finished: %.3f seconds (Samples/sec: %.4g)", elapsed,
+                 cfg.width * cfg.height * self.total_spp / elapsed)
+        return self.film
+
+    def _save(self, step: int, norm: int, since: float) -> None:
+        cfg = self.cfg
+        save_images(cfg.outfile, self.film.hdr_at_step(norm),
+                    self.film.ldr(norm, cfg.exposure, cfg.gamma))
+        log.info("Saved images at step %d in %.3f seconds", step, time.monotonic() - since)
+
+    def _host_film_steps(self, steps: int, gen: torch.Generator) -> None:
+        """Each step renders into zeroed accumulators and the host film
+        adds its records (the reference's host pipeline)."""
+        cfg = self.cfg
+        settings, static = self.settings(), self.static_config()
+        work = to_device_batch(self.worklist, self.device)
         for step in range(1, steps + 1):
             t0 = time.monotonic()
-            seed = tuple(int(x) for x in torch.randint(0, 1 << 32, (2,), generator=gen))
-            out = render_step(self.scene, settings, static, work, seed, self.env)
+            # The counts restart at 0 every step, so the Sobol sampler is
+            # told how many samples each lane already has.
+            out = render_step(self.scene, settings, static, work, step_seed(gen), self.env,
+                              sobol_base=(step - 1) * cfg.samples_per_step)
             records = from_device_batch(out)  # the fetch waits for the device
             t1 = time.monotonic()
-            film.accumulate(records)
+            self.film.accumulate(records)
             t2 = time.monotonic()
             rate = cfg.width * cfg.height * cfg.samples_per_step / (t2 - t0)
             log.info("Completed render step %d/%d in %.3f seconds (render+fetch %.3f, "
                      "film %.3f; Samples/sec %.3g)", step, steps, t2 - t0, t1 - t0,
                      t2 - t1, rate)
             if step % cfg.save_interval == 0 or step == steps:
-                save_images(cfg.outfile, film.hdr_at_step(step),
-                            film.ldr(step, cfg.exposure, cfg.gamma))
-                log.info("Saved images at step %d in %.3f seconds", step,
-                         time.monotonic() - t2)
-        elapsed = time.monotonic() - start
-        log.info("Render finished: %.3f seconds (Samples/sec: %.4g)", elapsed,
-                 cfg.width * cfg.height * self.total_spp / elapsed)
-        return film
+                self._save(step, step, t2)
+
+    def _device_film_steps(self, steps: int, gen: torch.Generator) -> None:
+        """The worklist (and, adaptive, the second moments) stay on the
+        device; a fetch rebuilds the film from the running sums, whose
+        rgb / sampleCount is each pixel's mean, so the film saves at
+        normalisation 1."""
+        cfg = self.cfg
+        settings, static = self.settings(), self.static_config()
+        work = to_device_batch(self.worklist, self.device)
+        lum2 = (torch.zeros(work.u.shape[0], dtype=torch.float32, device=self.device)
+                if cfg.adaptive else None)
+        for step in range(1, steps + 1):
+            t0 = time.monotonic()
+            if cfg.adaptive:
+                work, lum2 = adaptive_render_step(self.scene, settings, static, work, lum2,
+                                                  step_seed(gen), self.env)
+            else:
+                work = render_step(self.scene, settings, static, work, step_seed(gen), self.env)
+            self._sync()  # the step's seconds are the device's, not the enqueue's
+            t1 = time.monotonic()
+            save = step % cfg.save_interval == 0 or step == steps
+            if save:  # int32 counts: no u16 wire record on this path
+                host = WorkBatch(*(t.cpu().numpy() for t in work))
+                self.film.reset()
+                self.film.accumulate_soa(host.u, host.v, host.r, host.g, host.b,
+                                         host.sample_count)
+            t2 = time.monotonic()
+            rate = cfg.width * cfg.height * cfg.samples_per_step / (t2 - t0)
+            log.info("Completed render step %d/%d in %.3f seconds (render %.3f, fetch+film "
+                     "%.3f; Samples/sec %.3g)", step, steps, t2 - t0, t1 - t0, t2 - t1, rate)
+            if save:
+                self._save(step, 1, t2)
+
+
+def step_seed(gen: torch.Generator) -> tuple[int, int]:
+    """The next two uint32 seed words of the kernels' Philox stream."""
+    return tuple(int(x) for x in torch.randint(0, 1 << 32, (2,), generator=gen))

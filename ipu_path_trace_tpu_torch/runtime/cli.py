@@ -39,20 +39,13 @@ _UNPORTED = [
     (("--cache-dir",), dict(default=""), "queue 1 item 19"),
     (("--profile-dir",), dict(default=""), "queue 1 item 16"),
     (("--device-timing",), dict(action="store_true"), "queue 1 item 16"),
-    (("--scene",), dict(default=""), "queue 1 item 20 (core/scenefile.py)"),
-    (("--device-film",), dict(action="store_true"), "queue 1 item 20"),
     (("--metrics-file",), dict(default=""), "queue 1 item 16"),
     (("--checkpoint",), dict(default=""), "queue 1 item 12"),
     (("--resume",), dict(default=""), "queue 1 item 12"),
     (("--auto-resume",), dict(action="store_true"), "queue 1 item 12"),
-    (("--adaptive",), dict(action="store_true"), "queue 1 item 9"),
-    (("--adaptive-min",), dict(type=int, default=8), "queue 1 item 9"),
-    (("--adaptive-max-factor",), dict(type=float, default=16.0), "queue 1 item 9"),
     (("--rng-impl",), dict(default="auto", choices=[
         "auto", "threefry2x32", "rbg", "unsafe_rbg"]),
      "queue 1 item 20 (the port's kernels use Philox)"),
-    (("--sampler",), dict(default="prng", choices=["prng", "sobol"]), "queue 1 item 10"),
-    (("--sobol-dims",), dict(type=int, default=12), "queue 1 item 10"),
     (("--denoise",), dict(action="store_true"), "queue 1 item 13"),
     (("--denoise-iters",), dict(type=int, default=4), "queue 1 item 13"),
     (("--denoise-sigma",), dict(type=float, default=1.0), "queue 1 item 13"),
@@ -112,7 +105,39 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Worklist order: primary-hit-sorted or row-major.")
     p.add_argument("--env-skip", nargs="?", const="on", default="auto",
                    choices=("auto", "on", "off"),
-                   help="Not ported yet: 'auto' resolves to off, 'on' raises.")
+                   help="Skip the NIF env-light chain for kernel sub-tiles whose paths "
+                        "all died without escaping (exact). 'auto' (default) probes the "
+                        "scene's dead sub-tile fraction at build time and enables the "
+                        "skip only when it clears the guard cost; a bare --env-skip "
+                        "forces it on, '--env-skip off' forces it off.")
+    p.add_argument("--scene", default="",
+                   help="JSON scene description (spheres/discs with colour, emission, "
+                        "material); default: the reference's built-in scene. See "
+                        "core/scenefile.py for the schema.")
+    p.add_argument("--device-film", action="store_true", default=False,
+                   help="Keep the worklist device-resident between steps and download "
+                        "results only at save-interval boundaries (the host film "
+                        "round-trips the trace buffer every step).")
+    p.add_argument("--adaptive", action="store_true", default=False,
+                   help="Adaptive per-block sampling: allocate each step's sample "
+                        "budget across kernel blocks by measured luminance variance "
+                        "(Neyman allocation) instead of uniformly. Unbiased (the film "
+                        "normalises per record) and deterministic. Needs --device-film "
+                        "and a NIF environment.")
+    p.add_argument("--adaptive-min", type=int, default=8,
+                   help="Adaptive sampling: per-block budget floor (samples per step).")
+    p.add_argument("--adaptive-max-factor", type=float, default=16.0,
+                   help="Adaptive sampling: per-block budget cap as a multiple of "
+                        "--samples-per-step.")
+    p.add_argument("--sampler", default="prng", choices=["prng", "sobol"],
+                   help="Sample-stream generator: prng = independent uniforms "
+                        "(reference behaviour); sobol = hash-based Owen-scrambled Sobol "
+                        "on the leading path dimensions - the same unbiased estimator "
+                        "with faster RMSE convergence per sample.")
+    p.add_argument("--sobol-dims", type=int, default=12,
+                   help="With --sampler sobol: how many leading path dimensions ride "
+                        "the Sobol sequence (camera 4 + 4 per bounce; rounded down to "
+                        "whole bounces, prng beyond).")
     p.add_argument("--device", default="cuda",
                    help="'cuda' runs the CUDA kernels; 'cpu' their plain versions.")
     unported = p.add_argument_group("Reference options not ported yet (non-defaults raise)")

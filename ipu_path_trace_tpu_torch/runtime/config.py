@@ -34,8 +34,11 @@ class Config:
     aperture: float = 0.0
     focal_distance: float = 1.0
     layout: str = "coherent"  # coherent | raster
-    # The env-skip guard is not ported: "auto" resolves to off (and says
-    # so), "on" raises (ROADMAP.md queue 1 item 11).
+    # Dead-block env-skip: the megastep skips the NIF chain for sub-tiles
+    # whose escape weights are all zero (exact).  "auto" measures the
+    # fraction of such sub-tiles with a two-sample probe over the real
+    # worklist and turns the skip on at >= 2% (runtime/app.py
+    # PathTracerApp.resolve_env_skip); "on"/"off" force it.
     env_skip: str = "auto"
     # "auto" runs the NIF as stored (bf16 chain); "int8" quantises it for
     # the int8 chain (models/quant.py), with a QAT asset's quant_amax.json.
@@ -45,6 +48,23 @@ class Config:
     # asset's original_image_shape, in chunks of max_nif_batch_size.
     nif_mode: str = "fused"
     max_nif_batch_size: int = 30 * 1472
+    # JSON scene description (core/scenefile.py); "" = the reference's
+    # built-in scene.
+    scene: str = ""
+    # Keep the worklist on the device between steps and fetch it only at
+    # save-interval and at the last step; the film is rebuilt from the
+    # running sums (int32 counts, so no u16 wire limit).
+    device_film: bool = False
+    # Adaptive per-block sampling (render/adaptive.py): Neyman allocation
+    # of each step's samples across budget blocks by luminance variance.
+    # Needs --device-film and the fused NIF megastep.
+    adaptive: bool = False
+    adaptive_min: int = 8  # per-block budget floor (samples/step)
+    adaptive_max_factor: float = 16.0  # budget cap = factor * samples-per-step
+    # "prng": Philox uniforms; "sobol": the Owen-scrambled Sobol sequence
+    # (render/qmc.py) on the first sobol_dims path dimensions, Philox past.
+    sampler: str = "prng"
+    sobol_dims: int = 12  # camera (4) + whole bounces (4 each)
     # Where the render runs.  "cuda" launches the kernels; "cpu" runs
     # their plain versions (the port's simulator).  A CUDA request on a
     # machine without CUDA raises: nothing falls back to the CPU.
@@ -58,9 +78,9 @@ class Config:
             raise ValueError("the option '--assets' is required but missing")
         if self.samples_per_step < 1 or self.samples < 1:
             raise ValueError("samples and samples-per-step must be >= 1")
-        if self.samples_per_step > 0xFFFF:
-            raise ValueError("samples-per-step > 65535 would clip the u16 wire "
-                             "sampleCount")
+        if self.samples_per_step > 0xFFFF and not self.device_film:
+            raise ValueError("samples-per-step > 65535 needs --device-film (the u16 "
+                             "wire sampleCount would clip)")
         if self.save_interval < 1:
             raise ValueError("save-interval must be >= 1")
         if self.layout not in ("coherent", "raster"):
@@ -73,6 +93,27 @@ class Config:
             raise ValueError(f"unknown --nif-mode '{self.nif_mode}' (choices: fused, baked)")
         if self.max_nif_batch_size < 1:
             raise ValueError("max-nif-batch-size must be >= 1")
+        if self.sampler not in ("prng", "sobol"):
+            raise ValueError(f"unknown --sampler '{self.sampler}' (choices: prng, sobol)")
+        if self.sampler == "sobol" and self.sobol_dims < 4:
+            raise ValueError("--sobol-dims must be >= 4 (the camera dims)")
+        if self.adaptive:
+            if not self.device_film:
+                raise ValueError("--adaptive needs --device-film (int32 per-record "
+                                 "counts and the on-device budget controller)")
+            if self.nif_mode != "fused":
+                raise ValueError("--adaptive needs --nif-mode fused (budgets live in "
+                                 "the fused megastep)")
+            if self.adaptive_min < 1:
+                raise ValueError("--adaptive-min must be >= 1")
+            if self.adaptive_max_factor < 1.0:
+                raise ValueError("--adaptive-max-factor must be >= 1")
+            if self.samples_per_step < self.adaptive_min:
+                raise ValueError("samples-per-step must be >= --adaptive-min")
+        if self.scene:
+            from ..core.scenefile import load_scene
+
+            load_scene(self.scene)  # a bad file fails here, before any render
 
     def rounded_samples_per_pixel(self) -> int:
         """Round spp up to a multiple of samples-per-step."""

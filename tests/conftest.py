@@ -49,6 +49,9 @@ QUICK_FILES = {
     "test_torch_app.py",
     "test_torch_quant.py",
     "test_torch_envbake.py",
+    "test_torch_qmc.py",
+    "test_torch_adaptive.py",
+    "test_torch_envskip.py",
 }
 
 # Files deliberately absent from the quick tier (each needs a reason —

@@ -98,8 +98,7 @@ def test_fused_and_unfused_steps_agree_on_generator_noise():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("megastep_stub", "nif"), ("env_skip", True), ("sampler", "sobol"),
-    ("use_pallas", False), ("pallas_interpret", 2)])
+    ("megastep_stub", "nif"), ("use_pallas", False), ("pallas_interpret", 2)])
 def test_render_step_rejects_unported_config(field, value):
     work = to_device_batch(make_worklist(4, 4), "cpu")
     cfg = StaticConfig(width=4, height=4, max_path_length=2)._replace(**{field: value})
@@ -153,8 +152,8 @@ def test_cli_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--adaptive"], ["--sampler", "sobol"], ["--device-film"], ["--denoise"],
-    ["--ipus", "2"], ["--scene", "assets/scenes/three_spheres.json"], ["--env-skip", "on"]])
+    ["--checkpoint", "x.npz"], ["--metrics-file", "m.jsonl"], ["--debug-view", "normal"],
+    ["--denoise"], ["--ipus", "2"], ["--mesh-shape", "2x1"], ["--profile-dir", "prof"]])
 def test_cli_unported_flags_name_their_roadmap_item(tmp_path, flag):
     argv = ["-o", str(tmp_path / "x.png"), "--assets", "constant:1,1,1",
             "--device", "cpu", "-w", "4", "-H", "4", "-s", "1", "--samples-per-step", "1"]
@@ -192,3 +191,91 @@ def test_port_imports_no_jax():
                          timeout=120, cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 25
+
+
+BASE = ["-w", "16", "-H", "16", "-s", "4", "--samples-per-step", "2", "--max-path-length", "3",
+        "--assets", "assets/urban_alley_synth_nif", "--device", "cpu"]
+
+
+def _render(tmp_path, name, *flags, spp=4):
+    argv = [*BASE, "-o", str(tmp_path / f"{name}.png"), *flags]
+    argv[argv.index("-s") + 1] = str(spp)
+    assert cli.main(argv) == 0
+    return read_exr(str(tmp_path / f"{name}.exr"))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--adaptive"],  # needs --device-film
+    ["--sampler", "sobol", "--sobol-dims", "3"],
+    ["--scene", "no/such/scene.json"],
+    ["--scene", "BAD_JSON"],
+    ["--adaptive", "--device-film", "--nif-mode", "baked"],
+    ["--adaptive", "--device-film", "--adaptive-min", "0"],
+    ["--adaptive", "--device-film", "--adaptive-max-factor", "0.5"],
+    ["--adaptive", "--device-film"],  # samples-per-step 2 < --adaptive-min 8
+    ["--samples-per-step", "70000"],  # the u16 wire count needs --device-film
+])
+def test_cli_validation_mirrors_reference(tmp_path, flags, capsys):
+    bad = tmp_path / "bad.json"
+    bad.write_text("{not json")
+    flags = [str(bad) if f == "BAD_JSON" else f for f in flags]
+    assert cli.main([*BASE, "-o", str(tmp_path / "x.png"), *flags]) == 2
+    assert "error:" in capsys.readouterr().err
+    assert not (tmp_path / "x.png").exists()
+
+
+def test_device_film_lifts_the_u16_limit():
+    cfg = cli.parse_config([*BASE, "-o", "x.png", "--samples-per-step", "70000",
+                            "--device-film"])
+    assert cfg.device_film and cfg.samples_per_step == 70000
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_cli_device_film_matches_host_film(tmp_path, monkeypatch, fused):
+    """Same seeds, same samples: the film rebuilt from the device sums
+    equals the host film's step-wise sum; the device film is fetched
+    only at save-interval and at the last step."""
+    monkeypatch.setattr(cli, "main", lambda argv, _m=cli.main: _m(argv, use_fused_step=fused))
+    host = _render(tmp_path, "host", spp=6)
+    fetches = []
+    original = app_mod.Film.accumulate_soa
+
+    def spy(film, *a):
+        fetches.append(film)
+        return original(film, *a)
+
+    monkeypatch.setattr(app_mod.Film, "accumulate_soa", spy)
+    dev = _render(tmp_path, "dev", "--device-film", "--save-interval", "2", spp=6)
+    assert len(fetches) == 2  # steps 2 and 3 of 3
+    assert np.isfinite(dev).all() and dev.max() > 0
+    np.testing.assert_allclose(dev, host, rtol=1e-5, atol=1e-6)
+
+
+def test_cli_adaptive_device_film_is_deterministic(tmp_path):
+    flags = ["--device-film", "--adaptive", "--adaptive-min", "1"]
+    a = _render(tmp_path, "a", *flags)
+    b = _render(tmp_path, "b", *flags)
+    assert np.isfinite(a).all() and a.max() > 0
+    np.testing.assert_array_equal(a, b)
+
+
+def test_cli_sobol_host_and_device_film_agree(tmp_path):
+    """--sampler sobol renders the same image with either film, and its
+    second step continues the sequences: the 2-step image is not the
+    1-step image (the reference's host film restarts them every step)."""
+    host = _render(tmp_path, "host", "--sampler", "sobol", "--sobol-dims", "16")
+    dev = _render(tmp_path, "dev", "--sampler", "sobol", "--sobol-dims", "16", "--device-film")
+    np.testing.assert_allclose(dev, host, rtol=1e-5, atol=1e-6)
+    one = _render(tmp_path, "one", "--sampler", "sobol", "--sobol-dims", "16", spp=2)
+    assert np.abs(host - one).max() > 1e-3
+
+
+def test_film_reset():
+    from ipu_path_trace_tpu_torch.film.film import Film
+
+    film = Film(4, 2)
+    film.accumulate_soa(np.array([1]), np.array([1]), np.array([2.0]), np.array([4.0]),
+                        np.array([6.0]), np.array([2]))
+    assert film.hdr.sum() == 6.0
+    film.reset()
+    assert film.hdr.shape == (2, 4, 3) and not film.hdr.any()

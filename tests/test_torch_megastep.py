@@ -89,9 +89,7 @@ def test_zero_samples():
     assert int(out.path_len.abs().max()) == 0
 
 
-@pytest.mark.parametrize("mode", [
-    dict(budgets=torch.ones(3, dtype=torch.int32)), dict(with_stats=True),
-    dict(env_skip=True), dict(sobol=(None, None, 0)), dict(stub="nif")])
+@pytest.mark.parametrize("mode", [dict(stub="nif"), dict(stub="trace"), dict(stub="both")])
 def test_unported_modes_raise(mode):
     model, settings, cols, rows, noise, _, _ = _port_setup()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
