@@ -21,6 +21,12 @@ Phases, one line each:
                 and with all of them at once, vs their plain versions at
                 256x256; and K3 with the env-skip on and off on the enclosed
                 scene (nothing escapes), which must agree bit for bit;
+  5c. stubs   - K3's measurement stubs 'nif', 'trace' and 'both', bf16 and
+                int8, Philox and Sobol, vs their plain versions at 256x256:
+                'trace'/'both' exactly (radiance 0, path lengths S x L),
+                'nif' with the path lengths bit for bit and the radiance
+                within 1e-6 relative (the env term is the decode of ones,
+                expf against torch.exp); again at 1104x1000 in phase 7;
   6. main     - the CLI (runtime/cli.main) at 1104x1000, 16 spp in steps of
                 8: assets/urban_alley_synth_nif fused and unfused; the int8
                 asset with --nif-precision int8 fused and unfused;
@@ -36,6 +42,14 @@ Phases, one line each:
                 seconds) goes to stdout.  The device-film frames must equal
                 the host film's, and fused and unfused frames agree in mean
                 luminance within 5 standard errors;
+  6b. timing  - one more CLI run at 1104x1000 with --device-timing
+                --profile-dir --metrics-file: the env / trace / overhead split
+                as the app logs it (positive, summing to the step to the
+                log's 1e-3 ms), one metrics line per step
+                plus the summary, the app's spans in trace.json, the device
+                kernel events found there by name and the device's busy
+                share of the render window; after phase 7 the split's step
+                must be within 10% of K3's own time per sample;
   7. full frame - at the main path's shapes (1104x1000, a ragged last
                 block): K1 (Philox), K2 (on that sample's escapes, bf16 and
                 int8), K3 (Philox, 8 samples, bf16 and int8), K4 (one bake
@@ -44,7 +58,18 @@ Phases, one line each:
                 plain version timed (CUDA events, after warm-up), K3 with
                 the env-skip on and off on both scenes (on the enclosed one
                 the skip must take K3 under a quarter of its time), and the
-                adaptive step against the uniform one.
+                adaptive step against the uniform one; K3's stubs vs their
+                plain versions (as phase 5c), then timed beside them (the
+                'trace' stub less the skeleton is the chain alone, a
+                cross-check of the split's env); --device-timing's unfused
+                split (K1 and
+                K2 standalone); the seven-product cuBLAS bf16 chain at the
+                NIF kernels' shapes (a yardstick the port never calls);
+  8. probes   - K6/K7 (probes/overlap.py): every variant vs its plain
+                version at the scripts' 1,105,920 lanes, then the probe's
+                entry point (its lines: ms per call or loop iteration, the
+                serial and the overlap prediction) with its launch counters
+                zeroed before and read after, and the plain versions timed.
 Then a JSON line with the kernels, the nvidia-smi line again, and the last
 line {"ok": true, "device": {...}}.  Any failed check exits non-zero and
 prints no result.  Tolerances are the reference's own:
@@ -59,6 +84,8 @@ prints no result.  Tolerances are the reference's own:
     median 1e-3, fewer than 1% of lanes above 1e-2 and max 0.5
     (tests/test_quant.py:126-127, 274-276: a feature next to a rounding tie
     may take a neighbouring int8 code);
+  * the overlap probes' chains (no log decode) to the bf16 budget, their
+    ALU chain to rtol 1e-5 on all but 5e-3 of the lanes (the x > 1 select);
   * the new modes of K1 and K3 bit for bit, except K3's bf16 radiance and
     the square root of its lum2 (whose relative error is that of the
     samples' luminance): median 5e-3 and max 8e-2 on all but at most one
@@ -109,6 +136,29 @@ ENCLOSED_SCENE = {"objects": [
      "material": "specular"},
 ]}
 
+# Published H100 SXM peaks at a 700 W limit (NVIDIA's data sheet, dense):
+# the bound of a kernel is the larger of its bytes over the memory rate
+# and its operations over the peak of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# The NIF chain's multiply-adds per ray: 48x320 + 2 x 320x320 + 368x320
+# + 2 x 320x320 + 320x3 (the canonical 6x320 net, E = 12; the probes'
+# LAYERS are the same products).
+NIF_MACS = 543_680
+# f32 operations of the trace, counted from csrc/common.cuh: per ray the
+# camera ray (~40), per bounce each sphere test (~22), each disc test
+# (~30) and the shading (~60).  The trace is bound by its bytes at these
+# counts; they are estimates, not a tally of the compiled code.
+TRACE_RAY_OPS, SPHERE_OPS, DISC_OPS, SHADE_OPS = 40, 22, 30, 60
+# Estimated the same way: one Philox4x32-10 group (ten rounds of two
+# 32-bit multiplies, xors and key bumps, then four u32 -> f32 conversions;
+# integer operations counted at the f32 rate, which the H100's int32 rate
+# does not exceed, so the bound stays a lower bound), and the NIF's input
+# per ray (the equirect (u, v), then sin and cos of 12 frequencies of u and
+# of v: 48 features).
+PHILOX_GROUP_OPS, ENCODE_OPS = 110, 1000
+ALU_ROUND_OPS = 8  # sin, x1.1, |x|, +0.3, sqrt, +, compare, select op
+
 failures: list[str] = []
 
 
@@ -126,6 +176,24 @@ class LogLines(logging.Handler):
         """'on'/'off' as the auto env-skip probe resolved, None if none ran."""
         got = [ln.rsplit("-> ", 1)[1] for ln in self.lines if ln.startswith("--env-skip auto")]
         return got[-1] if got else None
+
+    def phase_splits(self) -> list[dict]:
+        """Each 'Device phase timing [<device>]: step=...' message of
+        utils/devtime.log_phase_split as a dict of its numbers (ms)."""
+        names = {"step": "step_ms", "trace": "trace_ms", "nif-env": "env_ms",
+                 "other": "overhead_ms"}
+        splits = []
+        for ln in self.lines:
+            if not ln.startswith("Device phase timing ["):
+                continue
+            device, rest = ln[len("Device phase timing ["):].split("]: ", 1)
+            split = {"device": device, "mpaths_per_sec": float(rest.split("(", 1)[1].split()[0])}
+            for tok in rest.split():
+                if "=" in tok:
+                    key, val = tok.split("=", 1)
+                    split[names[key]] = float(val.split("ms", 1)[0])
+            splits.append(split)
+        return splits
 
     def seconds(self, prefix: str) -> list[float]:
         """The '... in <s> seconds' of each message that starts with prefix."""
@@ -191,17 +259,66 @@ def mode_check(name, got, ref, int8: bool) -> float:
     return err
 
 
+def least_ms(nbytes: float, ops: dict[str, float]) -> tuple[float, str]:
+    """The least time (ms) for moving nbytes and doing ops[type] of each
+    type, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def profile_report(trace_json: Path) -> dict:
+    """Device kernel events of a torch.profiler Chrome trace by name, and
+    the device's busy share of the render window: from the first
+    tpu_path_tracer/ipu_render span to the end of the last app span."""
+    events = json.loads(trace_json.read_text())["traceEvents"]
+    spans = [e for e in events if str(e.get("name", "")).startswith("tpu_path_tracer/")
+             and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        acc = by_name.setdefault(e["name"], [0, 0.0])
+        acc[0] += 1
+        acc[1] += float(e["dur"])
+    renders = [e for e in spans if e["name"] == "tpu_path_tracer/ipu_render"]
+    if not renders or not kernels:
+        return {"span_names": sorted({e["name"] for e in spans}), "kernel_events": 0,
+                "kernels_by_name": {}, "busy_share": None}
+    lo = min(float(e["ts"]) for e in renders)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in spans)
+    busy, end = 0.0, lo
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    return {"span_names": sorted({e["name"] for e in spans}), "kernel_events": len(kernels),
+            "kernels_by_name": {k: {"count": c, "us": round(t, 1)} for k, (c, t) in
+                                sorted(by_name.items(), key=lambda kv: -kv[1][1])},
+            "window_ms": (hi - lo) / 1e3, "busy_share": busy / (hi - lo)}
+
+
+def cublas_chain(model, feats: torch.Tensor) -> torch.Tensor:
+    """The NIF's seven products as bf16 cuBLAS matmuls with relu and the
+    skip concat between them: a yardstick for the chain kernels, never
+    called by the port."""
+    x = feats
+    last = model.num_layers - 1
+    for i, w in enumerate(model.kernels):
+        if x.shape[-1] != w.shape[0]:
+            x = torch.cat([x, feats], dim=-1)
+        x = x @ w
+        if i != last:
+            x = torch.relu(x)
+    return x
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call on the current stream, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean milliseconds per call on the card (CUDA events), after one
+    warm-up."""
+    from ipu_path_trace_tpu_torch.utils.devtime import time_per_call
+
+    return time_per_call(fn, reps, torch.device("cuda", 0)) * 1e3
 
 
 def trace_check(name, got, ref, fields=("radiance", "esc_w", "esc_dir")):
@@ -403,6 +520,31 @@ def main() -> None:
                                                env_skip=True, with_stats=True, **kw),
                 int8))
 
+    def stub_checks(tag, cols, rows, kw, settings, seed):
+        """Phase 5c: K3's stubs in both chains and both hardware RNG modes."""
+        sob = sobol_ctx(cols, rows, kw["width"])
+        for m in (model, q8):
+            label8 = "int8 " if is_int8(m) else ""
+            for rng, extra in (("philox", {}), ("sobol", dict(sobol=sob, sobol_dims=SOBOL_DIMS))):
+                for stub in megastep.STUBS:
+                    got = megastep.render_megastep(scene, settings, m, cols, rows, seed, stub=stub,
+                                                   **extra, **kw)
+                    ref = megastep.render_megastep_plain(scene, settings, m, cols, rows, seed,
+                                                         stub=stub, **extra, **kw)
+                    a, b = got.radiance.stack(), ref.radiance.stack()
+                    plen_ok = torch.equal(got.path_len, ref.path_len)
+                    rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                    if stub == "nif":
+                        ok = plen_ok and rel <= 1e-6 and bool(torch.isfinite(a).all())
+                    else:
+                        full = settings.samples_per_step * kw["max_path_length"]
+                        ok = (plen_ok and torch.equal(a, b) and not a.any()
+                              and bool((got.path_len == full).all()))
+                    key = f"megastep_stub_{stub}"
+                    err[key] = max(err.get(key, 0.0), float((a - b).abs().max()))
+                    phase(f"K3 {label8}stub '{stub}' {rng} {tag}", ok, path_len_equal=plen_ok,
+                          max_rel=f"{rel:.2e}", max_abs_err=f"{float((a - b).abs().max()):.3e}")
+
     # 3. K1 ------------------------------------------------------------------
     L = 10
     cols, rows = grid(256, 256)
@@ -459,6 +601,9 @@ def main() -> None:
 
     # 5b. the Sobol, budget/statistics and env-skip modes -------------------
     mode_checks("256x256", cols, rows, kw, settings, (13, 14), noise3_t)
+
+    # 5c. K3's measurement stubs --------------------------------------------
+    stub_checks("256x256", cols, rows, kw, settings, (15, 16))
 
     # 6. main path through the CLI ------------------------------------------
     out_dir = ROOT / "build" / "chip_smoke"
@@ -566,6 +711,62 @@ def main() -> None:
         print(f"[timing] film: {name}: wall {wall[name]:.3f} s, steps {step_s[name]} s, "
               f"saves {save_s[name]} s", flush=True)
 
+    # 6b. --device-timing, --profile-dir and --metrics-file -----------------
+    from ipu_path_trace_tpu_torch.utils import devtime
+
+    prof_dir, metrics_file = out_dir / "profile", out_dir / "metrics.jsonl"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    metrics_file.unlink(missing_ok=True)
+    app_log.lines.clear()
+    for f in counters:
+        f.launches = 0
+    megastep.render_megastep.stub_launches = dict.fromkeys(megastep.STUBS, 0)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rc = cli.main(["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(MAIN_SPP),
+                   "--samples-per-step", str(MAIN_SPS), "--assets", str(ROOT / ASSET),
+                   "-o", str(out_dir / "device_timing.png"), "--device-timing",
+                   "--profile-dir", str(prof_dir), "--metrics-file", str(metrics_file)])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    splits = app_log.phase_splits()
+    got = [f.launches for f in counters]
+    stub_got = dict(megastep.render_megastep.stub_launches)
+    timed = 3  # measure_phases: a warm-up and reps=2 launches per variant
+    launches["device timing"] = {**dict(zip(("trace", "env_shade", "megastep", "nif_apply"), got)),
+                                 **{f"megastep_stub_{k}": v for k, v in stub_got.items()}}
+    split = splits[-1] if splits else {}
+    parts = [split.get(k, 0.0) for k in ("env_ms", "trace_ms", "overhead_ms")]
+    # Four numbers logged to 1e-3 ms each: the parts sum to the step within 2e-3.
+    split_ok = (len(splits) == 1 and all(x > 0 for x in parts)
+                and abs(sum(parts) - split.get("step_ms", 0.0)) <= 2e-3)
+    print(f"[timing] device phase split [{split.get('device')}] ({smi}): "
+          f"{json.dumps(split)}", flush=True)
+    phase("device timing split", rc == 0 and split_ok, **{k: f"{v:.4f}" for k, v in split.items()
+                                                         if k.endswith("_ms")})
+    # The split runs the 'nif' stub and the skeleton ('both'), as the reference.
+    phase("device timing launches", got == [probe, 0, steps + timed, 0]
+          and stub_got == {"nif": timed, "trace": 0, "both": timed},
+          launches_trace_shade_megastep_apply=got, stub_launches=stub_got)
+    lines = [json.loads(ln) for ln in metrics_file.read_text().splitlines()]
+    summary = lines[-1] if lines else {}
+    phase("metrics file", [ln.get("step") for ln in lines[:-1]] == list(range(1, steps + 1))
+          and summary.get("event") == "summary" and summary.get("total_spp") == MAIN_SPP,
+          lines=len(lines), summary=summary)
+    prof = profile_report(prof_dir / "trace.json")
+    spans_ok = all(f"tpu_path_tracer/{n}" in prof["span_names"]
+                   for n in ("ipu_render", "accumulate_framebuffers", "save_images"))
+    phase("profiler trace", spans_ok, spans=prof["span_names"], wall_s=f"{secs:.2f}")
+    if prof["kernel_events"]:
+        print(f"[profile] {prof['kernel_events']} device kernel events; device busy share of "
+              f"the {prof['window_ms']:.1f} ms render window: {prof['busy_share']:.4f} "
+              f"({smi})", flush=True)
+        for name, kv in list(prof["kernels_by_name"].items())[:8]:
+            print(f"[profile]   {kv['count']:4d} x {kv['us'] / kv['count']:10.1f} us  {name[:90]}")
+    else:
+        print("[profile] the trace holds no device kernel events (CUPTI gave none): the busy "
+              "share is not measured", flush=True)
+
     # 7. checks and timing at the main path's shapes ------------------------
     # 1,104,000 lanes end in a partial block, so the kernels' tail masks run
     # here.  These launches come after the counters were read above.
@@ -604,6 +805,7 @@ def main() -> None:
     noise8[:, 0:2] = torch.randn((MAIN_SPS, 2, cols.shape[0]), generator=noise_gen, device=dev)
     mode_checks("1104x1000", cols, rows, kw, settings, seed, noise8)
     del noise8
+    stub_checks("1104x1000", cols, rows, kw, settings, seed)
     times = {}
 
     def versus(a, b, a_reps, b_reps):
@@ -684,6 +886,55 @@ def main() -> None:
             print(f"[timing] K3{suffix} env-skip on vs off, {tag} scene: {on / MAIN_SPS:.3f} vs "
                   f"{off / MAIN_SPS:.3f} ms per full-frame sample ({on / off - 1:+.2%})",
                   flush=True)
+    # K3's stubs at the main path's shapes (bf16, Philox), as the device
+    # timing launches them; the 'trace' stub (the chain with the bounce
+    # stubbed) less the skeleton is the chain alone, beside the split's env.
+    for stub in megastep.STUBS:
+        turns(f"megastep_stub_{stub}",
+              lambda: megastep.render_megastep(scene, settings, model, cols, rows, seed, stub=stub,
+                                               **kw),
+              lambda: megastep.render_megastep_plain(scene, one, model, cols, rows, seed,
+                                                     stub=stub, **kw),
+              3, 2, k_per=MAIN_SPS)
+    chain_alone = times["megastep_stub_trace"][0] - times["megastep_stub_both"][0]
+    print(f"[timing] the chain alone ('trace' stub - 'both' stub): {chain_alone:.4f} ms per "
+          f"full-frame sample, against the split's env {split.get('env_ms', 0.0):.3f} ms "
+          f"({smi}; information only)", flush=True)
+    step_ms, k3_ms = split.get("step_ms", 0.0), times["megastep"][0]
+    phase("device timing step vs K3", abs(step_ms - k3_ms) <= 0.1 * k3_ms,
+          step_ms=f"{step_ms:.4f}", k3_ms_per_sample=f"{k3_ms:.4f}",
+          ratio=f"{step_ms / k3_ms:.4f}")
+    unfused = devtime.measure_phases(
+        scene, settings, StaticConfig(width=MAIN_W, height=MAIN_H, max_path_length=10,
+                                      use_fused_step=False),
+        to_device_batch(coherent_order(create_tracing_jobs(MAIN_W, MAIN_H), scene, MAIN_W, MAIN_H,
+                                       90.0), dev), seed, NifEnv(model), loop=MAIN_SPS, reps=1)
+    phase("device timing unfused", unfused["trace_ms"] > 0 and unfused["env_ms"] > 0,
+          **{k: f"{v:.4f}" for k, v in unfused.items() if k.endswith("_ms")})
+    # What the bounds count: the escapes and bounces of this run's data.
+    # K3's sample s draws K1's Philox sample s, bit for bit (phase 3).
+    escapes = bounces = 0
+    for s in range(MAIN_SPS):
+        st = trace.trace_sample(scene, settings, cols, rows, seed, sample_index=s, **kw)
+        escapes += int(st.escaped.sum())
+        bounces += int(st.path_len.sum())
+    escapes_enclosed = bounces_enclosed = 0
+    for s in range(MAIN_SPS):
+        st = trace.trace_sample(enclosed, settings, ecols, erows, seed, sample_index=s, **kw)
+        escapes_enclosed += int(st.escaped.sum())
+        bounces_enclosed += int(st.path_len.sum())
+    print(f"[bound] 1104x1000, {MAIN_SPS} samples: {escapes} escapes, {bounces} bounces "
+          f"(enclosed scene {escapes_enclosed}, {bounces_enclosed})", flush=True)
+    # The cuBLAS bf16 chain at the kernels' shapes: K2/K3's full frame and
+    # K4's bake chunk.
+    for tag, npts in (("full frame", cols.shape[0]), ("bake chunk", bake_u.shape[0])):
+        feats = torch.rand((npts, 4 * model.embedding_dim), device=dev).to(torch.bfloat16)
+        times[f"cublas_chain_{tag}"] = (cuda_ms(lambda: cublas_chain(model, feats), 10), None)
+        print(f"[timing] cuBLAS bf16 chain (7 products, relu, concat) at {npts} rays: "
+              f"{times[f'cublas_chain_{tag}'][0]:.3f} ms ({smi}; a yardstick, not the port)",
+              flush=True)
+        del feats
+
     for suffix in ("", " int8"):
         on, off = guard["enclosed" + suffix]
         phase(f"K3{suffix} env-skip fires on the enclosed scene", on < 0.25 * off,
@@ -709,6 +960,113 @@ def main() -> None:
           f" budgets min {int(budgets.min())} max {int(budgets.max())} (cap {cap}), total "
           f"{int(budgets.sum())} of {groups * MAIN_SPS}", flush=True)
 
+    # 8. the overlap probes K6/K7 -------------------------------------------
+    from ipu_path_trace_tpu_torch.probes import overlap
+
+    pmodel = overlap.probe_model(dev)
+    pu = torch.linspace(0.0, 1.0, overlap.LANES, dtype=torch.float32, device=dev)
+    probe_fns = {  # name: (kernel, plain, what it is held to)
+        "overlap_mxu": (lambda: overlap.overlap_mxu(pmodel, pu),
+                        lambda: overlap.mxu_plain(pmodel, pu), "chain"),
+        "overlap_alu": (lambda: overlap.overlap_alu(pu), lambda: overlap.alu_plain(pu), "alu"),
+        "overlap_both": (lambda: overlap.overlap_both(pmodel, pu),
+                         lambda: overlap.both_plain(pmodel, pu), "chain"),
+        **{f"overlap_{v.replace('+', '_')}": (
+            lambda v=v: overlap.overlap_loop(pmodel, pu, v),
+            lambda v=v: overlap.loop_plain(pmodel, pu, *overlap.LOOP_VARIANTS[v]), "chain")
+           for v in overlap.LOOP_VARIANTS},
+    }
+    for name, (kern, plain, kind) in probe_fns.items():
+        got, ref = kern(), plain()
+        err[name] = float((got - ref).abs().max())
+        if kind == "chain":
+            med, mx = nif_rel(got, ref)
+            ok = med < NIF_MEDIAN and mx < NIF_MAX
+            info = dict(median_rel=f"{med:.2e}", max_rel=f"{mx:.2e}")
+        else:
+            off = float(((got - ref).abs() > 1e-5 * ref.abs()).float().mean())
+            ok = off <= FLIP_FRACTION
+            info = dict(lanes_off=f"{off:.2e}")
+        phase(f"K6/K7 {name}", ok and bool(torch.isfinite(got).all()), **info,
+              max_abs_err=f"{err[name]:.3e}")
+    for f in (overlap.overlap_mxu, overlap.overlap_alu, overlap.overlap_both):
+        f.launches = 0
+    overlap.overlap_loop.launches = dict.fromkeys(overlap.LOOP_VARIANTS, 0)
+    probe_ms = overlap.main()  # the probes' entry point: its lines on stdout
+    launches["probes"] = {"overlap_mxu": overlap.overlap_mxu.launches,
+                          "overlap_alu": overlap.overlap_alu.launches,
+                          "overlap_both": overlap.overlap_both.launches,
+                          **{f"overlap_{v.replace('+', '_')}": n
+                             for v, n in overlap.overlap_loop.launches.items()}}
+    phase("probe launches", launches["probes"] == {
+        **dict.fromkeys(("overlap_mxu", "overlap_alu", "overlap_both"), 25),
+        **{f"overlap_{v.replace('+', '_')}": 4 for v in overlap.LOOP_VARIANTS}},
+        launches=launches["probes"])
+    probe_lines = {"overlap_mxu": "mxu only", "overlap_alu": "vpu only", "overlap_both": "both",
+                   **{f"overlap_{v.replace('+', '_')}": v for v in overlap.LOOP_VARIANTS}}
+    for name, (_, plain, _) in probe_fns.items():
+        per = overlap.LOOP if name.startswith("overlap_loop") else 1  # ms per kernel call
+        times[name] = (probe_ms[probe_lines[name]] * per, cuda_ms(plain, 1))
+        print(f"[timing] {name}: kernel {times[name][0]:.3f} ms, plain {times[name][1]:.3f} ms "
+              f"per call of {overlap.LANES} lanes", flush=True)
+
+    # The least time of each row's unit of work (bound), on this run's data.
+    n = cols.shape[0]
+    bf16_w = sum(w.numel() * 2 for w in model.kernels)
+    int8_w = sum(w.numel() for w in q8.kernels)
+    trace_ops = (n * TRACE_RAY_OPS + bounces / MAIN_SPS
+                 * (scene.num_spheres * SPHERE_OPS + scene.num_discs * DISC_OPS + SHADE_OPS))
+    enclosed_ops = (n * TRACE_RAY_OPS + bounces_enclosed / MAIN_SPS
+                    * (enclosed.num_spheres * SPHERE_OPS + enclosed.num_discs * DISC_OPS
+                       + SHADE_OPS))
+    chain = 2 * NIF_MACS * escapes / MAIN_SPS  # per sample, escaped rays only
+    k3_bytes = n * 24 / MAIN_SPS  # cols, rows in; radiance, path length out; per sample
+    stub_ray_ops = n * (TRACE_RAY_OPS + ENCODE_OPS
+                        + (1 + kw["max_path_length"]) * PHILOX_GROUP_OPS)
+    alu = overlap.LANES * ALU_ROUND_OPS
+    lanes_chain = 2 * NIF_MACS * overlap.LANES
+    bounds = {
+        "trace": least_ms(n * 52, {"f32": trace_ops}),
+        "trace_sobol": least_ms(n * 60, {"f32": trace_ops}),
+        "env_shade": least_ms(n * 36 + bf16_w, {"bf16": 2 * NIF_MACS * n}),
+        "env_shade_int8": least_ms(n * 36 + int8_w, {"int8": 2 * NIF_MACS * n}),
+        "megastep": least_ms(k3_bytes + bf16_w, {"bf16": chain, "f32": trace_ops}),
+        "megastep_int8": least_ms(k3_bytes + int8_w, {"int8": chain, "f32": trace_ops}),
+        "nif_apply": least_ms(bake_u.shape[0] * 20 + bf16_w,
+                           {"bf16": 2 * NIF_MACS * bake_u.shape[0]}),
+        "nif_apply_int8": least_ms(bake_u.shape[0] * 20 + int8_w,
+                                {"int8": 2 * NIF_MACS * bake_u.shape[0]}),
+        "megastep_sobol": least_ms(k3_bytes + n + bf16_w, {"bf16": chain, "f32": trace_ops}),
+        "megastep_budgets_stats": least_ms(k3_bytes + n / 2 + bf16_w,
+                                        {"bf16": chain, "f32": trace_ops}),
+        "megastep_env_skip": least_ms(k3_bytes + bf16_w, {"bf16": chain, "f32": trace_ops}),
+        "megastep_env_skip_enclosed": least_ms(k3_bytes, {"f32": enclosed_ops}),
+        "megastep_int8_sobol_budgets_stats": least_ms(k3_bytes + 1.5 * n + int8_w,
+                                                   {"int8": chain, "f32": trace_ops}),
+        # The stubbed chain does no products but still encodes every ray;
+        # the stubbed bounce draws all 1 + L Philox groups of every ray.
+        "megastep_stub_nif": least_ms(k3_bytes, {"f32": trace_ops + n * ENCODE_OPS
+                                                 + (n + bounces / MAIN_SPS) * PHILOX_GROUP_OPS}),
+        "megastep_stub_trace": least_ms(k3_bytes + bf16_w, {"bf16": 2 * NIF_MACS * n,
+                                                            "f32": stub_ray_ops}),
+        "megastep_stub_both": least_ms(k3_bytes, {"f32": stub_ray_ops}),
+        "overlap_mxu": least_ms(overlap.LANES * 8 + bf16_w, {"bf16": lanes_chain}),
+        "overlap_alu": least_ms(overlap.LANES * 8, {"f32": overlap.K6_ROUNDS * alu}),
+        "overlap_both": least_ms(overlap.LANES * 8 + bf16_w,
+                              {"bf16": lanes_chain, "f32": 28 * alu}),
+    }
+    # K8 (scripts/quant_probe.py, not ported yet): the chain over its
+    # 540 blocks of 2048 rays, for the PERF.md table.
+    k8_rays = 540 * 2048
+    for kind in ("bf16", "int8"):
+        print(f"[bound] K8 {kind} (int8 and fp8 share the peak) chain over {k8_rays} rays: "
+              f"{least_ms(k8_rays * 20, {kind: 2 * NIF_MACS * k8_rays})}", flush=True)
+    for v, (_, state) in overlap.LOOP_VARIANTS.items():
+        extra = overlap.LOOP * overlap.EXTRAS * (ALU_ROUND_OPS + 2) * overlap.LANES if state else 0
+        bounds[f"overlap_{v.replace('+', '_')}"] = least_ms(
+            overlap.LANES * 8 + bf16_w,
+            {"bf16": overlap.LOOP * lanes_chain, "f32": overlap.LOOP * 28 * alu + extra})
+
     k1 = "ipu_path_trace_tpu/ops/trace_pallas.py:549"
     k2 = "ipu_path_trace_tpu/ops/nif_pallas.py:432"
     k3 = "ipu_path_trace_tpu/ops/megastep_pallas.py:433"
@@ -718,34 +1076,54 @@ def main() -> None:
         ("trace", "csrc/trace.cu", k1, launches["main unfused"]["trace"]),
         ("env_shade", "csrc/nif.cu", k2, launches["main unfused"]["env_shade"]),
         ("env_shade_int8", "csrc/nif.cu", k5, launches["main int8 unfused"]["env_shade"]),
-        ("megastep", "csrc/megastep.cu", k3, launches["main fused"]["megastep"]),
-        ("megastep_int8", "csrc/megastep.cu", k5, launches["main int8 fused"]["megastep"]),
+        ("megastep", "csrc/megastep.cuh", k3, launches["main fused"]["megastep"]),
+        ("megastep_int8", "csrc/megastep.cuh", k5, launches["main int8 fused"]["megastep"]),
         ("nif_apply", "csrc/nif.cu", k4, launches["main baked"]["nif_apply"]),
         ("nif_apply_int8", "csrc/nif.cu", k5, launches["main baked int8"]["nif_apply"]),
         # The modes of this slice, each with the launches of the CLI run
         # that drove it.
         ("trace_sobol", "csrc/trace.cu", k1, launches["sobol unfused"]["trace"]),
-        ("megastep_sobol", "csrc/megastep.cu", k3, launches["sobol fused"]["megastep"]),
-        ("megastep_budgets_stats", "csrc/megastep.cu", k3,
+        ("megastep_sobol", "csrc/megastep.cuh", k3, launches["sobol fused"]["megastep"]),
+        ("megastep_budgets_stats", "csrc/megastep.cuh", k3,
          launches["device film adaptive"]["megastep"]),
-        ("megastep_env_skip", "csrc/megastep.cu", k3,
+        ("megastep_env_skip", "csrc/megastep.cuh", k3,
          launches["env-skip on open scene"]["megastep"]),
-        ("megastep_env_skip_enclosed", "csrc/megastep.cu", k3,
+        ("megastep_env_skip_enclosed", "csrc/megastep.cuh", k3,
          launches["enclosed scene"]["megastep"]),
-        ("megastep_int8_sobol_budgets_stats", "csrc/megastep.cu", k5,
+        ("megastep_int8_sobol_budgets_stats", "csrc/megastep.cuh", k5,
          launches["int8 device film adaptive sobol"]["megastep"]),
+        # This slice: K3's stubs with the launches of the --device-timing
+        # run (its split runs 'nif' and the skeleton 'both'; the 'trace'
+        # stub is checked and timed in phases 5c and 7 but not on the path),
+        # the probes with the launches of their entry point.
+        *((f"megastep_stub_{stub}", "csrc/megastep_stub.cu",
+           f"ipu_path_trace_tpu/ops/megastep_pallas.py:{line}",
+           launches["device timing"][f"megastep_stub_{stub}"])
+          for stub, line in (("nif", 87), ("both", 238))),
+        *((name, "csrc/probes.cu", "scripts/overlap_probe.py:86", launches["probes"][name])
+          for name in ("overlap_mxu", "overlap_alu", "overlap_both")),
+        *((name, "csrc/probes.cu", "scripts/overlap_probe2.py:82", launches["probes"][name])
+          for name in launches["probes"] if name.startswith("overlap_loop")),
     ]
     report = {"kernels": [
-        {"name": n, "route": "cuda", "source": f"ipu_path_trace_tpu_torch/{src}", "replaces": rep,
-         "launches": nl, "max_abs_err": err[n], "ms": times[n][0], "plain_ms": times[n][1]}
-        for n, src, rep, nl in rows_out]}
+        {"name": nm, "route": "cuda", "source": f"ipu_path_trace_tpu_torch/{src}",
+         "replaces": rep, "launches": nl, "max_abs_err": err[nm], "ms": times[nm][0],
+         "plain_ms": times[nm][1], "bound_ms": bounds[nm][0], "bound_by": bounds[nm][1],
+         "library_ms": None}
+        for nm, src, rep, nl in rows_out]}
     if failures:
         raise SystemExit(f"chip_smoke: failed phases: {failures}")
     (out_dir / "report.json").write_text(json.dumps(
         {**report, "nvidia_smi": smi, "build_seconds": build_s, "ptxas": ptxas,
          "main_launches": launches, "main_luminance": lum, "main_wall_s": wall,
          "main_step_s": step_s, "main_save_s": save_s, "env_skip_on_off_ms": guard,
-         "adaptive_vs_uniform_step_ms": times["adaptive_step"]}, indent=1))
+         "adaptive_vs_uniform_step_ms": times["adaptive_step"], "device_timing": split,
+         "device_timing_unfused": unfused, "profile": prof, "probe_ms": probe_ms,
+         "times_ms": times, "bounds_ms": bounds, "max_abs_err": err,
+         "cublas_chain_ms": {k: v[0] for k, v in times.items() if k.startswith("cublas")},
+         "bound_counts": {"escapes": escapes, "bounces": bounces,
+                          "escapes_enclosed": escapes_enclosed,
+                          "bounces_enclosed": bounces_enclosed}}, indent=1))
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

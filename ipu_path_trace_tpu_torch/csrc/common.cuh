@@ -1,4 +1,4 @@
-// Device code shared by the trace (trace.cu) and megastep (megastep.cu)
+// Device code shared by the trace (trace.cu) and megastep (megastep.cuh)
 // kernels: per-ray camera generation, scene intersection and the bounce
 // loop, plus the in-kernel Philox4x32-10 generator.
 //
@@ -326,7 +326,15 @@ struct TraceResult {
 // One sample of one ray: raygen with AA jitter and thin lens, then the
 // bounce loop until the ray escapes, hits an emitter, is absorbed by
 // roulette, or reaches max_path_length.
-template <class Noise>
+//
+// kStubBounce is the megastep's measurement stub of the bounce
+// (ops/megastep_pallas.py::_stub_bounce): raygen runs and every bounce
+// draws its four uniforms, but a bounce only adds (rr < 2) to the path
+// length and the ray never dies, so no bounce is skipped; radiance and
+// the escape stay zero.  The raygen direction and the other three
+// uniforms enter the comparison times zero, which nvcc cannot fold
+// without fast-math, so none of that work is deleted.
+template <bool kStubBounce = false, class Noise>
 PT_HD TraceResult trace_ray(const TraceParams& prm, const float* sph, const float* dsc,
                            float col, float row, const Noise& noise) {
   float g[4];
@@ -355,6 +363,15 @@ PT_HD TraceResult trace_ray(const TraceParams& prm, const float* sph, const floa
   res.radiance = res.esc_dir = res.esc_w = V3{0.f, 0.f, 0.f};
   res.escaped = 0;
   res.path_len = 0;
+  if constexpr (kStubBounce) {
+    const float keep = (d.x + d.y + d.z + o.x + o.y) * 0.0f;
+    for (int b = 0; b < prm.max_path_length; ++b) {
+      float u[4];  // rr, bsdf u1, bsdf u2, fresnel
+      noise.group(1 + b, u);
+      res.path_len += u[0] + ((u[1] + u[2] + u[3]) * 0.0f + keep) < 2.0f;
+    }
+    return res;
+  }
   V3 tp = {1.0f, 1.0f, 1.0f};
   const float rr_weight = 1.0f / (1.0f - prm.stop_prob);
   for (int b = 0; b < prm.max_path_length; ++b) {

@@ -1,5 +1,5 @@
 // Device code of the NIF env light, shared by the env-shade and NIF-apply
-// (nif.cu) and megastep (megastep.cu) kernels: equirect (u, v) of an
+// (nif.cu) and megastep (megastep.cuh) kernels: equirect (u, v) of an
 // escaped ray, the Fourier encode, the layer chain on the tensor cores -
 // bf16 with f32 accumulation (nif_tile) or int8 with int32 accumulation
 // (nif_tile_int8) - and the f32 decode, for a tile of kTile rays run by a
@@ -205,15 +205,13 @@ PT_HD void mma_rows(float (&acc)[kQMax][kMTiles][4], const uint16_t* x, int kste
   }
 }
 
-// Encode -> bf16 layer chain -> decode for the rays whose (u, v) are in
-// t.u / t.v; leaves the decoded network-order output in t.out.  All
-// kThreads threads of the block must call it; it ends with a barrier.
-__device__ inline void nif_tile(const NifNet& net, const NifTile& t) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// Fourier features [sin u 2^j | sin v 2^j | cos u 2^j | cos v 2^j] of the
+// tile's (u, v) into t.feat as bf16, then zero rows up to the next
+// multiple of 16 (K padding); ends with a barrier.
+__device__ inline void encode_bf16(const NifNet& net, const NifTile& t) {
+  const int tid = threadIdx.x;
   const int E = net.embed_dim, feat_rows = 4 * E;
   uint16_t* const feat = (uint16_t*)t.feat;
-  // Fourier features [sin u 2^j | sin v 2^j | cos u 2^j | cos v 2^j], bf16,
-  // then zero rows up to the next multiple of 16 (K padding).
   for (int idx = tid; idx < 2 * E * kTile; idx += kThreads) {
     const int r = idx % kTile, rest = idx / kTile;
     const int axis = rest & 1, j = rest >> 1;
@@ -225,7 +223,21 @@ __device__ inline void nif_tile(const NifNet& net, const NifTile& t) {
   for (int idx = tid; idx < (round16(feat_rows) - feat_rows) * kTile; idx += kThreads)
     feat[(feat_rows + idx / kTile) * kTileP + idx % kTile] = 0;
   __syncthreads();
+}
 
+// Called after each layer's products and epilogue, before its barrier.
+struct NoLayerHook {
+  __device__ void operator()(int) const {}
+};
+
+// The bf16 layer chain and decode over the features in t.feat; leaves the
+// decoded network-order output in t.out.  after_layer(l) runs in every
+// thread after layer l (the overlap probes put ALU work there).  All
+// kThreads threads of the block must call it; it ends with a barrier.
+template <class AfterLayer>
+__device__ inline void nif_layers(const NifNet& net, const NifTile& t, AfterLayer after_layer) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint16_t* const feat = (uint16_t*)t.feat;
   const int g = lane >> 2, tg = lane & 3;
   uint16_t* const buf0 = (uint16_t*)t.buf0;
   uint16_t* const buf1 = (uint16_t*)t.buf1;
@@ -265,10 +277,19 @@ __device__ inline void nif_tile(const NifNet& net, const NifTile& t) {
     if (!last)  // zero the K padding rows the next layer reads
       for (int idx = tid; idx < (round16(fan_out) - fan_out) * kTile; idx += kThreads)
         out[(fan_out + idx / kTile) * kTileP + idx % kTile] = 0;
+    after_layer(l);
     __syncthreads();
     in = out;
     out = out == buf0 ? buf1 : buf0;
   }
+}
+
+// Encode -> bf16 layer chain -> decode for the rays whose (u, v) are in
+// t.u / t.v; leaves the decoded network-order output in t.out.  All
+// kThreads threads of the block must call it; it ends with a barrier.
+__device__ inline void nif_tile(const NifNet& net, const NifTile& t) {
+  encode_bf16(net, t);
+  nif_layers(net, t, NoLayerHook{});
 }
 
 // acc[q][mt] += X[ray][k] * W[out][k] over `ksteps` K-steps of 32: A
@@ -350,15 +371,14 @@ __device__ inline void int8_layer_pass(const NifNet& net, int l, const NifTile& 
   }
 }
 
-// Encode -> int8 layer chain -> decode, as nif_tile.  K padding columns of
-// the int8 activations are never written: the packed weights are zero
-// there, and an integer product with zero is zero whatever the byte holds.
-__device__ inline void nif_tile_int8(const NifNet& net, const NifTile& t) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// Fourier features of the tile's (u, v) into t.feat as int8 codes on the
+// constant 1/127 grid, clip(rint(f * 127), -127, 127), ray-major; ends
+// with a barrier.
+__device__ inline void encode_int8(const NifNet& net, const NifTile& t) {
+  const int tid = threadIdx.x;
   const int E = net.embed_dim;
-  const int fs = row8(4 * E), as = row8(net.max_width);
+  const int fs = row8(4 * E);
   int8_t* const feat = (int8_t*)t.feat;
-  // Features on the constant 1/127 grid: clip(rint(f * 127), -127, 127).
   for (int idx = tid; idx < 2 * E * kTile; idx += kThreads) {
     const int r = idx % kTile, rest = idx / kTile;
     const int axis = rest & 1, j = rest >> 1;
@@ -369,6 +389,16 @@ __device__ inline void nif_tile_int8(const NifNet& net, const NifTile& t) {
         (int8_t)(int)fminf(fmaxf(rintf(c * 127.0f), -127.0f), 127.0f);
   }
   __syncthreads();
+}
+
+// Encode -> int8 layer chain -> decode, as nif_tile.  K padding columns of
+// the int8 activations are never written: the packed weights are zero
+// there, and an integer product with zero is zero whatever the byte holds.
+__device__ inline void nif_tile_int8(const NifNet& net, const NifTile& t) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int fs = row8(4 * net.embed_dim), as = row8(net.max_width);
+  int8_t* const feat = (int8_t*)t.feat;
+  encode_int8(net, t);
 
   int8_t* const buf0 = (int8_t*)t.buf0;
   int8_t* const buf1 = (int8_t*)t.buf1;
@@ -398,6 +428,35 @@ __device__ inline void nif_chain(const NifNet& net, const NifTile& t) {
     nif_tile_int8(net, t);
   else
     nif_tile(net, t);
+}
+
+// Measurement stub of the chain (ops/megastep_pallas.py::_stub_nif_layer):
+// the encode runs as in the real chain, then every layer's product is
+// replaced by ones, with no bias, and the head decodes those ones.  Each
+// layer's ones are x * 0 + 1 of the layer before, from the first feature
+// on, as the reference's x[:1] * 0.0 + 1.0: without fast-math (and with
+// --fmad=false) nvcc cannot fold x * 0 (x may be inf or NaN), so the
+// encode stays live.  Ends with a barrier, as nif_chain.
+template <bool kInt8>
+__device__ inline void nif_chain_stub(const NifNet& net, const NifTile& t) {
+  const int tid = threadIdx.x;
+  float x = 0.0f;
+  if constexpr (kInt8) {
+    encode_int8(net, t);
+    if (tid < kTile) x = (float)((const int8_t*)t.feat)[tid * row8(4 * net.embed_dim)];
+  } else {
+    encode_bf16(net, t);
+    if (tid < kTile) x = __uint_as_float((uint32_t)((const uint16_t*)t.feat)[tid] << 16);
+  }
+  if (tid < kTile) {
+    for (int l = 0; l < net.num_layers; ++l) x = x * 0.0f + 1.0f;
+#pragma unroll
+    for (int o = 0; o < 3; ++o) {  // decode at f32: y * max + mean, exp if log
+      const float z = x * net.max_v + net.mean[o];
+      t.out[o * kTile + tid] = net.log_flag ? expf(z) : z;
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace pt

@@ -239,8 +239,16 @@ def nif_apply(model: NifModel, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     exact in f32, so this is the bf16-in / f32-accumulate arithmetic of
     the reference (a bf16 CPU matmul would round its accumulator).
     """
-    dtype = model.dtype
-    feats = fourier_features(u, v, model.embedding_dim).to(dtype)
+    x = mlp_chain(model, fourier_features(u, v, model.embedding_dim).to(model.dtype))
+    y = x * model.max + torch.tensor(model.mean, device=x.device)
+    return torch.exp(y) if model.log_tone_map else y
+
+
+def mlp_chain(model: NifModel, feats: torch.Tensor) -> torch.Tensor:
+    """The layer chain over (P, 4E) features in the model's dtype -> (P,
+    out) f32 before the decode: relu and a rounding to the model's dtype
+    after each hidden layer, the skip-concat of the features where the
+    shapes ask for it."""
     x = feats
     last = model.num_layers - 1
     for i, (w, b) in enumerate(zip(model.kernels, model.biases)):
@@ -248,9 +256,8 @@ def nif_apply(model: NifModel, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor
             x = torch.cat([x, feats], dim=-1)
         x = x.float() @ w.float() + b.float()
         if i != last:
-            x = torch.relu(x).to(dtype)
-    y = x.float() * model.max + torch.tensor(model.mean, device=x.device)
-    return torch.exp(y) if model.log_tone_map else y
+            x = torch.relu(x).to(model.dtype)
+    return x
 
 
 def analyse_nif(weights: NifWeights, sample_count: int) -> dict:

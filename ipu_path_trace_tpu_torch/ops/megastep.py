@@ -2,7 +2,7 @@
 NIF env shade) in one launch.
 
 Replaces ``ipu_path_trace_tpu/ops/megastep_pallas.py::render_megastep_pallas``
-(``csrc/megastep.cu``).  ``render_megastep`` launches it for CUDA tensors
+(``csrc/megastep.cuh``).  ``render_megastep`` launches it for CUDA tensors
 and runs ``render_megastep_plain`` - the per-sample composition of the
 plain trace (ops/trace.py) and the plain env shade (ops/nif.py) - for CPU
 tensors.  Returns the SUM over the step's samples of radiance (env light
@@ -14,8 +14,13 @@ Modes, as the reference kernel's: hardware (Philox, ``seed``), host noise
 chain (``NifModel``) or the int8 chain (``QuantNifModel``); per-block
 sample ``budgets`` (adaptive sampling), ``with_stats`` (the per-record
 sum of squared sample luminance, ``lum2``) and ``env_skip`` (the NIF
-chain skipped for sub-tiles with no escape).  The measurement stubs
-(``stub``) raise NotImplementedError (ROADMAP queue 1 item 16).
+chain skipped for sub-tiles with no escape).  The measurement stubs of
+--device-timing (``stub``, utils/devtime.py) are the reference's:
+``'nif'`` replaces every layer's product by ones (no bias) and decodes
+them, ``'trace'`` replaces each bounce by ``path_len += (rr < 2)`` (rays
+never die, radiance and escapes stay zero; the chain still runs on the
+zero escapes), ``'both'`` does both.  Their kernels are built for the
+Philox and Sobol modes (``csrc/megastep_stub.cu``).
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from ..core.vecmath import Vec3
 from ..models.nif import NifModel
 from . import _lib
 from .nif import model_tensors, net_struct, nif_env_shade_plain
-from .trace import check_sobol, pack_scene, trace_params, trace_sample_plain
+from .trace import (TraceOut, check_sobol, pack_scene, sample_rows, trace_params,
+                    trace_sample_plain)
 
 # Rays that share one sample budget (render/adaptive.py reads it from
 # here): the reference's tuned TPU block, so the controller allocates at
@@ -38,10 +44,13 @@ from .trace import check_sobol, pack_scene, trace_params, trace_sample_plain
 # block, whose NIF chain ends in block barriers and so needs one budget
 # for all its rays.
 BUDGET_BLOCK = 2048
-RAYS_PER_CUDA_BLOCK = 256  # csrc/megastep.cu kRaysPerBlock
+RAYS_PER_CUDA_BLOCK = 256  # csrc/megastep.cuh kRaysPerBlock
 # Rays per NIF sub-tile (csrc/nif_dev.cuh kTile): the env-skip guard's
 # granularity, at which render/wavefront.dead_block_fraction measures.
 ENV_SKIP_TILE = 64
+
+# The measurement stubs (csrc/megastep.cuh StubMode).
+STUBS = {"nif": 1, "trace": 2, "both": 3}
 
 # Rec.709 luma weights of the statistics (the reference's LUM_R/G/B).
 LUM_R, LUM_G, LUM_B = 0.2126, 0.7152, 0.0722
@@ -63,6 +72,26 @@ def _samples(settings, noise) -> int:
     return settings.samples_per_step if noise is None else noise.shape[0]
 
 
+def _stub_trace_plain(rows: torch.Tensor, max_path_length: int) -> TraceOut:
+    """The stubbed trace of one sample (megastep_pallas.py::_stub_bounce)
+    from its noise rows: each bounce adds (rr < 2) to the path length."""
+    n, dev = rows.shape[1], rows.device
+    zero = Vec3.zeros((n,), device=dev)
+    rr = rows[4:4 + 4 * max_path_length:4]
+    return TraceOut(zero, zero, zero, torch.zeros(n, dtype=torch.bool, device=dev),
+                    (rr < 2.0).sum(dim=0, dtype=torch.int32))
+
+
+def _stub_env_plain(model: NifModel, esc_w: Vec3) -> Vec3:
+    """The stubbed env term (megastep_pallas.py::_stub_nif_layer): the
+    decode of ones, y = max + mean (exp if log), times the flipped escape
+    weights."""
+    y = (torch.ones(3, dtype=torch.float32, device=esc_w.x.device) * model.max
+         + torch.tensor(model.mean, dtype=torch.float32, device=esc_w.x.device))
+    out = torch.exp(y) if model.log_tone_map else y
+    return Vec3(esc_w.x * out[2], esc_w.y * out[1], esc_w.z * out[0])
+
+
 def _check_budgets(budgets, budget_block: int, n: int, device) -> None:
     if budgets is None:
         return
@@ -80,12 +109,13 @@ def render_megastep_plain(scene: Scene, settings, model: NifModel, cols, rows, s
                           aa_noise_type: str = "normal", budgets=None,
                           budget_block: int = BUDGET_BLOCK, with_stats: bool = False,
                           env_skip: bool = False, sobol=None,
-                          sobol_dims: int = 0) -> MegaStepOut:
+                          sobol_dims: int = 0, stub: str | None = None) -> MegaStepOut:
     """Plain PyTorch version of the megastep: trace + env shade per sample.
 
     ``budgets`` bound each block's sample loop (lanes past their budget
     add nothing; with host noise the loop also stops at its S rows).
-    ``env_skip`` changes nothing here: the kernel's skip is exact."""
+    ``env_skip`` changes nothing here: the kernel's skip is exact.
+    ``stub`` replaces the trace, the chain or both (module docstring)."""
     del env_skip
     if cols.is_cuda:
         render_megastep_plain.cuda_runs += 1
@@ -101,12 +131,20 @@ def render_megastep_plain(scene: Scene, settings, model: NifModel, cols, rows, s
         if noise is None:
             samples = int(budgets.max()) if n else 0
     for s in range(samples):
-        st = trace_sample_plain(
-            scene, settings, cols, rows, seed, noise=None if noise is None else noise[s],
-            sample_index=s, width=width, height=height,
-            max_path_length=max_path_length, aa_noise_type=aa_noise_type, sobol=sobol,
-            sobol_dims=sobol_dims)
-        env = nif_env_shade_plain(model, st.esc_dir, st.esc_w, settings.azimuth)
+        sample_noise = None if noise is None else noise[s]
+        if stub in ("trace", "both"):
+            st = _stub_trace_plain(sample_rows(seed, sample_noise, s, n, max_path_length,
+                                               aa_noise_type, dev, sobol, sobol_dims),
+                                   max_path_length)
+        else:
+            st = trace_sample_plain(
+                scene, settings, cols, rows, seed, noise=sample_noise, sample_index=s,
+                width=width, height=height, max_path_length=max_path_length,
+                aa_noise_type=aa_noise_type, sobol=sobol, sobol_dims=sobol_dims)
+        if stub in ("nif", "both"):
+            env = _stub_env_plain(model, st.esc_w)
+        else:
+            env = nif_env_shade_plain(model, st.esc_dir, st.esc_w, settings.azimuth)
         total, path_len = st.radiance + env, st.path_len
         if lane_budget is not None:
             on = s < lane_budget
@@ -133,18 +171,20 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     words ``seed``), ``noise.shape[0]`` samples (host noise) or
     ``budgets[g]`` samples for the rays of budget block g (``budgets``:
     (ceil(P / budget_block),) int32; with host noise S must cover them) of
-    every pixel: the kernel for CUDA tensors, the plain version for CPU."""
+    every pixel: the kernel for CUDA tensors, the plain version for CPU.
+    ``stub`` ('nif', 'trace' or 'both') runs a measurement stub."""
     if (seed is None) == (noise is None):
         raise ValueError("pass exactly one of seed= or noise=")
-    if stub:
-        raise NotImplementedError(
-            "megastep mode 'stub' is not ported yet (ROADMAP.md queue 1 item 16)")
+    stub = stub or None
+    if stub is not None and stub not in STUBS:
+        raise ValueError(f"unknown megastep stub {stub!r} (choices: {', '.join(STUBS)})")
     n = cols.shape[0]
     check_sobol(sobol, sobol_dims, max_path_length, seed, n)
     _check_budgets(budgets, budget_block, n, cols.device)
     kw = dict(width=width, height=height, max_path_length=max_path_length,
               aa_noise_type=aa_noise_type, budgets=budgets, budget_block=budget_block,
-              with_stats=with_stats, env_skip=env_skip, sobol=sobol, sobol_dims=sobol_dims)
+              with_stats=with_stats, env_skip=env_skip, sobol=sobol, sobol_dims=sobol_dims,
+              stub=stub)
     if cols.device.type == "cpu":
         return render_megastep_plain(scene, settings, model, cols, rows, seed,
                                      noise=noise, **kw)
@@ -157,6 +197,9 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     if noise is not None and (noise.dtype != torch.float32 or noise.shape
                               != (samples, 4 + 4 * max_path_length, n)):
         raise ValueError("megastep: noise must be (S, 4 + 4L, P) float32")
+    if stub is not None and noise is not None:
+        raise ValueError("megastep: the stub kernels are built for the Philox and Sobol "
+                         "modes, not host noise")
     prm = trace_params(scene, settings, seed=seed, device=dev, sobol=sobol,
                        sobol_dims=sobol_dims, width=width, height=height,
                        max_path_length=max_path_length, aa_noise_type=aa_noise_type)
@@ -166,14 +209,23 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     plen = torch.empty(n, dtype=torch.int32, device=dev)
     lum2 = torch.empty(n, dtype=torch.float32, device=dev) if with_stats else None
     pid, base = (None, None) if sobol is None else sobol[:2]
-    err = _lib.library().pt_megastep(
-        ctypes.byref(prm), ctypes.byref(net), _lib.ptr(sph), _lib.ptr(dsc),
-        _lib.ptr(cols), _lib.ptr(rows), _lib.ptr(noise), _lib.ptr(pid), _lib.ptr(base),
-        _lib.ptr(budgets), budget_block, samples, n, int(bool(env_skip)), _lib.ptr(rad),
-        _lib.ptr(plen), _lib.ptr(lum2), _lib.stream(dev))
-    _lib.check(err, "megastep")
-    render_megastep.launches += 1
+    lib = _lib.library()
+    common = (_lib.ptr(sph), _lib.ptr(dsc), _lib.ptr(cols), _lib.ptr(rows))
+    tail = (_lib.ptr(pid), _lib.ptr(base), _lib.ptr(budgets), budget_block, samples, n,
+            int(bool(env_skip)), _lib.ptr(rad), _lib.ptr(plen), _lib.ptr(lum2))
+    if stub is None:
+        err = lib.pt_megastep(ctypes.byref(prm), ctypes.byref(net), *common, _lib.ptr(noise),
+                              *tail, _lib.stream(dev))
+    else:
+        err = lib.pt_megastep_stub(ctypes.byref(prm), ctypes.byref(net), *common, *tail,
+                                   STUBS[stub], _lib.stream(dev))
+    _lib.check(err, "megastep" if stub is None else f"megastep stub '{stub}'")
+    if stub is None:
+        render_megastep.launches += 1
+    else:
+        render_megastep.stub_launches[stub] += 1
     return MegaStepOut(Vec3.unstack(rad), plen, lum2)
 
 
-render_megastep.launches = 0
+render_megastep.launches = 0  # the production kernels
+render_megastep.stub_launches = dict.fromkeys(STUBS, 0)

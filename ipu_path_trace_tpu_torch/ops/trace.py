@@ -162,6 +162,21 @@ def philox_noise(seed: tuple[int, int], sample_index: int, n: int,
     return torch.stack(rows)
 
 
+def sample_rows(seed, noise, sample_index: int, n: int, max_path_length: int,
+                aa_noise_type: str, device, sobol=None, sobol_dims: int = 0) -> torch.Tensor:
+    """The (4 + 4L, n) noise rows a kernel reads for one sample: ``noise``
+    itself (host noise), else the Philox stream's sample, with the Sobol
+    prefix in Sobol mode."""
+    from ..render.wavefront import QmcCtx, sobol_prefix
+
+    if noise is not None:
+        return noise
+    rows = philox_noise(seed, sample_index, n, max_path_length, aa_noise_type, device)
+    if sobol is not None:
+        rows = sobol_prefix(rows, QmcCtx(*sobol), sample_index, sobol_dims, aa_noise_type)
+    return rows
+
+
 # ---------------------------------------------------------------- K1 ----
 
 def trace_sample_plain(scene: Scene, settings, cols, rows, seed=None, *,
@@ -170,17 +185,13 @@ def trace_sample_plain(scene: Scene, settings, cols, rows, seed=None, *,
                        sobol_dims: int = 0) -> TraceOut:
     """Plain PyTorch version of the trace kernel."""
     from ..render.params import StaticConfig
-    from ..render.wavefront import QmcCtx, sobol_prefix, trace_sample_with_uniforms
+    from ..render.wavefront import trace_sample_with_uniforms
 
     if cols.is_cuda:
         trace_sample_plain.cuda_runs += 1
     n = cols.shape[0]
-    if noise is None:
-        noise = philox_noise(seed, sample_index, n, max_path_length, aa_noise_type,
-                             cols.device)
-        if sobol is not None:
-            noise = sobol_prefix(noise, QmcCtx(*sobol), sample_index, sobol_dims,
-                                 aa_noise_type)
+    noise = sample_rows(seed, noise, sample_index, n, max_path_length, aa_noise_type,
+                        cols.device, sobol, sobol_dims)
     cfg = StaticConfig(width=width, height=height, max_path_length=max_path_length,
                        aa_noise_type=aa_noise_type)
     st = trace_sample_with_uniforms(scene, settings, cfg, cols, rows, noise[0:2],

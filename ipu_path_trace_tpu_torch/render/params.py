@@ -4,8 +4,8 @@ Counterpart of ``ipu_path_trace_tpu/render/params.py`` with the same
 field names and defaults.  PyTorch runs eagerly, so the split between
 "static" and "traced" fields only survives as documentation; the fields
 whose feature the port does not have yet (``use_pallas=False``,
-``pallas_interpret``, ``megastep_stub``) are validated by
-``render.wavefront.render_step`` and raise when set.
+``pallas_interpret``) are validated by ``render.wavefront.render_step``
+and raise when set.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ class StaticConfig(NamedTuple):
     use_pallas: bool = True  # the port always runs its kernels
     use_fused_step: bool = True  # megastep kernel; off = trace + env shade per sample
     pallas_interpret: int = 0  # the port passes host noise explicitly instead
-    megastep_stub: str = ""  # not ported (ROADMAP queue 1 item 16)
+    megastep_stub: str = ""  # "nif" | "trace" | "both": the megastep's measurement stubs
     adaptive_min: int = 8  # adaptive sampling: per-block budget floor (render/adaptive.py)
     adaptive_max_factor: float = 16.0  # budget cap = factor * samples_per_step
     env_skip: bool = False  # megastep skips the NIF chain for sub-tiles with no escape

@@ -6,7 +6,8 @@ wavefront over the whole batch; they are the plain version of the trace
 kernel (ops/trace.py).  ``render_step`` runs one progressive step and
 dispatches like the reference's ``render_step_impl``: the fused megastep
 kernel when ``cfg.use_fused_step`` and the env is a NIF (bf16 or int8),
-otherwise the trace kernel per sample plus the env-shade kernel (NIF) or
+with ``cfg.megastep_stub`` forwarded to it (utils/devtime.py), otherwise
+the trace kernel per sample plus the env-shade kernel (NIF) or
 ``eval_env`` (constant or texture env, e.g. a baked NIF).
 
 Randomness: hardware mode keys the kernels' Philox stream with two seed
@@ -256,8 +257,7 @@ def _check_ported(cfg: StaticConfig) -> None:
             ("use_pallas=False", not cfg.use_pallas,
              "queue 1 item 20: the port always runs its kernels"),
             ("pallas_interpret", cfg.pallas_interpret > 0,
-             "queue 1 item 20: pass host noise as noise="),
-            ("megastep_stub", bool(cfg.megastep_stub), "queue 1 item 16")):
+             "queue 1 item 20: pass host noise as noise=")):
         if on:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md {item})")
 
@@ -291,7 +291,7 @@ def render_step(scene: Scene, settings: RenderSettings, cfg: StaticConfig, work:
         kw.update(_kernel_sobol(cfg, make_qmc_ctx(work, cfg, settings, sobol_base)))
     if cfg.use_fused_step and isinstance(env, NifEnv):
         out = render_megastep(scene, settings, env.model, cols, rows, seed, noise=noise,
-                              env_skip=cfg.env_skip, **kw)
+                              env_skip=cfg.env_skip, stub=cfg.megastep_stub or None, **kw)
         rad, plen = out.radiance, out.path_len
     else:
         rad = Vec3.zeros((n,), device=cols.device)

@@ -8,10 +8,19 @@ into the host ``Film``; with ``--device-film`` the worklist keeps its
 running sums on the device and is fetched only at ``save_interval`` and
 at the last step, when the film is rebuilt from it.  PNG + EXR are
 written at every ``save_interval`` and at the last step.
+
+Observability, as the reference's: named spans on a ``TraceChannel``
+(utils/tracing.py) around each phase, debug-level tensor info of the
+scene and the env, ``--device-timing`` (utils/devtime.py) before the
+loop, ``--profile-dir`` (a ``torch.profiler`` trace of the render loop,
+written as ``trace.json`` in Chrome's format), ``--metrics-file`` (one
+JSON line per step and a summary) and, on CUDA, one device-memory line
+after the first step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -32,6 +41,9 @@ from ..ops.megastep import ENV_SKIP_TILE
 from ..render.adaptive import adaptive_render_step
 from ..render.params import RenderSettings, StaticConfig
 from ..render.wavefront import dead_block_fraction, render_step
+from ..utils.devtime import log_phase_split, measure_phases
+from ..utils.introspect import log_tensor_info
+from ..utils.tracing import TraceChannel
 from .config import Config
 from .worklist import coherent_order, create_tracing_jobs
 
@@ -102,6 +114,7 @@ class PathTracerApp:
         self.worklist: np.ndarray | None = None
         self.total_spp = 0
         self.env_skip = config.env_skip == "on"
+        self.trace = TraceChannel("tpu_path_tracer")
 
     def init(self) -> None:
         cfg = self.cfg
@@ -119,24 +132,28 @@ class PathTracerApp:
             if cfg.nif_mode == "baked":
                 h, w = meta.image_shape[:2] if len(meta.image_shape) >= 2 else (2048, 4096)
                 t0 = time.monotonic()
-                self.env = bake_nif_env(self.env, int(h), int(w),
-                                        max_batch_size=cfg.max_nif_batch_size)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                with self.trace.span("bake_nif_env"):
+                    self.env = bake_nif_env(self.env, int(h), int(w),
+                                            max_batch_size=cfg.max_nif_batch_size)
+                    self._sync()
                 log.info("Baked NIF env to %dx%d texture in %.3f seconds (--nif-mode baked)",
                          int(h), int(w), time.monotonic() - t0)
 
     def build(self) -> None:
         cfg = self.cfg
-        worklist = create_tracing_jobs(cfg.width, cfg.height)
-        if cfg.layout == "coherent":
-            worklist = coherent_order(worklist, self.scene, cfg.width, cfg.height, cfg.fov)
+        with self.trace.span("create_path_tracing_jobs"):
+            worklist = create_tracing_jobs(cfg.width, cfg.height)
+            if cfg.layout == "coherent":
+                worklist = coherent_order(worklist, self.scene, cfg.width, cfg.height, cfg.fov)
         self.worklist = worklist
         self.film = Film(cfg.width, cfg.height)
         if cfg.adaptive and not isinstance(self.env, NifEnv):
             raise ValueError("--adaptive requires a NIF environment (--assets <dir>); the "
                              "budget controller lives in the fused megastep")
-        self.env_skip = self.resolve_env_skip()
+        log_tensor_info("scene", self.scene)
+        log_tensor_info("env", self.env)
+        with self.trace.span("resolve_env_skip"):
+            self.env_skip = self.resolve_env_skip()
 
     def resolve_env_skip(self) -> bool:
         """--env-skip as the megastep's flag.  "auto" traces
@@ -192,20 +209,86 @@ class PathTracerApp:
         cfg = self.cfg
         steps = self.total_spp // cfg.samples_per_step
         gen = torch.Generator().manual_seed(cfg.seed)  # per-step kernel seed words
+        if cfg.device_timing:
+            self._device_timing()
         start = time.monotonic()
         log.info("Render started on %s (%s film)", self.device,
                  "device" if cfg.device_film else "host")
         run = self._device_film_steps if cfg.device_film else self._host_film_steps
-        run(steps, gen)
+        with self._profiler() if cfg.profile_dir else contextlib.nullcontext() as prof:
+            run(steps, gen)
         elapsed = time.monotonic() - start
-        log.info("Render finished: %.3f seconds (Samples/sec: %.4g)", elapsed,
-                 cfg.width * cfg.height * self.total_spp / elapsed)
+        if prof is not None:
+            self._write_profile(prof)
+        rate = cfg.width * cfg.height * self.total_spp / elapsed
+        log.info("Render finished: %.3f seconds (Samples/sec: %.4g)", elapsed, rate)
+        self._emit_metrics({"event": "summary", "elapsed_seconds": round(elapsed, 3),
+                            "total_spp": int(self.total_spp),
+                            "samples_per_sec": round(rate, 1), "chips": 1})
         return self.film
+
+    def _device_timing(self) -> None:
+        """--device-timing: the per-sample phase split at the render's
+        shapes, before the loop (utils/devtime.py), on the first step's
+        seed words; the render's own stream is untouched."""
+        if self.cfg.adaptive:
+            log.warning("--device-timing with --adaptive reports the uniform step's phase "
+                        "split (the adaptive schedule shifts samples between blocks)")
+        seed = step_seed(torch.Generator().manual_seed(self.cfg.seed))
+        with self.trace.span("device_timing"):
+            split = measure_phases(self.scene, self.settings(), self.static_config(),
+                                   to_device_batch(self.worklist, self.device), seed, self.env)
+        log_phase_split(split)
+
+    def _profiler(self) -> torch.profiler.profile:
+        """--profile-dir: the render loop under torch.profiler, the card's
+        kernels included on CUDA."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        log.info("Profiler trace -> '%s'", self.cfg.profile_dir)
+        return torch.profiler.profile(activities=acts)
+
+    def _write_profile(self, prof: torch.profiler.profile) -> None:
+        path = os.path.join(self.cfg.profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        if log.isEnabledFor(logging.DEBUG):
+            sort = "self_cuda_time_total" if self.device.type == "cuda" else "self_cpu_time_total"
+            log.debug("Profile of the render loop:\n%s",
+                      prof.key_averages().table(sort_by=sort, row_limit=25))
+        log.info("Profiler trace written to %s", path)
+
+    def _emit_metrics(self, record: dict) -> None:
+        """Append one JSON line to --metrics-file."""
+        if self.cfg.metrics_file:
+            with open(self.cfg.metrics_file, "a") as f:
+                f.write(json.dumps(record) + "\n")
+
+    def _log_device_memory(self) -> None:
+        """One-shot device-memory line after the first step (CUDA only)."""
+        if self.device.type != "cuda":
+            return
+        free, total = torch.cuda.mem_get_info(self.device)
+        mib = 2.0**20
+        log.info("Device memory after first step: %.0f MiB in use, peak %.0f MiB, "
+                 "limit %.0f MiB (%.0f MiB free)", torch.cuda.memory_allocated(self.device) / mib,
+                 torch.cuda.max_memory_allocated(self.device) / mib, total / mib, free / mib)
+
+    def _after_step(self, step: int, steps: int, secs: float, **extra) -> None:
+        cfg = self.cfg
+        rate = cfg.width * cfg.height * cfg.samples_per_step / secs
+        self._emit_metrics({"step": step, "steps": steps, "seconds": round(secs, 4),
+                            "samples_per_sec": round(rate, 1), **extra,
+                            "spp_per_step": cfg.samples_per_step})
+        if step == 1:
+            self._log_device_memory()
 
     def _save(self, step: int, norm: int, since: float) -> None:
         cfg = self.cfg
-        save_images(cfg.outfile, self.film.hdr_at_step(norm),
-                    self.film.ldr(norm, cfg.exposure, cfg.gamma))
+        with self.trace.span("save_images"):
+            save_images(cfg.outfile, self.film.hdr_at_step(norm),
+                        self.film.ldr(norm, cfg.exposure, cfg.gamma))
         log.info("Saved images at step %d in %.3f seconds", step, time.monotonic() - since)
 
     def _host_film_steps(self, steps: int, gen: torch.Generator) -> None:
@@ -216,18 +299,22 @@ class PathTracerApp:
         work = to_device_batch(self.worklist, self.device)
         for step in range(1, steps + 1):
             t0 = time.monotonic()
-            # The counts restart at 0 every step, so the Sobol sampler is
-            # told how many samples each lane already has.
-            out = render_step(self.scene, settings, static, work, step_seed(gen), self.env,
-                              sobol_base=(step - 1) * cfg.samples_per_step)
-            records = from_device_batch(out)  # the fetch waits for the device
+            with self.trace.span("ipu_render"):
+                # The counts restart at 0 every step, so the Sobol sampler
+                # is told how many samples each lane already has.
+                out = render_step(self.scene, settings, static, work, step_seed(gen), self.env,
+                                  sobol_base=(step - 1) * cfg.samples_per_step)
+                records = from_device_batch(out)  # the fetch waits for the device
             t1 = time.monotonic()
-            self.film.accumulate(records)
+            with self.trace.span("accumulate_framebuffers"):
+                self.film.accumulate(records)
             t2 = time.monotonic()
             rate = cfg.width * cfg.height * cfg.samples_per_step / (t2 - t0)
             log.info("Completed render step %d/%d in %.3f seconds (render+fetch %.3f, "
                      "film %.3f; Samples/sec %.3g)", step, steps, t2 - t0, t1 - t0,
                      t2 - t1, rate)
+            rays = int(records["pathLength"].sum(dtype=np.int64))
+            self._after_step(step, steps, t2 - t0, rays_per_sec=round(rays / (t2 - t0), 1))
             if step % cfg.save_interval == 0 or step == steps:
                 self._save(step, step, t2)
 
@@ -243,23 +330,27 @@ class PathTracerApp:
                 if cfg.adaptive else None)
         for step in range(1, steps + 1):
             t0 = time.monotonic()
-            if cfg.adaptive:
-                work, lum2 = adaptive_render_step(self.scene, settings, static, work, lum2,
-                                                  step_seed(gen), self.env)
-            else:
-                work = render_step(self.scene, settings, static, work, step_seed(gen), self.env)
-            self._sync()  # the step's seconds are the device's, not the enqueue's
+            with self.trace.span("ipu_render"):
+                if cfg.adaptive:
+                    work, lum2 = adaptive_render_step(self.scene, settings, static, work, lum2,
+                                                      step_seed(gen), self.env)
+                else:
+                    work = render_step(self.scene, settings, static, work, step_seed(gen),
+                                       self.env)
+                self._sync()  # the step's seconds are the device's, not the enqueue's
             t1 = time.monotonic()
             save = step % cfg.save_interval == 0 or step == steps
             if save:  # int32 counts: no u16 wire record on this path
-                host = WorkBatch(*(t.cpu().numpy() for t in work))
-                self.film.reset()
-                self.film.accumulate_soa(host.u, host.v, host.r, host.g, host.b,
-                                         host.sample_count)
+                with self.trace.span("accumulate_framebuffers"):
+                    host = WorkBatch(*(t.cpu().numpy() for t in work))
+                    self.film.reset()
+                    self.film.accumulate_soa(host.u, host.v, host.r, host.g, host.b,
+                                             host.sample_count)
             t2 = time.monotonic()
             rate = cfg.width * cfg.height * cfg.samples_per_step / (t2 - t0)
             log.info("Completed render step %d/%d in %.3f seconds (render %.3f, fetch+film "
                      "%.3f; Samples/sec %.3g)", step, steps, t2 - t0, t1 - t0, t2 - t1, rate)
+            self._after_step(step, steps, t2 - t0)
             if save:
                 self._save(step, 1, t2)
 

@@ -14,6 +14,8 @@ import dataclasses
 import logging
 import sys
 
+from ..utils.logging import handler as log_handler
+from ..utils.logging import set_log_level
 from .config import Config
 
 # Reference flags the port does not have yet: (flags, argparse kwargs, ROADMAP item).
@@ -24,8 +26,6 @@ _UNPORTED = [
     (("--load-exe",), dict(default=""), "queue 1 item 19"),
     (("--compile-only",), dict(action="store_true"), "queue 1 item 19"),
     (("--defer-attach",), dict(action="store_true"), "queue 1 item 20"),
-    (("--log-level",), dict(default="info", choices=[
-        "trace", "debug", "info", "warn", "err", "critical", "off"]), "queue 1 item 16"),
     (("--interactive-samples",), dict(type=int, default=8), "queue 1 item 17 (ui)"),
     (("--codelet-path",), dict(default="./"), "queue 1 item 20"),
     (("--enable-load-balancing",), dict(action="store_true"), "queue 1 item 20"),
@@ -37,9 +37,6 @@ _UNPORTED = [
      "queue 1 item 20 (the port always runs its kernels)"),
     (("--mesh-shape",), dict(default=""), "queue 1 item 15 (multi-GPU)"),
     (("--cache-dir",), dict(default=""), "queue 1 item 19"),
-    (("--profile-dir",), dict(default=""), "queue 1 item 16"),
-    (("--device-timing",), dict(action="store_true"), "queue 1 item 16"),
-    (("--metrics-file",), dict(default=""), "queue 1 item 16"),
     (("--checkpoint",), dict(default=""), "queue 1 item 12"),
     (("--resume",), dict(default=""), "queue 1 item 12"),
     (("--auto-resume",), dict(action="store_true"), "queue 1 item 12"),
@@ -138,6 +135,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="With --sampler sobol: how many leading path dimensions ride "
                         "the Sobol sequence (camera 4 + 4 per bounce; rounded down to "
                         "whole bounces, prng beyond).")
+    p.add_argument("--log-level", default="info",
+                   choices=["trace", "debug", "info", "warn", "err", "critical", "off"],
+                   help="Set the log level.")
+    p.add_argument("--profile-dir", default="",
+                   help="Write a torch.profiler trace of the render loop here "
+                        "(<dir>/trace.json, Chrome's trace format; the PVTI analog).")
+    p.add_argument("--device-timing", action="store_true", default=False,
+                   help="Measure and log the per-sample device-time split (env, trace and "
+                        "overhead of the fused step; the trace and env-shade kernels when "
+                        "unfused) at the render shape before the loop starts - the "
+                        "cycle-counter analog of the reference.")
+    p.add_argument("--metrics-file", default="",
+                   help="Append one JSON line per completed render step (step, seconds, "
+                        "samples_per_sec, spp) plus a final summary.")
     p.add_argument("--device", default="cuda",
                    help="'cuda' runs the CUDA kernels; 'cpu' their plain versions.")
     unported = p.add_argument_group("Reference options not ported yet (non-defaults raise)")
@@ -171,7 +182,8 @@ def main(argv=None, *, use_fused_step: bool | None = None) -> int:
         return 2
     if use_fused_step is not None:
         cfg = dataclasses.replace(cfg, use_fused_step=use_fused_step)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    logging.basicConfig(level=logging.INFO, handlers=[log_handler()])
+    set_log_level(cfg.log_level)
     from .app import PathTracerApp
 
     app = PathTracerApp(cfg)

@@ -65,6 +65,15 @@ class Config:
     # (render/qmc.py) on the first sobol_dims path dimensions, Philox past.
     sampler: str = "prng"
     sobol_dims: int = 12  # camera (4) + whole bounces (4 each)
+    # Observability (utils/): the log level (trace, debug, info, warn, err,
+    # critical, off); a torch.profiler trace of the render loop written to
+    # <profile_dir>/trace.json; the per-sample device phase split logged
+    # before the loop (utils/devtime.py); one JSON line per step and a
+    # summary appended to metrics_file.
+    log_level: str = "info"
+    profile_dir: str = ""
+    device_timing: bool = False
+    metrics_file: str = ""
     # Where the render runs.  "cuda" launches the kernels; "cpu" runs
     # their plain versions (the port's simulator).  A CUDA request on a
     # machine without CUDA raises: nothing falls back to the CPU.

@@ -52,6 +52,8 @@ QUICK_FILES = {
     "test_torch_qmc.py",
     "test_torch_adaptive.py",
     "test_torch_envskip.py",
+    "test_torch_devtime.py",
+    "test_torch_probes.py",
 }
 
 # Files deliberately absent from the quick tier (each needs a reason —

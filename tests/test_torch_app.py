@@ -97,8 +97,7 @@ def test_fused_and_unfused_steps_agree_on_generator_noise():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("megastep_stub", "nif"), ("use_pallas", False), ("pallas_interpret", 2)])
+@pytest.mark.parametrize("field,value", [("use_pallas", False), ("pallas_interpret", 2)])
 def test_render_step_rejects_unported_config(field, value):
     work = to_device_batch(make_worklist(4, 4), "cpu")
     cfg = StaticConfig(width=4, height=4, max_path_length=2)._replace(**{field: value})
@@ -152,8 +151,8 @@ def test_cli_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--checkpoint", "x.npz"], ["--metrics-file", "m.jsonl"], ["--debug-view", "normal"],
-    ["--denoise"], ["--ipus", "2"], ["--mesh-shape", "2x1"], ["--profile-dir", "prof"]])
+    ["--checkpoint", "x.npz"], ["--resume", "x.npz"], ["--debug-view", "normal"],
+    ["--denoise"], ["--ipus", "2"], ["--mesh-shape", "2x1"], ["--ui-port", "5000"]])
 def test_cli_unported_flags_name_their_roadmap_item(tmp_path, flag):
     argv = ["-o", str(tmp_path / "x.png"), "--assets", "constant:1,1,1",
             "--device", "cpu", "-w", "4", "-H", "4", "-s", "1", "--samples-per-step", "1"]

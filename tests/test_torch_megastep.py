@@ -87,11 +87,3 @@ def test_zero_samples():
                                    noise=noise[:0], width=W, height=H, max_path_length=MAXLEN)
     assert float(out.radiance.stack().abs().max()) == 0.0
     assert int(out.path_len.abs().max()) == 0
-
-
-@pytest.mark.parametrize("mode", [dict(stub="nif"), dict(stub="trace"), dict(stub="both")])
-def test_unported_modes_raise(mode):
-    model, settings, cols, rows, noise, _, _ = _port_setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        megastep.render_megastep(default_scene(), settings, model, cols, rows, noise=noise,
-                                 width=W, height=H, max_path_length=MAXLEN, **mode)
