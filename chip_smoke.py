@@ -69,7 +69,21 @@ Phases, one line each:
                 version at the scripts' 1,105,920 lanes, then the probe's
                 entry point (its lines: ms per call or loop iteration, the
                 serial and the overlap prediction) with its launch counters
-                zeroed before and read after, and the plain versions timed.
+                zeroed before and read after, and the plain versions timed;
+  9. K8       - the precision probe (probes/quant.py): each of its six
+                variants vs its plain version at the script's 1,105,920 rays
+                (int8 bit for bit; bf16 with the tail rule below; fp8 within
+                the budget measured on this card, below), then the probe's
+                entry point with its launch counters zeroed before and read
+                after, the plain versions and the library chains timed (one
+                cuBLAS product per layer: bf16 matmul, torch._int_mm,
+                torch._scaled_mm; yardsticks the port never calls), the MMA
+                instructions of each variant's compiled kernel counted
+                (cuobjdump); then the on-class quality gate
+                (probes/quant_psnr.py: the 2048x4096 synthetic frame through
+                K4, bf16 and int8 PTQ) with K4's launches counted against the
+                batches, and again with the plain versions on the card: each
+                PSNR within 0.05 dB of the plain version's.
 Then a JSON line with the kernels, the nvidia-smi line again, and the last
 line {"ok": true, "device": {...}}.  Any failed check exits non-zero and
 prints no result.  Tolerances are the reference's own:
@@ -86,6 +100,13 @@ prints no result.  Tolerances are the reference's own:
     may take a neighbouring int8 code);
   * the overlap probes' chains (no log decode) to the bf16 budget, their
     ALU chain to rtol 1e-5 on all but 5e-3 of the lanes (the x > 1 select);
+  * K8's bf16 chain (random He-scaled weights, no decode) with the tail
+    rule of K3's bf16 modes on each of its (3, n) outputs; K8's fp8 chains
+    to median 1e-3, at most 1e-4 of the outputs above 1e-2 and max 2: on
+    this card the e4m3 sums of the kernel and the f32 sums of the plain
+    version round differently, a requantised e4m3 code (3 mantissa bits)
+    then moves by a step, and measured were median 0, 8.4e-6 of the
+    outputs above 1e-2 and max 1.43 (a near-zero output, the 1% floor);
   * the new modes of K1 and K3 bit for bit, except K3's bf16 radiance and
     the square root of its lum2 (whose relative error is that of the
     samples' luminance): median 5e-3 and max 8e-2 on all but at most one
@@ -123,6 +144,11 @@ NIF_MEDIAN, NIF_MAX = 5e-3, 8e-2
 # every RNG mode (Philox included), at its worst 0.13 on one evaluation.
 NIF_TAIL_FRACTION, NIF_TAIL_MAX = 1e-4, 0.25
 INT8_MEDIAN, INT8_SHADE_FRACTION, INT8_SHADE_MAX = 1e-3, 1e-2, 0.5
+# K8's fp8 chains against their plain version (measured on the H100:
+# median 0, 8.4e-6 of the outputs above 1e-2, max 1.43; module docstring).
+FP8_MEDIAN, FP8_ABOVE, FP8_FRACTION, FP8_MAX = 1e-3, 1e-2, 1e-4, 2.0
+K8_ITERS = 20  # timed launches per variant of probes.quant.main
+PSNR_GAP_DB = 0.05  # the quality gate's kernel PSNR against the plain version's
 BAKE_ROWS = 30 * 1472 // 4096  # rows per bake chunk at the default --max-nif-batch-size
 SOBOL_DIMS = 12  # the CLI's default --sobol-dims
 SOBOL_KEY = 0x5EED5EED
@@ -140,7 +166,7 @@ ENCLOSED_SCENE = {"objects": [
 # the bound of a kernel is the larger of its bytes over the memory rate
 # and its operations over the peak of their type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp8": 1979e12, "f32": 67e12}
 # The NIF chain's multiply-adds per ray: 48x320 + 2 x 320x320 + 368x320
 # + 2 x 320x320 + 320x3 (the canonical 6x320 net, E = 12; the probes'
 # LAYERS are the same products).
@@ -311,6 +337,69 @@ def cublas_chain(model, feats: torch.Tensor) -> torch.Tensor:
         if i != last:
             x = torch.relu(x)
     return x
+
+
+def library_k8(ops):
+    """K8's chain as library products, a yardstick the port never calls:
+    per layer one cuBLAS product, ray-major - a bf16 matmul, torch._int_mm
+    (int8 -> int32) or torch._scaled_mm (e4m3 -> bf16, unit scales; the
+    head padded to 16 rows) - with the skip concat and one activation pass
+    between products: relu (bf16), clamp to [0, 127] and the int8 cast
+    (int8), relu and the e4m3 cast (fp8).  Returns the chain as a
+    function of no arguments."""
+    from ipu_path_trace_tpu_torch.probes.quant import SKIP
+
+    kind = ("bf16" if ops.variant == "bf16" else "int8" if ops.variant.startswith("int8")
+            else "fp8")
+    u8, f8 = torch.uint8, torch.float8_e4m3fn
+    if kind == "bf16":
+        feats = ops.feats.t().to(torch.bfloat16).contiguous()
+        ws = [w.t() for w in ops.weights]
+    elif kind == "int8":
+        feats = ops.feats.t().contiguous()
+        ws = [w.t() for w in ops.weights]  # column-major (K, out), cuBLASLt's int8 layout
+    else:
+        feats = ops.feats.view(u8).t().contiguous().view(f8)
+        ws = [torch.cat([w.view(u8), w.view(u8).new_zeros((-w.shape[0] % 16, w.shape[1]))])
+              .view(f8).t() for w in ops.weights]
+        one = torch.ones((), device=feats.device)
+    last = len(ws) - 1
+
+    def chain():
+        x = feats
+        for i, w in enumerate(ws):
+            if i == SKIP:
+                x = (torch.cat([x.view(u8), feats.view(u8)], 1).view(f8) if kind == "fp8"
+                     else torch.cat([x, feats], 1))
+            if kind == "bf16":
+                y = x @ w
+            elif kind == "int8":
+                y = torch._int_mm(x, w)
+            else:
+                y = torch._scaled_mm(x, w, scale_a=one, scale_b=one, out_dtype=torch.bfloat16)
+            if i < last:
+                x = (torch.relu(y) if kind == "bf16" else y.clamp_(0, 127).to(torch.int8)
+                     if kind == "int8" else torch.relu(y).to(f8))
+        return y
+
+    return chain
+
+
+def sass_mma_counts(lib_path: Path) -> dict:
+    """The MMA instructions (HMMA, IMMA, QMMA) of each K8 kernel in the
+    built library's SASS, by variant index; empty without cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).exists():
+        return {}
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "quant_probe_kernel" in name:
+            variant = name.split("quant_probe_kernelILi", 1)[1].split("E", 1)[0]
+            counts[variant] = {op: part.count(f" {op}.") for op in ("HMMA", "IMMA", "QMMA")}
+    return counts
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1010,6 +1099,80 @@ def main() -> None:
         print(f"[timing] {name}: kernel {times[name][0]:.3f} ms, plain {times[name][1]:.3f} ms "
               f"per call of {overlap.LANES} lanes", flush=True)
 
+    # 9. K8, the precision probe, and the on-class quality gate ------------
+    from ipu_path_trace_tpu_torch.models import reconstruct
+    from ipu_path_trace_tpu_torch.probes import quant, quant_psnr
+
+    t9 = time.monotonic()
+    k8_ops, library_ms = {}, {}
+    for variant in quant.VARIANTS:
+        feats, ws, bs, _, xmax = quant.calibration(None if variant == "bf16" else quant.PAD)
+        ops = k8_ops[variant] = quant.build_operands(variant, ws, bs, feats, xmax).to(dev)
+        got, ref = quant.quant_probe(ops), quant.probe_plain(ops)
+        name = f"quant_probe_{variant}"
+        err[name] = float((got - ref).abs().max())
+        rel = rel_err(got, ref)
+        med, mx = float(rel.median()), float(rel.max())
+        if variant == "bf16":
+            above = float((rel > NIF_MAX).float().mean())
+            ok = med < NIF_MEDIAN and above <= NIF_TAIL_FRACTION and mx < NIF_TAIL_MAX
+        elif variant.startswith("fp8"):
+            above = float((rel > FP8_ABOVE).float().mean())
+            ok = med < FP8_MEDIAN and above <= FP8_FRACTION and mx < FP8_MAX
+        else:
+            above, ok = float((got != ref).float().mean()), torch.equal(got, ref)
+        phase(f"K8 {variant}", ok and bool(torch.isfinite(got).all())
+              and got.shape == (3 if variant == "bf16" else 8, quant.RAYS),
+              equal=torch.equal(got, ref), median_rel=f"{med:.2e}", max_rel=f"{mx:.2e}",
+              outputs_above=f"{above:.2e}", max_abs_err=f"{err[name]:.3e}")
+        del got, ref, rel
+    quant.quant_probe.launches = dict.fromkeys(quant.VARIANTS, 0)
+    k8_res = quant.main(["--iters", str(K8_ITERS)])  # the probe's entry point: its lines
+    launches["quant_probe"] = dict(quant.quant_probe.launches)
+    # main: one run, then time_per_call's warm-up + 1 and warm-up + K8_ITERS.
+    phase("K8 probe launches", launches["quant_probe"]
+          == dict.fromkeys(quant.VARIANTS, 4 + K8_ITERS), launches=launches["quant_probe"])
+    for variant, ops in k8_ops.items():
+        name = f"quant_probe_{variant}"
+        entry = k8_res["variants"][variant]
+        times[name] = (entry["ms_per_sample"], cuda_ms(lambda: quant.probe_plain(ops), 1))
+        library_ms[name] = cuda_ms(library_k8(ops), 10)
+        print(f"[timing] {name}: kernel {times[name][0]:.3f} ms "
+              f"({entry.get('speedup_vs_bf16', 1.0):.3f}x bf16), plain {times[name][1]:.3f} ms, "
+              f"library chain {library_ms[name]:.3f} ms per {quant.RAYS}-ray sample; rel err vs "
+              f"f32 {entry['rel_err_vs_f32']:.3e} ({smi})", flush=True)
+    k8_sass = sass_mma_counts(lib_path)
+    for idx, counts in sorted(k8_sass.items()):
+        print(f"[sass] quant_probe_{quant.VARIANTS[int(idx)]}: {counts}", flush=True)
+    if not k8_sass:
+        print("[sass] cuobjdump not found: the MMA instructions are not counted", flush=True)
+    # The quality gate through its entry point, then once more with the
+    # plain versions in place of K4 (same batches, same frames).
+    nif.nif_apply_t.launches = nif.nif_apply_t_plain.cuda_runs = 0
+    t0 = time.monotonic()
+    quality = quant_psnr.main([])
+    gate_s = time.monotonic() - t0
+    gate_launches = nif.nif_apply_t.launches
+    frame = 2048 * 4096
+    batches = reconstruct.batch_split(frame, 1 << 19)[0] + -(-frame // (1 << 19))
+    kernel_apply = nif.nif_apply_t
+    reconstruct.nif_apply_t = quant_psnr.nif_apply_t = nif.nif_apply_t_plain
+    try:
+        quality_plain = quant_psnr.main([])
+    finally:
+        reconstruct.nif_apply_t = quant_psnr.nif_apply_t = kernel_apply
+    phase("quality gate launches", gate_launches == batches
+          and nif.nif_apply_t.launches == gate_launches
+          and nif.nif_apply_t_plain.cuda_runs == batches,
+          k4_launches=gate_launches, batches=batches,
+          plain_runs_on_cuda=nif.nif_apply_t_plain.cuda_runs, seconds=f"{gate_s:.1f}")
+    for key in ("bf16_psnr_db", "int8_psnr_db"):
+        gap_db = abs(quality[key] - quality_plain[key])
+        phase(f"quality gate {key}", gap_db <= PSNR_GAP_DB and math.isfinite(quality[key]),
+              k4=f"{quality[key]:.4f}", plain=f"{quality_plain[key]:.4f}", gap_db=f"{gap_db:.2e}")
+    print(f"[timing] phase 9 (K8 and the quality gate): {time.monotonic() - t9:.1f} s",
+          flush=True)
+
     # The least time of each row's unit of work (bound), on this run's data.
     n = cols.shape[0]
     bf16_w = sum(w.numel() * 2 for w in model.kernels)
@@ -1055,12 +1218,15 @@ def main() -> None:
         "overlap_both": least_ms(overlap.LANES * 8 + bf16_w,
                               {"bf16": lanes_chain, "f32": 28 * alu}),
     }
-    # K8 (scripts/quant_probe.py, not ported yet): the chain over its
-    # 540 blocks of 2048 rays, for the PERF.md table.
-    k8_rays = 540 * 2048
-    for kind in ("bf16", "int8"):
-        print(f"[bound] K8 {kind} (int8 and fp8 share the peak) chain over {k8_rays} rays: "
-              f"{least_ms(k8_rays * 20, {kind: 2 * NIF_MACS * k8_rays})}", flush=True)
+    # K8: features in and every output row out, the weights once; the
+    # chain's real multiply-adds (padding is zero weights).
+    for variant, ops in k8_ops.items():
+        w_bytes = sum(w.numel() * w.element_size() for w in ops.weights)
+        kind = "bf16" if variant == "bf16" else "int8" if variant.startswith("int8") else "fp8"
+        io = ops.feats.numel() * ops.feats.element_size() + quant.RAYS * 4 * (
+            3 if variant == "bf16" else 8)
+        bounds[f"quant_probe_{variant}"] = least_ms(io + w_bytes,
+                                                    {kind: 2 * NIF_MACS * quant.RAYS})
     for v, (_, state) in overlap.LOOP_VARIANTS.items():
         extra = overlap.LOOP * overlap.EXTRAS * (ALU_ROUND_OPS + 2) * overlap.LANES if state else 0
         bounds[f"overlap_{v.replace('+', '_')}"] = least_ms(
@@ -1104,12 +1270,15 @@ def main() -> None:
           for name in ("overlap_mxu", "overlap_alu", "overlap_both")),
         *((name, "csrc/probes.cu", "scripts/overlap_probe2.py:82", launches["probes"][name])
           for name in launches["probes"] if name.startswith("overlap_loop")),
+        # This slice: K8 with the launches of its entry point.
+        *((f"quant_probe_{v}", "csrc/quant_probe.cu", "scripts/quant_probe.py:248",
+           launches["quant_probe"][v]) for v in quant.VARIANTS),
     ]
     report = {"kernels": [
         {"name": nm, "route": "cuda", "source": f"ipu_path_trace_tpu_torch/{src}",
          "replaces": rep, "launches": nl, "max_abs_err": err[nm], "ms": times[nm][0],
          "plain_ms": times[nm][1], "bound_ms": bounds[nm][0], "bound_by": bounds[nm][1],
-         "library_ms": None}
+         "library_ms": library_ms.get(nm)}
         for nm, src, rep, nl in rows_out]}
     if failures:
         raise SystemExit(f"chip_smoke: failed phases: {failures}")
@@ -1121,6 +1290,8 @@ def main() -> None:
          "device_timing_unfused": unfused, "profile": prof, "probe_ms": probe_ms,
          "times_ms": times, "bounds_ms": bounds, "max_abs_err": err,
          "cublas_chain_ms": {k: v[0] for k, v in times.items() if k.startswith("cublas")},
+         "quant_probe": k8_res, "quant_probe_sass_mma": k8_sass, "quality_gate": quality,
+         "quality_gate_plain": quality_plain, "quality_gate_s": gate_s,
          "bound_counts": {"escapes": escapes, "bounces": bounces,
                           "escapes_enclosed": escapes_enclosed,
                           "bounces_enclosed": bounces_enclosed}}, indent=1))

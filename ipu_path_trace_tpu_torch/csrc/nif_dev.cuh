@@ -36,7 +36,9 @@
 // clip(rint(y * inv_next) - 128, -128, 127) - and, with --fmad=false,
 // rounds where the plain version rounds.  The skip layer's trunk and
 // feature dots need separate accumulators (two multipliers), so it runs
-// kQSkip output tiles per warp and pass instead of kQMax.
+// kQSkip output tiles per warp and pass instead of kQMax.  The precision
+// probe's fp8 chain (csrc/quant_probe.cu) reuses that layout and those
+// fragments with e4m3 codes (mma_rows_e4m3).
 //
 // The encode uses sincosf on the direct angles 2^j * 2 (u - 1) (exact in
 // f32), like the trainer's models/nif.fourier_features, instead of the TPU
@@ -113,6 +115,16 @@ PT_HD void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1)
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// e4m3 x e4m3 -> f32 (sm_89 and later).  The m16n8k32 A and B fragments
+// of e4m3 are laid out as those of s8: four 8-bit values per register.
+PT_HD void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -320,6 +332,35 @@ PT_HD void mma_rows_s8(int (&acc)[Q][kMTiles][4], const int8_t* x, int stride, i
         const uint32_t b1 = __ldg(reinterpret_cast<const unsigned int*>(wr + 16));
 #pragma unroll
         for (int mt = 0; mt < kMTiles; ++mt) mma_s8(acc[q][mt], a[mt], b0, b1);
+      }
+    }
+  }
+}
+
+// mma_rows_s8 with e4m3 codes and f32 accumulators: the same fragments
+// from the same ray-major layout (plain ldmatrix), the e4m3 MMA.
+template <int Q>
+PT_HD void mma_rows_e4m3(float (&acc)[Q][kMTiles][4], const uint8_t* x, int stride, int ksteps,
+                         const uint8_t* __restrict__ w, int k_pad, int k_off, int n_tiles, int j0,
+                         int lane) {
+  const int g = lane >> 2, tg = lane & 3;
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix row of this lane
+  const int lcol = (lane >> 4) * 16;
+#pragma unroll 2
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t a[kMTiles][4];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+      ldmatrix_x4(smem_u32(x + (mt * 16 + lrow) * stride + ks * 32 + lcol), a[mt]);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int j = j0 + q * kWarps;
+      if (j < n_tiles) {
+        const uint8_t* wr = w + (size_t)(j * 8 + g) * k_pad + k_off + ks * 32 + tg * 4;
+        const uint32_t b0 = __ldg(reinterpret_cast<const unsigned int*>(wr));
+        const uint32_t b1 = __ldg(reinterpret_cast<const unsigned int*>(wr + 16));
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) mma_e4m3(acc[q][mt], a[mt], b0, b1);
       }
     }
   }

@@ -22,7 +22,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("trace.cu", "nif.cu", "megastep.cu", "megastep_stub.cu", "probes.cu")
+SOURCES = ("trace.cu", "nif.cu", "megastep.cu", "megastep_stub.cu", "probes.cu",
+           "quant_probe.cu")
 HEADERS = ("common.cuh", "nif_dev.cuh", "sobol_dirs.cuh", "megastep.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -146,11 +147,12 @@ def library() -> ctypes.CDLL:
     lib.pt_probe_alu.argtypes = [_P, _I, _I, _P, _P]
     lib.pt_probe_both.argtypes = [ctypes.POINTER(NifNet), _P, _I, _I, _P, _P]
     lib.pt_probe_loop.argtypes = [ctypes.POINTER(NifNet), _P, _I, _I, _I, _I, _I, _P, _P]
+    lib.pt_quant_probe.argtypes = [ctypes.POINTER(NifNet), _I, _P, _I, _P, _P]
     lib.pt_error_string.argtypes = [_I]
     lib.pt_error_string.restype = ctypes.c_char_p
     for fn in (lib.pt_trace, lib.pt_env_shade, lib.pt_nif_apply, lib.pt_megastep,
                lib.pt_megastep_stub, lib.pt_probe_mxu, lib.pt_probe_alu, lib.pt_probe_both,
-               lib.pt_probe_loop):
+               lib.pt_probe_loop, lib.pt_quant_probe):
         fn.restype = ctypes.c_int
     return lib
 

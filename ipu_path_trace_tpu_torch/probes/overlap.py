@@ -20,8 +20,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import shutil
-import subprocess
 
 import numpy as np
 import torch
@@ -30,7 +28,7 @@ from ..models.nif import NifModel, mlp_chain
 from ..ops import _lib
 from ..ops.nif import model_tensors, net_struct
 from ..ops.trace import philox4x32_10
-from ..utils.devtime import time_per_call
+from ..utils.devtime import card_line, time_per_call
 
 LANES = 270 * 4096  # the scripts' GRID x B: about one 1104x1000 frame
 LAYERS = [(320, 48), (320, 320), (320, 320), (320, 368), (320, 320), (320, 320), (3, 320)]
@@ -179,10 +177,7 @@ def main() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("overlap probe: CUDA is not available; the probe times the card")
     dev = torch.device("cuda", 0)
-    smi = shutil.which("nvidia-smi")
-    card = (subprocess.run([smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                           capture_output=True, text=True, timeout=60).stdout.strip()
-            if smi else torch.cuda.get_device_name(dev))
+    card = card_line(dev)
     print(f"overlap probes on {card}, {LANES} lanes", flush=True)
     model = probe_model(dev)
     u = torch.linspace(0.0, 1.0, LANES, dtype=torch.float32, device=dev)

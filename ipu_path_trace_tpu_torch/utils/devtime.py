@@ -25,6 +25,8 @@ name.  The reference's mesh branch is not ported (ROADMAP queue 1 item
 
 from __future__ import annotations
 
+import shutil
+import subprocess
 import time
 
 import torch
@@ -52,6 +54,16 @@ def time_per_call(fn, reps: int, device: torch.device) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / 1e3 / reps
+
+
+def card_line(device: torch.device) -> str:
+    """nvidia-smi's name and power limit of the card (its name alone when
+    nvidia-smi is missing): every time a probe prints goes beside it."""
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        return torch.cuda.get_device_name(device)
+    return subprocess.run([smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def device_label(device: torch.device) -> str:

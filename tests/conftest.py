@@ -54,6 +54,8 @@ QUICK_FILES = {
     "test_torch_envskip.py",
     "test_torch_devtime.py",
     "test_torch_probes.py",
+    "test_torch_quantprobe.py",
+    "test_torch_reconstruct.py",
 }
 
 # Files deliberately absent from the quick tier (each needs a reason —
