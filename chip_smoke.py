@@ -10,9 +10,15 @@ Phases, one line each:
   4. K2       - env-shade kernel vs its plain version on the canonical NIF
                 and on the mixed-width one, 65,536 numpy-seeded escapes, and
                 with the int8 chain on assets/urban_alley_synth_nif_int8;
+                the bf16 chain (csrc/nif_wgmma.cuh, 128-ray tiles) again on
+                65,536 + 37 escapes, a ragged last tile;
   4b. K4      - NIF-apply kernel vs its plain version on 65,536 numpy-seeded
                 (u, v): bf16 on the canonical and mixed-width assets, int8 on
                 both (lattice-calibrated) and on the int8 asset (its QAT grids);
+                bf16 again at 65,536 + 37 points;
+  4c. SASS    - the bf16 env-shade and NIF-apply kernels hold HGMMA (wgmma)
+                and no HMMA (mma.sync) in the built library (cuobjdump; the
+                phase fails without it), and their ptxas registers and spills;
   5. K3       - megastep kernel vs its plain version, host noise, 256x256,
                 4 samples, bf16 and int8;
   5b. modes   - K1 in Owen-Sobol mode (12 and 4 + 4L dims, bit for bit) and
@@ -64,7 +70,9 @@ Phases, one line each:
                 cross-check of the split's env); --device-timing's unfused
                 split (K1 and
                 K2 standalone); the seven-product cuBLAS bf16 chain at the
-                NIF kernels' shapes (a yardstick the port never calls);
+                NIF kernels' shapes (a yardstick the port never calls), and
+                K4 bf16 and that chain at the quality gate's 524,288-point
+                batch;
   8. probes   - K6/K7 (probes/overlap.py): every variant vs its plain
                 version at the scripts' 1,105,920 lanes, then the probe's
                 entry point (its lines: ms per call or loop iteration, the
@@ -83,7 +91,10 @@ Phases, one line each:
                 (probes/quant_psnr.py: the 2048x4096 synthetic frame through
                 K4, bf16 and int8 PTQ) with K4's launches counted against the
                 batches, and again with the plain versions on the card: each
-                PSNR within 0.05 dB of the plain version's.
+                PSNR within 0.05 dB of the plain version's.  Then K2 bf16 per
+                1104x1000 sample (wgmma) must beat the mma.sync chain of the
+                same run over ~1.1 M lanes (K6 'mxu' and K8 bf16), each
+                printed beside the cuBLAS chain.
 Then a JSON line with the kernels, the nvidia-smi line again, and the last
 line {"ok": true, "device": {...}}.  Any failed check exits non-zero and
 prints no result.  Tolerances are the reference's own:
@@ -385,17 +396,22 @@ def library_k8(ops):
     return chain
 
 
+def sass_functions(lib_path: Path) -> list[tuple[str, str]] | None:
+    """(mangled name, SASS) of each kernel in the built library; None
+    without cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).exists():
+        return None
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300).stdout
+    return [(part.split(None, 1)[0], part) for part in sass.split("Function : ")[1:]]
+
+
 def sass_mma_counts(lib_path: Path) -> dict:
     """The MMA instructions (HMMA, IMMA, QMMA) of each K8 kernel in the
     built library's SASS, by variant index; empty without cuobjdump."""
-    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(exe).exists():
-        return {}
-    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
-                          timeout=300).stdout
     counts = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
+    for name, part in sass_functions(lib_path) or []:
         if "quant_probe_kernel" in name:
             variant = name.split("quant_probe_kernelILi", 1)[1].split("E", 1)[0]
             counts[variant] = {op: part.count(f" {op}.") for op in ("HMMA", "IMMA", "QMMA")}
@@ -675,6 +691,46 @@ def main() -> None:
     err["nif_apply_int8"] = max(apply_check("K4 int8", q8, u, v),
                                 apply_check("K4 int8 canonical PTQ", q8_canonical, u, v),
                                 apply_check("K4 int8 mixed-width", q8_mixed, u, v))
+    # The bf16 chain's 128-ray tiles with a ragged last one (37 lanes).
+    ragged = n2 + 37
+    rd = gen.normal(size=(3, ragged)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=0, keepdims=True)
+    r_escaped = gen.uniform(size=ragged) < 0.8
+    rd[:, ~r_escaped] = 0.0
+    r_weight = gen.uniform(0.0, 2.0, (3, ragged)).astype(np.float32)
+    r_weight[:, ~r_escaped] = 0.0
+    rdir = Vec3.unstack(torch.from_numpy(rd).to(dev))
+    rw = Vec3.unstack(torch.from_numpy(r_weight).to(dev))
+    ru, rv = (torch.from_numpy(gen.uniform(0.0, 1.0, (2, ragged)).astype(np.float32)).to(dev))
+    for m, tag in ((model, ""), (mixed, " mixed-width")):
+        err["env_shade"] = max(err["env_shade"], shade_check(
+            f"K2{tag} ragged {ragged}", m, rdir, rw, 0.7))
+        err["nif_apply"] = max(err["nif_apply"], apply_check(
+            f"K4 bf16{tag} ragged {ragged}", m, ru, rv))
+
+    # 4c. the bf16 K2/K4 on wgmma: SASS and ptxas ------------------------
+    wg_kernels = {"env_shade": "env_shade_kernelILb0E", "nif_apply": "nif_apply_kernelILb0E"}
+    functions = sass_functions(lib_path)
+    wg_sass = {}
+    for key, tag in wg_kernels.items():
+        parts = [part for name, part in functions or [] if tag in name]
+        wg_sass[key] = {op: sum(part.count(f" {op}.") for part in parts)
+                        for op in ("HGMMA", "HMMA")}
+        phase(f"SASS {key} bf16", functions is not None and len(parts) == 1
+              and wg_sass[key]["HGMMA"] > 0 and wg_sass[key]["HMMA"] == 0,
+              cuobjdump=functions is not None, **wg_sass[key])
+    build_log = lib_path.with_suffix(".log").read_text().splitlines()
+    wg_ptxas = {}
+    for i, ln in enumerate(build_log):
+        for key, tag in wg_kernels.items():
+            if "Compiling entry" in ln and tag in ln:
+                wg_ptxas[key] = [x.strip() for x in build_log[i + 1:i + 4]
+                                 if "registers" in x or "spill" in x or "stack" in x]
+    for key, lines in wg_ptxas.items():
+        print(f"[ptxas] {key} bf16 (wgmma): {' | '.join(lines)}", flush=True)
+    for ln in build_log:
+        if "wgmma" in ln.lower():
+            print(f"[ptxas] {ln.strip()}", flush=True)
 
     # 5. K3 ------------------------------------------------------------------
     s3 = 4
@@ -1016,7 +1072,14 @@ def main() -> None:
           f"(enclosed scene {escapes_enclosed}, {bounces_enclosed})", flush=True)
     # The cuBLAS bf16 chain at the kernels' shapes: K2/K3's full frame and
     # K4's bake chunk.
-    for tag, npts in (("full frame", cols.shape[0]), ("bake chunk", bake_u.shape[0])):
+    gate_batch = 1 << 19  # the quality gate's batch (probes/quant_psnr.py)
+    gate_u, gate_v = torch.rand((2, gate_batch), generator=noise_gen, device=dev)
+    times["nif_apply_gate_batch"] = (cuda_ms(lambda: nif.nif_apply_t(model, gate_u, gate_v), 10),
+                                     None)
+    print(f"[timing] nif_apply bf16 (wgmma) at {gate_batch} points: "
+          f"{times['nif_apply_gate_batch'][0]:.4f} ms ({smi})", flush=True)
+    for tag, npts in (("full frame", cols.shape[0]), ("bake chunk", bake_u.shape[0]),
+                      ("gate batch", gate_batch)):
         feats = torch.rand((npts, 4 * model.embedding_dim), device=dev).to(torch.bfloat16)
         times[f"cublas_chain_{tag}"] = (cuda_ms(lambda: cublas_chain(model, feats), 10), None)
         print(f"[timing] cuBLAS bf16 chain (7 products, relu, concat) at {npts} rays: "
@@ -1173,6 +1236,26 @@ def main() -> None:
     print(f"[timing] phase 9 (K8 and the quality gate): {time.monotonic() - t9:.1f} s",
           flush=True)
 
+    # The wgmma chain of K2/K4 against the mma.sync chain of the same run
+    # (K6 'mxu' and K8 bf16, ~1.1 M lanes each) and the cuBLAS chain.
+    mma_sync = {"overlap_mxu": times["overlap_mxu"][0],
+                "quant_probe_bf16": times["quant_probe_bf16"][0]}
+    for name, chain_key, unit in (
+            ("env_shade", "cublas_chain_full frame",
+             f"1104x1000 sample ({cols.shape[0]} lanes)"),
+            ("nif_apply", "cublas_chain_bake chunk", f"bake chunk ({bake_u.shape[0]} points)"),
+            ("nif_apply_gate_batch", "cublas_chain_gate batch",
+             f"gate batch ({gate_batch} points)")):
+        print(f"[wgmma] {name} bf16: {times[name][0]:.4f} ms per {unit}, cuBLAS chain "
+              f"{times[chain_key][0]:.4f} ms ({times[name][0] / times[chain_key][0]:.3f}x); "
+              f"({smi})", flush=True)
+    print(f"[wgmma] mma.sync chain per ~1.1 M lanes: K6 mxu {mma_sync['overlap_mxu']:.4f} ms, "
+          f"K8 bf16 {mma_sync['quant_probe_bf16']:.4f} ms ({smi})", flush=True)
+    phase("K2 bf16 wgmma beats the mma.sync chain",
+          times["env_shade"][0] < min(mma_sync.values()),
+          env_shade_ms=f"{times['env_shade'][0]:.4f}",
+          **{f"{k}_ms": f"{v:.4f}" for k, v in mma_sync.items()})
+
     # The least time of each row's unit of work (bound), on this run's data.
     n = cols.shape[0]
     bf16_w = sum(w.numel() * 2 for w in model.kernels)
@@ -1240,11 +1323,11 @@ def main() -> None:
     k5 = "ipu_path_trace_tpu/ops/nif_pallas.py:257"  # the int8 chain inside K2, K3 and K4
     rows_out = [
         ("trace", "csrc/trace.cu", k1, launches["main unfused"]["trace"]),
-        ("env_shade", "csrc/nif.cu", k2, launches["main unfused"]["env_shade"]),
+        ("env_shade", "csrc/nif_wgmma.cuh", k2, launches["main unfused"]["env_shade"]),
         ("env_shade_int8", "csrc/nif.cu", k5, launches["main int8 unfused"]["env_shade"]),
         ("megastep", "csrc/megastep.cuh", k3, launches["main fused"]["megastep"]),
         ("megastep_int8", "csrc/megastep.cuh", k5, launches["main int8 fused"]["megastep"]),
-        ("nif_apply", "csrc/nif.cu", k4, launches["main baked"]["nif_apply"]),
+        ("nif_apply", "csrc/nif_wgmma.cuh", k4, launches["main baked"]["nif_apply"]),
         ("nif_apply_int8", "csrc/nif.cu", k5, launches["main baked int8"]["nif_apply"]),
         # The modes of this slice, each with the launches of the CLI run
         # that drove it.
@@ -1291,6 +1374,7 @@ def main() -> None:
          "times_ms": times, "bounds_ms": bounds, "max_abs_err": err,
          "cublas_chain_ms": {k: v[0] for k, v in times.items() if k.startswith("cublas")},
          "quant_probe": k8_res, "quant_probe_sass_mma": k8_sass, "quality_gate": quality,
+         "wgmma_sass": wg_sass, "wgmma_ptxas": wg_ptxas,
          "quality_gate_plain": quality_plain, "quality_gate_s": gate_s,
          "bound_counts": {"escapes": escapes, "bounces": bounces,
                           "escapes_enclosed": escapes_enclosed,

@@ -4,11 +4,17 @@
 //
 // Replace ipu_path_trace_tpu/ops/nif_pallas.py::nif_env_shade_pallas
 // (kernel body _env_shade_kernel, :307) and ::nif_apply_pallas_t (kernel
-// body _kernel, :287).  A block of pt::kThreads threads runs a tile of
-// pt::kTile rays; each kernel is instantiated for the bf16 and the int8
-// chain (K5) and the launcher picks by NifNet::int8.  nif_dev.cuh says
-// what bounds the chain and how the weights stream from L2.
+// body _kernel, :287).  Each kernel has two instantiations:
+//  * <false>, the bf16 chain: nif_wgmma.cuh (wgmma on weights streamed
+//    through shared memory by bulk copies), 128-ray tiles, a persistent
+//    block of kWgThreads threads per SM, operands in NifWg;
+//  * <true>, the int8 chain (K5): a block of pt::kThreads threads per tile
+//    of pt::kTile rays, nif_dev.cuh::nif_tile_int8 (mma.sync s8), operands
+//    in NifNet.
+// The launchers pick by which operands they are given; a bf16 NifNet is
+// refused (its mma.sync chain serves K3, K6 and K8 only).
 #include "nif_dev.cuh"
+#include "nif_wgmma.cuh"
 
 namespace pt {
 
@@ -38,6 +44,16 @@ __global__ void __launch_bounds__(kThreads, 2) env_shade_kernel(NifNet net, NifS
 }
 
 template <bool kInt8>
+__global__ void __launch_bounds__(kWgThreads, 1) env_shade_kernel(NifWg net,
+                                                                const float* __restrict__ escd,
+                                                                const float* __restrict__ escw,
+                                                                float azimuth, int n,
+                                                                float* __restrict__ out) {
+  static_assert(!kInt8, "the int8 chain takes the NifNet kernel");
+  nif_wg_tiles(net, WgShadeIo{escd, escw, azimuth, n, out});
+}
+
+template <bool kInt8>
 __global__ void __launch_bounds__(kThreads, 2) nif_apply_kernel(NifNet net, NifSmem plan,
                                                              const float* __restrict__ u,
                                                              const float* __restrict__ v, int n,
@@ -59,6 +75,15 @@ __global__ void __launch_bounds__(kThreads, 2) nif_apply_kernel(NifNet net, NifS
   }
 }
 
+template <bool kInt8>
+__global__ void __launch_bounds__(kWgThreads, 1) nif_apply_kernel(NifWg net,
+                                                                const float* __restrict__ u,
+                                                                const float* __restrict__ v,
+                                                                int n, float* __restrict__ out) {
+  static_assert(!kInt8, "the int8 chain takes the NifNet kernel");
+  nif_wg_tiles(net, WgApplyIo{u, v, n, out});
+}
+
 // Sets the kernel's dynamic shared memory, then launches one tile per block.
 template <typename Kernel, typename... Args>
 int launch_tiles(Kernel kernel, const NifSmem& plan, int n, void* stream, Args... args) {
@@ -73,20 +98,31 @@ int launch_tiles(Kernel kernel, const NifSmem& plan, int n, void* stream, Args..
 
 }  // namespace pt
 
-extern "C" int pt_env_shade(const pt::NifNet* net, const float* escd, const float* escw,
-                            float azimuth, int n, float* out, void* stream) {
+// Exactly one of net (an int8 model) and wg (a bf16 model) is given.
+extern "C" int pt_env_shade(const pt::NifNet* net, const pt::NifWg* wg, const float* escd,
+                            const float* escw, float azimuth, int n, float* out, void* stream) {
+  if (wg != nullptr && net == nullptr) {
+    void (*const kernel)(pt::NifWg, const float*, const float*, float, int, float*) =
+        pt::env_shade_kernel<false>;
+    return pt::launch_wg(kernel, *wg, n, stream, *wg, escd, escw, azimuth, n, out);
+  }
+  if (wg != nullptr || net == nullptr || !net->int8) return (int)cudaErrorInvalidValue;
+  void (*const kernel)(pt::NifNet, pt::NifSmem, const float*, const float*, float, int, float*) =
+      pt::env_shade_kernel<true>;
   const pt::NifSmem plan = pt::nif_smem_plan(*net, 0);
-  return net->int8 ? pt::launch_tiles(pt::env_shade_kernel<true>, plan, n, stream, *net, plan,
-                                      escd, escw, azimuth, n, out)
-                   : pt::launch_tiles(pt::env_shade_kernel<false>, plan, n, stream, *net, plan,
-                                      escd, escw, azimuth, n, out);
+  return pt::launch_tiles(kernel, plan, n, stream, *net, plan, escd, escw, azimuth, n, out);
 }
 
-extern "C" int pt_nif_apply(const pt::NifNet* net, const float* u, const float* v, int n,
-                            float* out, void* stream) {
+extern "C" int pt_nif_apply(const pt::NifNet* net, const pt::NifWg* wg, const float* u,
+                            const float* v, int n, float* out, void* stream) {
+  if (wg != nullptr && net == nullptr) {
+    void (*const kernel)(pt::NifWg, const float*, const float*, int, float*) =
+        pt::nif_apply_kernel<false>;
+    return pt::launch_wg(kernel, *wg, n, stream, *wg, u, v, n, out);
+  }
+  if (wg != nullptr || net == nullptr || !net->int8) return (int)cudaErrorInvalidValue;
+  void (*const kernel)(pt::NifNet, pt::NifSmem, const float*, const float*, int, float*) =
+      pt::nif_apply_kernel<true>;
   const pt::NifSmem plan = pt::nif_smem_plan(*net, 0);
-  return net->int8 ? pt::launch_tiles(pt::nif_apply_kernel<true>, plan, n, stream, *net, plan,
-                                      u, v, n, out)
-                   : pt::launch_tiles(pt::nif_apply_kernel<false>, plan, n, stream, *net, plan,
-                                      u, v, n, out);
+  return pt::launch_tiles(kernel, plan, n, stream, *net, plan, u, v, n, out);
 }

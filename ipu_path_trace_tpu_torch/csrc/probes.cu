@@ -3,7 +3,7 @@
 //
 // Replace scripts/overlap_probe.py::build (k_mxu :55, k_vpu :62, k_both
 // :67) and scripts/overlap_probe2.py::build (k_loop :53).  The matrix part
-// is the chain K2-K4 run (nif_dev.cuh::nif_layers: 64-ray tiles, bf16
+// is the chain K3 runs (nif_dev.cuh::nif_layers: 64-ray tiles, bf16
 // mma.sync from mma_rows, the skip layer's concat of the features) over
 // the probes' seven bias-free layers, packed as a NifModel with zero biases
 // and a decode of y * 1 + 0 (ops/nif.py::net_struct), whose 48 feature

@@ -4,7 +4,7 @@
 // Replaces scripts/quant_probe.py::build_call (kernel bodies _bf16_kernel
 // :142, _int8_perchan_kernel :161, _narrow_kernel :197).  One kernel body,
 // quant_probe_kernel<V>, instantiated per variant; a block of kThreads
-// threads runs a tile of kTile rays, as K2-K4 (nif_dev.cuh).
+// threads runs a tile of kTile rays, as K3 and the int8 K2/K4 (nif_dev.cuh).
 //
 //  * bf16: the (48, n) f32 features are cast to bf16 into the tile's
 //    feature-major buffer, then nif_dev.cuh::nif_layers runs the chain

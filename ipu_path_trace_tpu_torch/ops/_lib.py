@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("trace.cu", "nif.cu", "megastep.cu", "megastep_stub.cu", "probes.cu",
            "quant_probe.cu")
-HEADERS = ("common.cuh", "nif_dev.cuh", "sobol_dirs.cuh", "megastep.cuh")
+HEADERS = ("common.cuh", "nif_dev.cuh", "nif_wgmma.cuh", "sobol_dirs.cuh", "megastep.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
@@ -125,6 +125,20 @@ class NifNet(ctypes.Structure):
     ]
 
 
+class NifWg(ctypes.Structure):
+    """csrc/nif_wgmma.cuh::NifWg."""
+
+    _fields_ = (
+        [(n, ctypes.c_int) for n in (
+            "num_layers", "embed_dim", "log_flag", "stages", "stage_bytes", "feat_atoms",
+            "smem_feat", "smem_ring", "smem_bar", "smem_uv", "smem_bytes")]
+        + [(n, ctypes.c_int * NIF_MAX_LAYERS) for n in (
+            "chunks", "in_atoms", "f_atoms", "slice_bytes")]
+        + [("w", ctypes.c_void_p * NIF_MAX_LAYERS), ("b", ctypes.c_void_p * NIF_MAX_LAYERS),
+           ("max_v", ctypes.c_float), ("mean", ctypes.c_float * 3)]
+    )
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -135,8 +149,11 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.pt_trace.argtypes = [ctypes.POINTER(TraceParams), _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _P, _P, _P, _P, _P, _P]
-    lib.pt_env_shade.argtypes = [ctypes.POINTER(NifNet), _P, _P, ctypes.c_float, _I, _P, _P]
-    lib.pt_nif_apply.argtypes = [ctypes.POINTER(NifNet), _P, _P, _I, _P, _P]
+    # K2 and K4 take an int8 model's NifNet or a bf16 model's NifWg (the other None).
+    lib.pt_env_shade.argtypes = [ctypes.POINTER(NifNet), ctypes.POINTER(NifWg), _P, _P,
+                                 ctypes.c_float, _I, _P, _P]
+    lib.pt_nif_apply.argtypes = [ctypes.POINTER(NifNet), ctypes.POINTER(NifWg), _P, _P, _I, _P,
+                                 _P]
     lib.pt_megastep.argtypes = [ctypes.POINTER(TraceParams), ctypes.POINTER(NifNet),
                                 _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                 _P]

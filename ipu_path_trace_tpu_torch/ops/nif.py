@@ -5,11 +5,15 @@ nif_env_shade_pallas``: equirect (u, v) of each escape direction, the NIF
 chain, the bgr -> rgb flip and the product with the escape weights, in
 one kernel.  ``nif_apply_t`` replaces ``nif_apply_pallas_t``: the NIF at
 given (u, v), (3, P) f32 in network channel order (``eval_env`` and the
-baked env mode call it).  Both live in ``csrc/nif.cu``; the chain itself
-is ``csrc/nif_dev.cuh``: the bf16 chain for a ``NifModel``, the int8
-chain (K5, ``_quant_mlp_core``) for a ``QuantNifModel``.  Each wrapper
-launches its kernel for CUDA tensors and runs its ``*_plain`` version for
-CPU tensors.
+baked env mode call it).  Both live in ``csrc/nif.cu``.  For a
+``NifModel`` (bf16) they run the ``wgmma`` chain of
+``csrc/nif_wgmma.cuh`` on the slices of ``wgmma_operands`` (``wg_struct``);
+for a ``QuantNifModel`` the int8 chain (K5, ``_quant_mlp_core``) of
+``csrc/nif_dev.cuh`` (``net_struct``).  The bf16 ``mma.sync`` chain of
+``nif_dev.cuh`` (``kernel_operands``) serves K3 and the probes K6 and K8.
+Each wrapper launches its kernel for CUDA tensors and runs its ``*_plain``
+version for CPU tensors; a bf16 shape the ``wgmma`` chain cannot take
+raises (``wgmma_plan``).
 """
 
 from __future__ import annotations
@@ -60,14 +64,150 @@ def _pack(model: NifModel, dtype: torch.dtype, k_mult: int) -> list[tuple]:
 
 
 def kernel_operands(model: NifModel) -> list[tuple[torch.Tensor, torch.Tensor, int, int]]:
-    """bf16 chain, per layer (packed weights, f32 bias, k_trunk, k_pad):
-    bf16 rows with K padded to 16 - the B-fragment layout of the bf16
-    ``mma.sync`` in csrc/nif_dev.cuh::nif_tile.  Cached on the model."""
+    """bf16 ``mma.sync`` chain (K3, K6, K8), per layer (packed weights, f32
+    bias, k_trunk, k_pad): bf16 rows with K padded to 16 - the B-fragment
+    layout of csrc/nif_dev.cuh::nif_layers.  Cached on the model."""
     def build():
         return [(packed, b.float().contiguous(), k_trunk, k_pad) for (packed, k_trunk, k_pad), b
                 in zip(_pack(model, torch.bfloat16, 16), model.biases)]
 
     return _cached(model, "_kernel_operands", model.kernels, build)
+
+
+# The wgmma chain's fixed shapes (csrc/nif_wgmma.cuh).
+WG_RAYS = 128  # kWgRays: rays per tile
+WG_ATOM = 64  # K values of a slice and of an activation atom: one 128-byte row
+WG_ATOM_BYTES = WG_RAYS * 2 * WG_ATOM  # kWgAtomBytes
+WG_CHUNK = 64  # wgmma N of a hidden layer's output chunk
+WG_MAX_CHUNKS = 5  # kWgMaxChunks: hidden widths up to 320
+WG_HEAD_ROWS = 8  # wgmma N of the head: 3 outputs padded to 8
+WG_MAX_STAGES = 4  # kWgMaxStages
+WG_SMEM_LIMIT = 232_448  # kWgSmemLimit: dynamic shared memory a block may use
+WG_BAR_BYTES = 2 * WG_MAX_STAGES * 8  # full and empty mbarriers
+WG_UV_BYTES = 2 * WG_RAYS * 4  # the tile's (u, v)
+WG_ALIGN = 1024  # slack to align the dynamic shared memory to the swizzle's 1024 B
+
+
+def wgmma_plan(model: NifModel) -> dict:
+    """The ``wgmma`` chain's layers and shared-memory plan
+    (csrc/nif_wgmma.cuh): per layer its weight rows (a hidden layer's
+    outputs rounded up to 64-wide chunks, the head's to 8), its trunk
+    width and its 64-input K-slices from the activations (``in_atoms``)
+    and from the Fourier features (``f_atoms``: layer 0 and the skip
+    layer); then the block's bytes - activation and feature atoms, ring
+    stages of the largest slice, barriers, (u, v), alignment - with each
+    piece's offset.  Raises ValueError, naming the limit, for a shape the
+    chain cannot take."""
+    plan = model.layer_plan()
+    if len(plan) > _lib.NIF_MAX_LAYERS:
+        raise ValueError(f"NIF has {len(plan)} layers; the kernel takes at most "
+                         f"{_lib.NIF_MAX_LAYERS}")
+    feat = 4 * model.embedding_dim
+    f_atoms = -(-feat // WG_ATOM)
+    layers = []
+    for i, (fan_in, fan_out, skip) in enumerate(plan):
+        if i == len(plan) - 1:
+            if fan_out > WG_HEAD_ROWS:
+                raise ValueError(f"NIF head has {fan_out} outputs; the wgmma chain's head "
+                                 f"takes at most {WG_HEAD_ROWS}")
+            rows, chunks = WG_HEAD_ROWS, 0
+        else:
+            chunks = -(-fan_out // WG_CHUNK)
+            if chunks > WG_MAX_CHUNKS:
+                raise ValueError(f"NIF layer {i} has {fan_out} outputs; the wgmma chain takes "
+                                 f"hidden widths up to {WG_MAX_CHUNKS * WG_CHUNK}")
+            rows = chunks * WG_CHUNK
+        trunk = 0 if i == 0 else fan_in - feat if skip else fan_in
+        layers.append(dict(fan_in=fan_in, fan_out=fan_out, trunk=trunk, rows=rows, chunks=chunks,
+                           in_atoms=-(-trunk // WG_ATOM),
+                           f_atoms=f_atoms if i == 0 or skip else 0,
+                           slice_bytes=rows * 2 * WG_ATOM))
+    act_atoms = max([lay["chunks"] for lay in layers] + [0])
+    stage_bytes = max(lay["slice_bytes"] for lay in layers)
+    smem_feat = act_atoms * WG_ATOM_BYTES
+    smem_ring = smem_feat + f_atoms * WG_ATOM_BYTES
+    fixed = smem_ring + WG_BAR_BYTES + WG_UV_BYTES + WG_ALIGN
+    stages = min(WG_MAX_STAGES, (WG_SMEM_LIMIT - fixed) // stage_bytes)
+    if stages < 2:
+        raise ValueError(f"the wgmma chain needs {fixed + 2 * stage_bytes} B of shared memory "
+                         f"for two ring stages of {stage_bytes} B; a block has {WG_SMEM_LIMIT}")
+    smem_bar = smem_ring + stages * stage_bytes
+    smem_uv = smem_bar + WG_BAR_BYTES
+    return dict(layers=layers, act_atoms=act_atoms, feat_atoms=f_atoms, stages=stages,
+                stage_bytes=stage_bytes, smem_feat=smem_feat, smem_ring=smem_ring,
+                smem_bar=smem_bar, smem_uv=smem_uv,
+                smem_bytes=smem_uv + WG_UV_BYTES + WG_ALIGN)
+
+
+def swizzle128(x: torch.Tensor) -> torch.Tensor:
+    """(rows, 64 * atoms) -> (atoms, rows, 64): each 64-column atom in the
+    K-major 128-byte-swizzle image that ``wgmma`` reads, 8-element (16-byte)
+    chunk c of row r at chunk c ^ (r % 8).  The permutation is its own
+    inverse within an atom."""
+    rows, atoms = x.shape[0], x.shape[1] // WG_ATOM
+    chunks = x.reshape(rows, atoms, 8, 8).permute(1, 0, 2, 3)
+    r = torch.arange(rows, device=x.device)
+    idx = torch.arange(8, device=x.device)[None, :] ^ (r[:, None] % 8)
+    return torch.gather(chunks, 2, idx[None, :, :, None].expand(atoms, rows, 8, 8)).reshape(
+        atoms, rows, WG_ATOM)
+
+
+def wgmma_operands(model: NifModel) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """bf16 ``wgmma`` chain (K2, K4), per layer (slices, f32 bias): the
+    layer's (out, in) weights as ``wgmma_plan``'s K-slices, back to back in
+    the order the kernel reads them - trunk inputs, then (layer 0 and the
+    skip layer) the Fourier-feature inputs - each (rows, 64) in the
+    128-byte-swizzle image, zero past fan-in and fan-out; the bias padded
+    with zeros to the rows.  One slice is one bulk copy into the ring.
+    Cached on the model."""
+    def build():
+        out = []
+        for lay, w, b in zip(wgmma_plan(model)["layers"], model.kernels, model.biases):
+            wt = w.t()
+            parts = []
+            for lo, hi, atoms in ((0, lay["trunk"], lay["in_atoms"]),
+                                  (lay["trunk"], lay["fan_in"], lay["f_atoms"])):
+                if atoms:
+                    x = wt.new_zeros((lay["rows"], atoms * WG_ATOM))
+                    x[:lay["fan_out"], :hi - lo] = wt[:, lo:hi]
+                    parts.append(swizzle128(x))
+            bias = torch.zeros(lay["rows"], dtype=torch.float32, device=b.device)
+            bias[:lay["fan_out"]] = b.float()
+            out.append((torch.cat(parts).contiguous(), bias))
+        return out
+
+    return _cached(model, "_wgmma_operands", model.kernels + model.biases, build)
+
+
+def wg_struct(model: NifModel) -> _lib.NifWg:
+    """The ``wgmma`` kernels' view of a bf16 model: the plan and pointers to
+    the slices and biases (kept alive by the model's cache)."""
+    if model.dtype != torch.bfloat16:
+        raise ValueError(f"the wgmma chain runs bf16 weights; model is {model.dtype}")
+    plan = wgmma_plan(model)
+    net = _lib.NifWg()
+    net.num_layers = len(plan["layers"])
+    net.embed_dim = model.embedding_dim
+    net.log_flag = int(model.log_tone_map)
+    for key in ("stages", "stage_bytes", "feat_atoms", "smem_feat", "smem_ring", "smem_bar",
+                "smem_uv", "smem_bytes"):
+        setattr(net, key, plan[key])
+    for i, (lay, (w, b)) in enumerate(zip(plan["layers"], wgmma_operands(model))):
+        for key in ("chunks", "in_atoms", "f_atoms", "slice_bytes"):
+            getattr(net, key)[i] = lay[key]
+        net.w[i], net.b[i] = w.data_ptr(), b.data_ptr()
+    net.max_v = model.max
+    for c in range(3):
+        net.mean[c] = model.mean[c]
+    return net
+
+
+def _kernel_nets(model: NifModel) -> tuple:
+    """(NifNet, NifWg) arguments of K2 and K4: an int8 model's NifNet or a
+    bf16 model's NifWg, the other None."""
+    if isinstance(model, QuantNifModel):
+        return ctypes.byref(net_struct(model)), None
+    return None, ctypes.byref(wg_struct(model))
 
 
 def quant_kernel_operands(model: QuantNifModel) -> list[tuple]:
@@ -161,9 +301,8 @@ def nif_apply_t(model: NifModel, u: torch.Tensor, v: torch.Tensor) -> torch.Tens
     n = u.shape[0]
     if v.shape != (n,):
         raise ValueError("nif apply: u and v must be (P,)")
-    net = net_struct(model)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    err = _lib.library().pt_nif_apply(ctypes.byref(net), _lib.ptr(u), _lib.ptr(v), n,
+    err = _lib.library().pt_nif_apply(*_kernel_nets(model), _lib.ptr(u), _lib.ptr(v), n,
                                       _lib.ptr(out), _lib.stream(dev))
     _lib.check(err, "nif apply")
     nif_apply_t.launches += 1
@@ -197,9 +336,8 @@ def nif_env_shade(model: NifModel, esc_dir: Vec3, esc_w: Vec3, azimuth: float) -
     escw = esc_w.stack().float().contiguous()
     dev = _lib.require_cuda("env shade", escd, escw, *model_tensors(model))
     n = escd.shape[1]
-    net = net_struct(model)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    err = _lib.library().pt_env_shade(ctypes.byref(net), _lib.ptr(escd), _lib.ptr(escw),
+    err = _lib.library().pt_env_shade(*_kernel_nets(model), _lib.ptr(escd), _lib.ptr(escw),
                                       float(azimuth), n, _lib.ptr(out), _lib.stream(dev))
     _lib.check(err, "env shade")
     nif_env_shade.launches += 1

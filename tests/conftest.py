@@ -44,6 +44,7 @@ QUICK_FILES = {
     # PyTorch/CUDA port vs the JAX package (CPU, small shapes, ~1 min total):
     "test_torch_core.py",
     "test_torch_nif.py",
+    "test_torch_nif_wgmma.py",
     "test_torch_trace.py",
     "test_torch_megastep.py",
     "test_torch_app.py",
