@@ -19,6 +19,12 @@ Phases, one line each:
   4c. SASS    - the bf16 env-shade and NIF-apply kernels hold HGMMA (wgmma)
                 and no HMMA (mma.sync) in the built library (cuobjdump; the
                 phase fails without it), and their ptxas registers and spills;
+                likewise K3: every bf16 instantiation (megastep_wg_kernel:
+                Philox, host noise, Sobol, and the 'trace' stubs) holds HGMMA
+                and no HMMA, its 'nif' and 'both' stubs no MMA at all, every
+                int8 one (megastep_kernel) its IMMA and no HMMA, no bf16
+                megastep_kernel (the mma.sync chain) is built, and ptxas
+                reports no spills for the bf16 ones (their lines printed);
   5. K3       - megastep kernel vs its plain version, host noise, 256x256,
                 4 samples, bf16 and int8;
   5b. modes   - K1 in Owen-Sobol mode (12 and 4 + 4L dims, bit for bit) and
@@ -26,7 +32,11 @@ Phases, one line each:
                 the statistics (hardware and host noise), with the env-skip,
                 and with all of them at once, vs their plain versions at
                 256x256; and K3 with the env-skip on and off on the enclosed
-                scene (nothing escapes), which must agree bit for bit;
+                scene (nothing escapes), which must agree bit for bit; then
+                K3 bf16 at a ragged 65,317 lanes (the last CUDA block has one
+                live 128-ray tile) with budgets of 0, 1 and 8 in one launch,
+                the statistics and the env-skip, Philox and host noise, and
+                on the enclosed scene skip on = off bit for bit;
   5c. stubs   - K3's measurement stubs 'nif', 'trace' and 'both', bf16 and
                 int8, Philox and Sobol, vs their plain versions at 256x256:
                 'trace'/'both' exactly (radiance 0, path lengths S x L),
@@ -91,10 +101,11 @@ Phases, one line each:
                 (probes/quant_psnr.py: the 2048x4096 synthetic frame through
                 K4, bf16 and int8 PTQ) with K4's launches counted against the
                 batches, and again with the plain versions on the card: each
-                PSNR within 0.05 dB of the plain version's.  Then K2 bf16 per
-                1104x1000 sample (wgmma) must beat the mma.sync chain of the
-                same run over ~1.1 M lanes (K6 'mxu' and K8 bf16), each
-                printed beside the cuBLAS chain.
+                PSNR within 0.05 dB of the plain version's.  Then K2 bf16 and
+                K3 bf16 per 1104x1000 sample (wgmma) must each beat the
+                mma.sync chain of the same run over ~1.1 M lanes (K6 'mxu' and
+                K8 bf16), printed beside the cuBLAS chain, the unfused step
+                (K1 + K2) and the device timing split.
 Then a JSON line with the kernels, the nvidia-smi line again, and the last
 line {"ok": true, "device": {...}}.  Any failed check exits non-zero and
 prints no result.  Tolerances are the reference's own:
@@ -134,6 +145,7 @@ from __future__ import annotations
 import json
 import logging
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -164,6 +176,9 @@ BAKE_ROWS = 30 * 1472 // 4096  # rows per bake chunk at the default --max-nif-ba
 SOBOL_DIMS = 12  # the CLI's default --sobol-dims
 SOBOL_KEY = 0x5EED5EED
 ADAPTIVE_MIN = 2  # below --samples-per-step 8, so the controller's budgets vary
+# K3 bf16's ragged check: 255 full CUDA blocks of 256 rays, then 37 rays (one
+# live 128-ray tile, one dead).
+RAGGED_K3 = 255 * 256 + 37
 # The camera inside an emissive diffuse shell: no path escapes, so every
 # NIF sub-tile of K3 skips the chain (tests/test_megastep.py:129-135).
 ENCLOSED_SCENE = {"objects": [
@@ -418,6 +433,42 @@ def sass_mma_counts(lib_path: Path) -> dict:
     return counts
 
 
+# K3's instantiations by their mangled template arguments: the bf16 kernel
+# megastep_wg_kernel<kRng, kStub>, the int8 one megastep_kernel<kRng, true,
+# kStub> (and megastep_kernel<kRng, false, kStub>, the bf16 mma.sync chain,
+# which must no longer be built).
+K3_KERNELS = {"bf16": re.compile(r"18megastep_wg_kernelILi(\d)ELi(\d)EE"),
+              "int8": re.compile(r"15megastep_kernelILi(\d)ELb1ELi(\d)EE"),
+              "bf16 mma.sync": re.compile(r"15megastep_kernelILi(\d)ELb0ELi(\d)EE")}
+RNG_NAMES = {0: "philox", 1: "host-noise", 2: "sobol"}
+STUB_NAMES = {0: "production", 1: "stub nif", 2: "stub trace", 3: "stub both"}
+
+
+def k3_instantiations(functions, build_log: list[str]) -> dict:
+    """Per K3 instantiation ("<chain> <rng> <stub>"): its HGMMA, HMMA and
+    IMMA count in the SASS, and its ptxas lines (registers, stack, spills)
+    with the spill bytes parsed."""
+    out = {}
+    for name, part in functions or []:
+        for chain, pat in K3_KERNELS.items():
+            m = pat.search(name)
+            if m:
+                key = f"{chain} {RNG_NAMES[int(m[1])]} {STUB_NAMES[int(m[2])]}"
+                out[key] = {"mangled": name,
+                            **{op: part.count(f" {op}.") for op in ("HGMMA", "HMMA", "IMMA")}}
+    for i, ln in enumerate(build_log):
+        if "Compiling entry" not in ln:
+            continue
+        for entry in out.values():
+            if f"'{entry['mangled']}'" in ln:
+                lines = [x.strip() for x in build_log[i + 1:i + 4]
+                         if "registers" in x or "spill" in x or "stack" in x]
+                entry["ptxas"] = lines
+                entry["spill_bytes"] = sum(int(b) for x in lines
+                                           for b in re.findall(r"(\d+) bytes spill", x))
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call on the card (CUDA events), after one
     warm-up."""
@@ -625,6 +676,37 @@ def main() -> None:
                                                env_skip=True, with_stats=True, **kw),
                 int8))
 
+    def ragged_checks(cols, rows, kw, settings, seed, noise):
+        """K3 bf16 at a ragged n whose last CUDA block has one live 128-ray
+        tile, with budgets of 0, 1 and 8 in one launch, the statistics and
+        the env-skip (Philox and host noise); on the enclosed scene skip on
+        = off bit for bit."""
+        n = RAGGED_K3
+        rc, rr = cols[:n].contiguous(), rows[:n].contiguous()
+        budgets = torch.from_numpy(gen.choice([0, 1, 8], -(-n // megastep.BUDGET_BLOCK))
+                                   .astype(np.int32)).to(dev)
+        rnoise = noise[:, :, :n].contiguous()
+        common = dict(budgets=budgets, with_stats=True, env_skip=True)
+        for label, args in (("philox", dict(seed=seed, **common)),
+                            ("host-noise", dict(noise=rnoise, **common))):
+            err["megastep_ragged"] = max(err.get("megastep_ragged", 0.0), mode_check(
+                f"K3 ragged {n} {label} budgets 0/1/8+stats+env-skip",
+                megastep.render_megastep(scene, settings, model, rc, rr, **args, **kw),
+                megastep.render_megastep_plain(scene, settings, model, rc, rr, **args, **kw),
+                False))
+        ecols, erows = grid(kw["width"], kw["height"], enclosed)
+        ec, er = ecols[:n].contiguous(), erows[:n].contiguous()
+        on, off = (megastep.render_megastep(enclosed, settings, model, ec, er, seed,
+                                            budgets=budgets, with_stats=True, env_skip=skip, **kw)
+                   for skip in (True, False))
+        ref = megastep.render_megastep_plain(enclosed, settings, model, ec, er, seed,
+                                             budgets=budgets, with_stats=True, **kw)
+        phase(f"K3 ragged {n} env-skip on = off, enclosed, budgets 0/1/8",
+              all(torch.equal(as_tensor(a), as_tensor(b)) for a, b in zip(on, off)),
+              budgets=sorted(set(budgets.tolist())))
+        err["megastep_ragged"] = max(err["megastep_ragged"], mode_check(
+            f"K3 ragged {n} env-skip enclosed budgets 0/1/8+stats", on, ref, False))
+
     def stub_checks(tag, cols, rows, kw, settings, seed):
         """Phase 5c: K3's stubs in both chains and both hardware RNG modes."""
         sob = sobol_ctx(cols, rows, kw["width"])
@@ -731,6 +813,30 @@ def main() -> None:
     for ln in build_log:
         if "wgmma" in ln.lower():
             print(f"[ptxas] {ln.strip()}", flush=True)
+    # K3: every bf16 instantiation on wgmma (the 'nif' and 'both' stubs run no
+    # MMA), every int8 one on mma.sync s8, no bf16 mma.sync K3 left.
+    k3_sass = k3_instantiations(functions, build_log)
+    bf16 = {k: v for k, v in k3_sass.items() if k.startswith("bf16 ") and "mma.sync" not in k}
+    int8 = {k: v for k, v in k3_sass.items() if k.startswith("int8 ")}
+    built = [f"{r} production" for r in RNG_NAMES.values()] + [
+        f"{r} {st}" for r in ("philox", "sobol") for st in list(STUB_NAMES.values())[1:]]
+    mma = ("production", "stub trace")
+    phase("SASS megastep bf16", functions is not None
+          and sorted(bf16) == sorted(f"bf16 {b}" for b in built)
+          and all(v["HMMA"] == 0 and (v["HGMMA"] > 0 if k.endswith(mma) else v["HGMMA"] == 0)
+                  for k, v in bf16.items())
+          and not any("mma.sync" in k for k in k3_sass), cuobjdump=functions is not None,
+          **{k[5:].replace(" ", "_"): f"{v['HGMMA']}/{v['HMMA']}" for k, v in bf16.items()})
+    phase("SASS megastep int8", functions is not None
+          and sorted(int8) == sorted(f"int8 {b}" for b in built)
+          and all(v["HMMA"] == 0 and (v["IMMA"] > 0 if k.endswith(mma) else True)
+                  for k, v in int8.items()), cuobjdump=functions is not None,
+          **{k[5:].replace(" ", "_"): v["IMMA"] for k, v in int8.items()})
+    for key, v in bf16.items():
+        print(f"[ptxas] megastep {key} (wgmma): {' | '.join(v.get('ptxas', []))}", flush=True)
+    phase("ptxas megastep bf16 no spills", len(bf16) == len(built)
+          and all("ptxas" in v and v["spill_bytes"] == 0 for v in bf16.values()),
+          spill_bytes={k[5:]: v.get("spill_bytes") for k, v in bf16.items()})
 
     # 5. K3 ------------------------------------------------------------------
     s3 = 4
@@ -746,6 +852,7 @@ def main() -> None:
 
     # 5b. the Sobol, budget/statistics and env-skip modes -------------------
     mode_checks("256x256", cols, rows, kw, settings, (13, 14), noise3_t)
+    ragged_checks(cols, rows, kw, settings, (13, 14), noise3_t)
 
     # 5c. K3's measurement stubs --------------------------------------------
     stub_checks("256x256", cols, rows, kw, settings, (15, 16))
@@ -1255,6 +1362,22 @@ def main() -> None:
           times["env_shade"][0] < min(mma_sync.values()),
           env_shade_ms=f"{times['env_shade'][0]:.4f}",
           **{f"{k}_ms": f"{v:.4f}" for k, v in mma_sync.items()})
+    # K3 bf16 on the same chain, each mode per 1104x1000 sample, beside the
+    # unfused step (K1 + K2), the library chain and the device timing split.
+    k3_modes = {k: times[f"megastep{k and '_' + k}"][0] for k in (
+        "", "sobol", "budgets_stats", "env_skip", "env_skip_enclosed")}
+    print(f"[wgmma] K3 bf16 per 1104x1000 sample: "
+          + ", ".join(f"{k or 'philox'} {v:.4f} ms" for k, v in k3_modes.items())
+          + f"; int8 K3 {times['megastep_int8'][0]:.4f} ms; K2 bf16 {times['env_shade'][0]:.4f} ms;"
+          f" unfused step {unfused['step_ms']:.4f} ms (trace {unfused['trace_ms']:.4f}, env "
+          f"{unfused['env_ms']:.4f}); cuBLAS chain {times['cublas_chain_full frame'][0]:.4f} ms; "
+          f"device timing split step {split.get('step_ms', 0.0):.4f} = env "
+          f"{split.get('env_ms', 0.0):.4f} + trace {split.get('trace_ms', 0.0):.4f} + overhead "
+          f"{split.get('overhead_ms', 0.0):.4f} ms ({smi})", flush=True)
+    phase("K3 bf16 wgmma beats the mma.sync chain",
+          times["megastep"][0] < min(mma_sync.values()),
+          megastep_ms=f"{times['megastep'][0]:.4f}",
+          **{f"{k}_ms": f"{v:.4f}" for k, v in mma_sync.items()})
 
     # The least time of each row's unit of work (bound), on this run's data.
     n = cols.shape[0]
@@ -1374,7 +1497,7 @@ def main() -> None:
          "times_ms": times, "bounds_ms": bounds, "max_abs_err": err,
          "cublas_chain_ms": {k: v[0] for k, v in times.items() if k.startswith("cublas")},
          "quant_probe": k8_res, "quant_probe_sass_mma": k8_sass, "quality_gate": quality,
-         "wgmma_sass": wg_sass, "wgmma_ptxas": wg_ptxas,
+         "wgmma_sass": wg_sass, "wgmma_ptxas": wg_ptxas, "megastep_sass_ptxas": k3_sass,
          "quality_gate_plain": quality_plain, "quality_gate_s": gate_s,
          "bound_counts": {"escapes": escapes, "bounces": bounces,
                           "escapes_enclosed": escapes_enclosed,

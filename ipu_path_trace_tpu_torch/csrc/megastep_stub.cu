@@ -3,26 +3,29 @@
 // the step into env, trace and overhead: stub 1 ('nif') replaces the NIF
 // chain's products by ones, 2 ('trace') the bounce by a path-length
 // count, 3 ('both') both.  Built for the RNG modes a render times
-// (Philox and Sobol) and both chains; host noise is not instantiated.
+// (Philox and Sobol) and both chains (the bf16 kernel megastep_wg_kernel,
+// whose 'nif' stub runs its blocks and tiles with no weight copies and no
+// MMAs, and the int8 megastep_kernel); host noise is not instantiated.
 // What the stubbed work keeps live is said at nif_chain_stub
-// (nif_dev.cuh) and trace_ray (common.cuh).
+// (nif_dev.cuh), wg_tile_stub (nif_wgmma.cuh) and trace_ray (common.cuh).
 #include "megastep.cuh"
 
 namespace {
 
 template <int kStub>
-int launch_stub(const pt::TraceParams* prm, const pt::NifNet* net, const pt::MegaArgs& a,
-                cudaStream_t s) {
-  return a.pid ? pt::launch_chain<pt::kRngSobol, kStub>(*prm, *net, a, s)
-               : pt::launch_chain<pt::kRngPhilox, kStub>(*prm, *net, a, s);
+int launch_stub(const pt::TraceParams* prm, const pt::NifNet* net, const pt::NifWg* wg,
+                const pt::MegaArgs& a, cudaStream_t s) {
+  return a.pid ? pt::launch_chain<pt::kRngSobol, kStub>(*prm, net, wg, a, s)
+               : pt::launch_chain<pt::kRngPhilox, kStub>(*prm, net, wg, a, s);
 }
 
 }  // namespace
 
 // The arguments of pt_megastep without host noise, and the stub mode.
 extern "C" int pt_megastep_stub(const pt::TraceParams* prm, const pt::NifNet* net,
-                                const float* sph, const float* dsc, const float* cols,
-                                const float* rows, const int* pid, const int* base,
+                                const pt::NifWg* wg, const float* sph, const float* dsc,
+                                const float* cols, const float* rows, const int* pid,
+                                const int* base,
                                 const int* budgets, int budget_block, int samples, int n,
                                 int env_skip, float* rad, int* plen, float* lum2, int stub,
                                 void* stream) {
@@ -31,11 +34,11 @@ extern "C" int pt_megastep_stub(const pt::TraceParams* prm, const pt::NifNet* ne
   cudaStream_t s = (cudaStream_t)stream;
   switch (stub) {
     case pt::kStubNif:
-      return launch_stub<pt::kStubNif>(prm, net, a, s);
+      return launch_stub<pt::kStubNif>(prm, net, wg, a, s);
     case pt::kStubTrace:
-      return launch_stub<pt::kStubTrace>(prm, net, a, s);
+      return launch_stub<pt::kStubTrace>(prm, net, wg, a, s);
     case pt::kStubBoth:
-      return launch_stub<pt::kStubBoth>(prm, net, a, s);
+      return launch_stub<pt::kStubBoth>(prm, net, wg, a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,10 +2,10 @@
 // the Fourier encode, the layer chain on the tensor cores - bf16 with f32
 // accumulation (nif_tile) or int8 with int32 accumulation (nif_tile_int8)
 // - and the f32 decode, for a tile of kTile rays run by a block of
-// kThreads threads.  The bf16 chain here (mma.sync) serves the megastep
-// K3 (megastep.cuh) and the probes K6 (probes.cu) and K8's bf16 variant
-// (quant_probe.cu); K2 and K4 (nif.cu) run their bf16 chain on wgmma
-// (nif_wgmma.cuh) and their int8 chain here.
+// kThreads threads.  The bf16 chain here (mma.sync) serves the probes K6
+// (probes.cu) and K8's bf16 variant (quant_probe.cu), the yardsticks of
+// the old chain; K2, K3 and K4 (nif.cu, megastep.cuh) run their bf16 chain
+// on wgmma (nif_wgmma.cuh) and their int8 chain here.
 //
 // What bounds it: the chain is ~0.54 M multiply-adds per ray for the
 // canonical 6x320 net (1.2 TFLOP per 1104x1000 sample), and its 1.09 MB of

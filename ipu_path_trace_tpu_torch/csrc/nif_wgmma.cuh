@@ -1,11 +1,20 @@
-// The bf16 NIF chain of K2 and K4 (nif.cu) on Hopper's warpgroup MMA:
-// encode -> layers -> decode for tiles of kWgRays rays, the weights
-// streamed through shared memory by bulk copies.  It computes what
-// nif_dev.cuh::nif_tile computes - encode_bf16's direct sincosf angles,
-// bf16 weights and activations with f32 accumulation, f32 bias, ReLU and
-// a round to bf16 between layers, the skip layer's concat(trunk, feats)
-// as the tail of its K dimension, the f32 decode y * max + mean (exp when
-// log-tone-mapped) - in another order of f32 sums.
+// The bf16 NIF chain on Hopper's warpgroup MMA, for the kernels of K2 and
+// K4 (nif.cu) and the bf16 K3 (megastep.cuh): encode -> layers -> decode
+// for tiles of kWgRays rays, the weights streamed through shared memory by
+// bulk copies.  It computes what nif_dev.cuh::nif_tile computes -
+// encode_bf16's direct sincosf angles, bf16 weights and activations with
+// f32 accumulation, f32 bias, ReLU and a round to bf16 between layers, the
+// skip layer's concat(trunk, feats) as the tail of its K dimension, the f32
+// decode y * max + mean (exp when log-tone-mapped) - in another order of
+// f32 sums.
+//
+// The pieces, in the order a kernel calls them: wg_block and wg_setup (the
+// plan's shared memory, the ring's barriers, the features' zero columns),
+// then the role split wg_producer_role (setmaxnreg; the producer thread
+// runs a WgProducer), then per tile wg_tile (encode from the tile's (u, v),
+// the layers, the head storing through an Io).  K2 and K4 walk a fixed
+// list of tiles (nif_wg_tiles); K3 decides per sample which tiles to shade
+// and streams them through wg_stream (megastep.cuh says how).
 //
 // Why: the mma.sync chain (nif_layers) runs 64-ray tiles whose warps load
 // their B fragments from L2 with 4-byte __ldg's, so each 64-ray tile reads
@@ -17,9 +26,9 @@
 //
 // Roles (kWgThreads = 384): two consumer warpgroups, each owning 64 rays of
 // the tile (wgmma's M), and a producer warpgroup one thread of which walks
-// the same slice sequence (layer by layer, tile after tile: the block is
-// persistent over tiles blockIdx.x + i * gridDim.x) and keeps the ring's
-// `stages` slices filled: full[s] completes on the bulk copy's bytes,
+// the same slice sequence (layer by layer, tile after tile: in K2 and K4
+// the block is persistent over tiles blockIdx.x + i * gridDim.x) and keeps
+// the ring's `stages` slices filled: full[s] completes on the bulk copy's bytes,
 // empty[s] on one arrival per consumer warp once its MMAs on the slice have
 // completed.  A consumer issues a slice's MMAs while the previous slice's
 // are still in flight (wgmma.wait_group 1), so it holds two stages.
@@ -49,8 +58,9 @@
 // are zero and so are the activations there (the epilogue writes zeros for
 // the padded outputs, which have zero weights and zero bias).
 //
-// Shared-memory plan, canonical 6x320 net (E = 12), computed in
-// ops/nif.py::wgmma_plan and carried here in NifWg:
+// Shared-memory plan of K2 and K4, canonical 6x320 net (E = 12), computed
+// in ops/nif.py::wgmma_plan and carried here in NifWg (K3's, with its own
+// tail after the barriers, is in megastep.cuh):
 //   activations 5 atoms x 16,384 B   =  81,920 B
 //   features    1 atom  x 16,384 B   =  16,384 B
 //   ring        3 stages x 40,960 B  = 122,880 B  (320 rows x 128 B)
@@ -126,24 +136,34 @@ PT_HD void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-PT_HD void mbar_wait(uint32_t bar, uint32_t parity) {
+// Whether the phase of the given parity has completed (one bounded try).
+PT_HD bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Spins until ready() holds; traps after kWgHangClocks instead of hanging.
+template <class Ready>
+PT_HD void wait_or_trap(Ready ready) {
   long long start = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
+  while (!ready()) {
     if (start == 0) {
       start = clock64();
     } else if (clock64() - start > kWgHangClocks) {
       __trap();
     }
   }
+}
+
+PT_HD void mbar_wait(uint32_t bar, uint32_t parity) {
+  wait_or_trap([=] { return mbar_try(bar, parity); });
 }
 
 // `bytes` (a multiple of 16) from global src to shared dst, completing on bar.
@@ -160,6 +180,25 @@ PT_HD void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n"
 // Barrier of one consumer warpgroup (ids 1.., 128 threads; 0 is __syncthreads).
 PT_HD void group_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// Barrier of every consumer thread (id kWgGroups + 1): after the role split
+// the producer warpgroup has left, so __syncthreads would never complete.
+constexpr int kWgConsumers = 128 * kWgGroups;
+PT_HD void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kWgGroups + 1), "n"(kWgConsumers) : "memory");
+}
+
+// The same barrier, returning whether q holds in any consumer thread.
+PT_HD bool consumers_or(bool q) {
+  uint32_t any;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.u32 q, %1, 0;\n"
+      " bar.red.or.pred p, %2, %3, q;\n selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(any)
+      : "r"((uint32_t)q), "n"(kWgGroups + 1), "n"(kWgConsumers)
+      : "memory");
+  return any != 0;
 }
 
 // ---- PTX: wgmma --------------------------------------------------------
@@ -481,93 +520,237 @@ PT_HD void wg_head(const NifWg& net, int l, WgPipe& p, uint32_t a_act, uint32_t 
   }
 }
 
-// The producer: one thread walks every slice of every tile of the block.
-PT_HD void wg_produce(const NifWg& net, uint32_t full, uint32_t empty, uint32_t ring, int tiles) {
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+// The stream of slices: one producer thread walks each tile's slices
+// (layer by layer) through the ring.
+struct WgProducer {
+  uint32_t full, empty, ring;
+  int stage;
+  uint32_t phase;
+  int issued;  // fills issued so far
+
+  // One tile's slices.  wait_free(bar, parity) waits for a stage to be
+  // free and returns false to end the stream (then so does chain).
+  template <class WaitFree>
+  PT_HD bool chain(const NifWg& net, WaitFree wait_free) {
     for (int l = 0; l < net.num_layers; ++l) {
       const int slices = net.in_atoms[l] + net.f_atoms[l];
       const uint32_t bytes = (uint32_t)net.slice_bytes[l];
       const unsigned char* const src = (const unsigned char*)net.w[l];
       for (int s = 0; s < slices; ++s) {
-        mbar_wait(empty + 8 * stage, phase ^ 1);
+        if (!wait_free(empty + 8 * stage, phase ^ 1)) return false;
         mbar_expect_tx(full + 8 * stage, bytes);
         bulk_load(ring + stage * net.stage_bytes, src + (size_t)s * bytes, bytes, full + 8 * stage);
+        ++issued;
         if (++stage == net.stages) {
           stage = 0;
           phase ^= 1;
         }
       }
     }
+    return true;
+  }
+
+  // Waits until the last fills (at most one per stage, perhaps never
+  // consumed) have landed, so that no bulk copy outlives the block.
+  PT_HD void drain(const NifWg& net) const {
+    int st = stage;
+    uint32_t ph = phase;
+    for (int i = 0; i < issued && i < net.stages; ++i) {
+      if (st == 0) {
+        st = net.stages;
+        ph ^= 1;
+      }
+      --st;
+      mbar_wait(full + 8 * st, ph);
+    }
+  }
+};
+
+// K3's control word (shared memory, written by consumer thread 0, read by
+// the producer): no tile to shade yet, stream, or the block is done.
+enum WgCtl { kCtlIdle = 0, kCtlGo = 1, kCtlDone = 2 };
+
+// K3's producer: nothing until the consumers first ask for a tile (a block
+// whose tiles are all skipped reads no weights), then the slice sequence
+// over and over, one tile's slices after another, as far as the ring lets
+// it run ahead, until the consumers say they are done; then it drains.
+// Every tile walks the same sequence, so the consumers take whole tiles
+// from the stream in order, for the tiles they shade.
+PT_HD void wg_stream(const NifWg& net, WgProducer& prod, const volatile int* ctl) {
+  wait_or_trap([=] {
+    if (*ctl != kCtlIdle) return true;
+    __nanosleep(256);
+    return false;
+  });
+  if (*ctl == kCtlDone) return;
+  auto wait_free = [=](uint32_t bar, uint32_t parity) {
+    bool go = true;
+    wait_or_trap([&] {
+      if (mbar_try(bar, parity)) return true;
+      go = *ctl != kCtlDone;
+      return !go;
+    });
+    return go;
+  };
+  while (prod.chain(net, wait_free)) {
+  }
+  prod.drain(net);
 }
 
-// The whole kernel body: io gives each ray's (u, v) (io.uv) and takes each
-// decoded network output (io.store(o, ray, y)); io.n rays.  Launch with
-// kWgThreads threads and net.smem_bytes of dynamic shared memory.
-template <class Io>
-__device__ __forceinline__ void nif_wg_tiles(const NifWg& net, const Io& io) {
+// The block's dynamic shared memory, aligned to the swizzle's 1024 bytes,
+// and the ring's barriers in it.
+struct WgBlock {
+  unsigned char* smem;
+  uint32_t s0, full, empty;
+};
+
+__device__ __forceinline__ WgBlock wg_block(const NifWg& net) {
   extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
   unsigned char* const smem = wg_smem_raw + ((1024 - (smem_u32(wg_smem_raw) & 1023)) & 1023);
   const uint32_t s0 = smem_u32(smem);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const uint32_t full = s0 + net.smem_bar, empty = full + 8 * kWgMaxStages;
-  const int tiles = (io.n + kWgRays - 1) / kWgRays;
-  if (tid == 0) {
+  return {smem, s0, s0 + net.smem_bar, s0 + net.smem_bar + 8 * kWgMaxStages};
+}
+
+// Run by every thread of the block before the role split: the ring's
+// barriers and the features' zero columns (from 4E up).  The caller then
+// synchronizes the block.
+PT_HD void wg_setup(const NifWg& net, const WgBlock& b) {
+  if (threadIdx.x == 0) {
     for (int s = 0; s < net.stages; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 4 * kWgGroups);  // lane 0 of every consumer warp
+      mbar_init(b.full + 8 * s, 1);
+      mbar_init(b.empty + 8 * s, 4 * kWgGroups);  // lane 0 of every consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < net.feat_atoms * kWgAtomBytes / 16; i += kWgThreads)
-    reinterpret_cast<uint4*>(smem + net.smem_feat)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < net.feat_atoms * kWgAtomBytes / 16; i += kWgThreads)
+    reinterpret_cast<uint4*>(b.smem + net.smem_feat)[i] = make_uint4(0, 0, 0, 0);
   fence_proxy_async();
-  __syncthreads();
-  if (warp >= 4 * kWgGroups) {  // the producer warpgroup; its paths never rejoin the consumers'
+}
+
+// The role split: the producer warpgroup gives its registers back and one
+// of its threads runs produce(); there it returns true, and the caller
+// returns (the producer's paths never rejoin the consumers').  The
+// consumers take the registers and get false.
+template <class Produce>
+PT_HD bool wg_producer_role(Produce produce) {
+  const int warp = threadIdx.x >> 5;
+  if (warp >= 4 * kWgGroups) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWgProducerRegs));
-    if (warp == 4 * kWgGroups && lane == 0) wg_produce(net, full, empty, s0 + net.smem_ring, tiles);
-    return;
+    if (warp == 4 * kWgGroups && (threadIdx.x & 31) == 0) produce();
+    return true;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsumerRegs));
+  return false;
+}
 
-  const int wg = warp >> 2, t = tid & 127, E = net.embed_dim;
-  unsigned char* const feat = smem + net.smem_feat;
-  float* const su = (float*)(smem + net.smem_uv) + 64 * wg;
+// A consumer thread's place: its warpgroup's rows of the activations and
+// features (wgmma's A), and its ring position.
+struct WgConsumer {
+  unsigned char* smem;
+  uint32_t a_act, a_feat;
+  int wg, t, lane;
+  WgPipe pipe;
+};
+
+PT_HD WgConsumer wg_consumer(const NifWg& net, const WgBlock& b) {
+  const int tid = threadIdx.x, wg = tid >> 7;
+  return {b.smem, b.s0 + wg * kWgGroupBytes,  // activations at offset 0
+          b.s0 + net.smem_feat + wg * kWgGroupBytes, wg, tid & 127, tid & 31,
+          WgPipe{b.full, b.empty, b.s0 + net.smem_ring, 0, 0}};
+}
+
+// The Fourier features [sin u 2^j | sin v 2^j | cos u 2^j | cos v 2^j] of
+// this warpgroup's 64 rows, from su / sv (its rows' u and v).
+PT_HD void wg_encode(const NifWg& net, const WgConsumer& c, const float* su, const float* sv) {
+  const int E = net.embed_dim;
+  unsigned char* const feat = c.smem + net.smem_feat;
+  for (int idx = c.t; idx < 64 * 2 * E; idx += 128) {
+    const int r = idx & 63, rest = idx >> 6, axis = rest & 1, j = rest >> 1;
+    float s, co;
+    fourier(axis ? sv[r] : su[r], j, &s, &co);
+    const int row = 64 * c.wg + r;
+    *reinterpret_cast<uint16_t*>(feat + wg_offset(row, axis * E + j)) = f32_to_bf16(s);
+    *reinterpret_cast<uint16_t*>(feat + wg_offset(row, 2 * E + axis * E + j)) = f32_to_bf16(co);
+  }
+  fence_proxy_async();
+  group_sync(c.wg);
+}
+
+// One tile's chain, run by both consumer warpgroups: the encode of this
+// warpgroup's rows (their (u, v) in su / sv, already visible to the
+// group), the layers, and the head stored through io for rays ray0 (this
+// group's first row) + 0..63.
+template <class Io>
+PT_HD void wg_tile(const NifWg& net, WgConsumer& c, const float* su, const float* sv, int ray0,
+                   const Io& io) {
+  wg_encode(net, c, su, sv);
+  for (int l = 0; l < net.num_layers; ++l) {
+    switch (net.chunks[l]) {
+      case 0: wg_head(net, l, c.pipe, c.a_act, c.a_feat, ray0, c.lane, io); break;
+      case 1: wg_hidden<1>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
+      case 2: wg_hidden<2>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
+      case 3: wg_hidden<3>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
+      case 4: wg_hidden<4>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
+      default:
+        wg_hidden<kWgMaxChunks>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane);
+        break;
+    }
+  }
+}
+
+// The measurement stub of a tile (nif_dev.cuh::nif_chain_stub in this
+// geometry): the encode as in wg_tile, then, with no copies and no MMAs,
+// each row's first feature x -> x * 0 + 1 per layer and the decode of
+// that 1, stored through io as wg_head stores.
+template <class Io>
+PT_HD void wg_tile_stub(const NifWg& net, const WgConsumer& c, const float* su, const float* sv,
+                        int ray0, const Io& io) {
+  wg_encode(net, c, su, sv);
+  if (c.t >= 64) return;
+  const unsigned char* const feat = c.smem + net.smem_feat;
+  float x = __uint_as_float(
+      (uint32_t)*reinterpret_cast<const uint16_t*>(feat + wg_offset(64 * c.wg + c.t, 0)) << 16);
+  for (int l = 0; l < net.num_layers; ++l) x = x * 0.0f + 1.0f;
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {  // decode at f32: y * max + mean, exp if log
+    const float z = x * net.max_v + net.mean[o];
+    io.store(o, ray0 + c.t, net.log_flag ? expf(z) : z);
+  }
+}
+
+// K2 and K4's body: io gives each ray's (u, v) (io.uv) and takes each
+// decoded network output (io.store(o, ray, y)); io.n rays, the block
+// persistent over tiles blockIdx.x + i * gridDim.x.  Launch with
+// kWgThreads threads and net.smem_bytes of dynamic shared memory.
+template <class Io>
+__device__ __forceinline__ void nif_wg_tiles(const NifWg& net, const Io& io) {
+  const WgBlock b = wg_block(net);
+  const int tiles = (io.n + kWgRays - 1) / kWgRays;
+  wg_setup(net, b);
+  __syncthreads();
+  if (wg_producer_role([&] {
+        WgProducer prod{b.full, b.empty, b.s0 + net.smem_ring, 0, 0, 0};
+        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+          prod.chain(net, [](uint32_t bar, uint32_t parity) {
+            mbar_wait(bar, parity);
+            return true;
+          });
+      }))
+    return;
+
+  WgConsumer c = wg_consumer(net, b);
+  float* const su = (float*)(b.smem + net.smem_uv) + 64 * c.wg;
   float* const sv = su + kWgRays;
-  const uint32_t a_act = s0 + wg * kWgGroupBytes;  // activations at offset 0
-  const uint32_t a_feat = s0 + net.smem_feat + wg * kWgGroupBytes;
-  WgPipe p{full, empty, s0 + net.smem_ring, 0, 0};
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int ray0 = tile * kWgRays + 64 * wg;
-    if (t < 64) {
+    const int ray0 = tile * kWgRays + 64 * c.wg;
+    if (c.t < 64) {
       float u = 0.0f, v = 0.0f;
-      if (ray0 + t < io.n) io.uv(ray0 + t, &u, &v);
-      su[t] = u;
-      sv[t] = v;
+      if (ray0 + c.t < io.n) io.uv(ray0 + c.t, &u, &v);
+      su[c.t] = u;
+      sv[c.t] = v;
     }
-    group_sync(wg);
-    // [sin u 2^j | sin v 2^j | cos u 2^j | cos v 2^j] of this group's rows.
-    for (int idx = t; idx < 64 * 2 * E; idx += 128) {
-      const int r = idx & 63, rest = idx >> 6, axis = rest & 1, j = rest >> 1;
-      float s, c;
-      fourier(axis ? sv[r] : su[r], j, &s, &c);
-      const int row = 64 * wg + r;
-      *reinterpret_cast<uint16_t*>(feat + wg_offset(row, axis * E + j)) = f32_to_bf16(s);
-      *reinterpret_cast<uint16_t*>(feat + wg_offset(row, 2 * E + axis * E + j)) = f32_to_bf16(c);
-    }
-    fence_proxy_async();
-    group_sync(wg);
-    for (int l = 0; l < net.num_layers; ++l) {
-      switch (net.chunks[l]) {
-        case 0: wg_head(net, l, p, a_act, a_feat, ray0, lane, io); break;
-        case 1: wg_hidden<1>(net, l, p, smem, a_act, a_feat, wg, lane); break;
-        case 2: wg_hidden<2>(net, l, p, smem, a_act, a_feat, wg, lane); break;
-        case 3: wg_hidden<3>(net, l, p, smem, a_act, a_feat, wg, lane); break;
-        case 4: wg_hidden<4>(net, l, p, smem, a_act, a_feat, wg, lane); break;
-        default: wg_hidden<kWgMaxChunks>(net, l, p, smem, a_act, a_feat, wg, lane); break;
-      }
-    }
+    group_sync(c.wg);
+    wg_tile(net, c, su, sv, ray0, io);
   }
 }
 
@@ -601,17 +784,23 @@ struct WgApplyIo {
   PT_HD void store(int o, int p, float y) const { out[o * n + p] = y; }
 };
 
+// Whether the kernels can take net's plan and operands.
+inline bool wg_valid(const NifWg& net) {
+  if (net.stages < 2 || net.stages > kWgMaxStages || net.smem_bytes > kWgSmemLimit ||
+      net.num_layers < 1 || net.num_layers > kNifMaxLayers)
+    return false;
+  for (int l = 0; l < net.num_layers; ++l)
+    if (((uintptr_t)net.w[l] & 15) || net.slice_bytes[l] > net.stage_bytes ||
+        net.chunks[l] < 0 || net.chunks[l] > kWgMaxChunks)
+      return false;
+  return true;
+}
+
 // Validates the plan, sets the dynamic shared memory and launches one
 // persistent block per SM (or as many as fit), at most one per tile.
 template <typename Kernel, typename... Args>
 int launch_wg(Kernel kernel, const NifWg& net, int n, void* stream, Args... args) {
-  if (net.stages < 2 || net.stages > kWgMaxStages || net.smem_bytes > kWgSmemLimit ||
-      net.num_layers < 1 || net.num_layers > kNifMaxLayers)
-    return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < net.num_layers; ++l)
-    if (((uintptr_t)net.w[l] & 15) || net.slice_bytes[l] > net.stage_bytes ||
-        net.chunks[l] < 0 || net.chunks[l] > kWgMaxChunks)
-      return (int)cudaErrorInvalidValue;
+  if (!wg_valid(net)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          net.smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -154,12 +154,13 @@ def library() -> ctypes.CDLL:
                                  ctypes.c_float, _I, _P, _P]
     lib.pt_nif_apply.argtypes = [ctypes.POINTER(NifNet), ctypes.POINTER(NifWg), _P, _P, _I, _P,
                                  _P]
+    # K3 likewise: an int8 model's NifNet or a bf16 model's NifWg (K3's plan).
     lib.pt_megastep.argtypes = [ctypes.POINTER(TraceParams), ctypes.POINTER(NifNet),
-                                _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                                _P]
+                                ctypes.POINTER(NifWg), _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _P, _P, _P, _P]
     lib.pt_megastep_stub.argtypes = [ctypes.POINTER(TraceParams), ctypes.POINTER(NifNet),
-                                     _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I,
-                                     _P]
+                                     ctypes.POINTER(NifWg), _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _P, _P, _P, _I, _P]
     lib.pt_probe_mxu.argtypes = [ctypes.POINTER(NifNet), _P, _I, _P, _P]
     lib.pt_probe_alu.argtypes = [_P, _I, _I, _P, _P]
     lib.pt_probe_both.argtypes = [ctypes.POINTER(NifNet), _P, _I, _I, _P, _P]

@@ -11,10 +11,14 @@ applied) and of path length.
 Modes, as the reference kernel's: hardware (Philox, ``seed``), host noise
 (``noise`` of shape (S, 4 + 4L, P)) and Owen-Sobol (``seed`` with
 ``sobol=(pixel_id, base, key)``, ``sobol_dims``), each with the bf16
-chain (``NifModel``) or the int8 chain (``QuantNifModel``); per-block
+chain (``NifModel``: ``megastep_wg_kernel``, the ``wgmma`` chain of
+``csrc/nif_wgmma.cuh`` under ``megastep_wg_plan``) or the int8 chain
+(``QuantNifModel``: ``megastep_kernel``, ``mma.sync`` s8); per-block
 sample ``budgets`` (adaptive sampling), ``with_stats`` (the per-record
 sum of squared sample luminance, ``lum2``) and ``env_skip`` (the NIF
-chain skipped for sub-tiles with no escape).  The measurement stubs of
+chain skipped for tiles with no escape, ``env_skip_tile`` rays each).
+For a CUDA tensor there is no fallback: a plan, build or launch that
+fails raises.  The measurement stubs of
 --device-timing (``stub``, utils/devtime.py) are the reference's:
 ``'nif'`` replaces every layer's product by ones (no bias) and decodes
 them, ``'trace'`` replaces each bounce by ``path_len += (rr < 2)`` (rays
@@ -33,21 +37,29 @@ import torch
 from ..core.scene import Scene
 from ..core.vecmath import Vec3
 from ..models.nif import NifModel
+from ..models.quant import QuantNifModel
 from . import _lib
-from .nif import model_tensors, net_struct, nif_env_shade_plain
+from .nif import WG_RAYS, model_tensors, net_struct, nif_env_shade_plain, wg_struct, wgmma_plan
 from .trace import (TraceOut, check_sobol, pack_scene, sample_rows, trace_params,
                     trace_sample_plain)
 
 # Rays that share one sample budget (render/adaptive.py reads it from
 # here): the reference's tuned TPU block, so the controller allocates at
-# the reference's granularity.  A multiple of the kernel's 256-ray CUDA
-# block, whose NIF chain ends in block barriers and so needs one budget
-# for all its rays.
+# the reference's granularity.  A multiple of the kernels' 256-ray CUDA
+# block, whose NIF chain needs one budget for all its rays: block-wide
+# barriers, and (bf16) both consumer warpgroups taking every weight slice.
 BUDGET_BLOCK = 2048
-RAYS_PER_CUDA_BLOCK = 256  # csrc/megastep.cuh kRaysPerBlock
-# Rays per NIF sub-tile (csrc/nif_dev.cuh kTile): the env-skip guard's
-# granularity, at which render/wavefront.dead_block_fraction measures.
-ENV_SKIP_TILE = 64
+RAYS_PER_CUDA_BLOCK = 256  # csrc/megastep.cuh kRaysPerBlock: two 128-ray wgmma tiles
+# Rays per env-skip tile, the guard's granularity, at which
+# render/wavefront.dead_block_fraction measures: the bf16 kernel's wgmma
+# tile and the int8 kernel's NIF sub-tile (csrc/nif_dev.cuh kTile).
+ENV_SKIP_TILE_BF16 = WG_RAYS
+ENV_SKIP_TILE_INT8 = 64
+# The bf16 kernel's tail of the chain's shared-memory plan
+# (csrc/megastep.cuh kMegaUvBytes, kMegaOutBytes, kMegaCtlBytes): the
+# block's (u, v), the head's 3 outputs per ray, the control word; the
+# scene's tables follow.
+MEGA_TAIL_BYTES = (2 + 3) * RAYS_PER_CUDA_BLOCK * 4 + 16
 
 # The measurement stubs (csrc/megastep.cuh StubMode).
 STUBS = {"nif": 1, "trace": 2, "both": 3}
@@ -62,6 +74,51 @@ class MegaStepOut(NamedTuple):
     # Sum over samples of luminance(sample radiance)^2 (with_stats=True),
     # the second moment of render/adaptive.compute_budgets; else None.
     lum2: torch.Tensor | None = None
+
+
+def env_skip_tile(model: NifModel) -> int:
+    """Rays per env-skip tile of the kernel that runs ``model``'s chain."""
+    return ENV_SKIP_TILE_INT8 if isinstance(model, QuantNifModel) else ENV_SKIP_TILE_BF16
+
+
+def table_bytes(scene: Scene) -> int:
+    """Bytes of the scene's tables in shared memory (csrc/common.cuh
+    tables_bytes: 12 floats per sphere, 15 per disc)."""
+    return 4 * (12 * scene.num_spheres + 15 * scene.num_discs)
+
+
+def megastep_wg_plan(model: NifModel, scene: Scene) -> dict:
+    """The bf16 kernel's shared-memory plan: the ``wgmma`` chain's
+    (ops/nif.wgmma_plan) with K3's tail from ``smem_uv`` on - the block's
+    (u, v), the head's outputs and the control word (MEGA_TAIL_BYTES),
+    then the scene's tables at ``smem_tables``, 16-byte aligned - and as
+    many ring stages as then fit (at most 4; 3 for the canonical net and
+    the default scene).  Raises ValueError, naming the limit, where not
+    even two stages fit."""
+    tables = -(-table_bytes(scene) // 16) * 16
+    plan = wgmma_plan(model, MEGA_TAIL_BYTES + tables,
+                      f"the megastep's bf16 chain with {tables} B of scene tables")
+    plan["smem_tables"] = plan["smem_uv"] + MEGA_TAIL_BYTES
+    return plan
+
+
+def check_nets(net, wg) -> None:
+    """The launchers' rule (csrc/megastep.cuh launch_chain): exactly one of
+    an int8 model's NifNet and a bf16 model's NifWg; a bf16 NifNet (the
+    mma.sync chain) is refused."""
+    if (net is None) == (wg is None):
+        raise ValueError("megastep: pass exactly one of a NifNet (int8) and a NifWg (bf16)")
+    if net is not None and not net.int8:
+        raise ValueError("megastep: a bf16 model runs the wgmma chain (NifWg); a bf16 NifNet "
+                         "is refused")
+
+
+def kernel_nets(model: NifModel, scene: Scene) -> tuple:
+    """(NifNet, NifWg) of the model's chain, the other None: an int8 model's
+    NifNet, or a bf16 model's NifWg under ``megastep_wg_plan``."""
+    if isinstance(model, QuantNifModel):
+        return net_struct(model), None
+    return None, wg_struct(model, megastep_wg_plan(model, scene))
 
 
 def luminance(rad: Vec3) -> torch.Tensor:
@@ -203,7 +260,9 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     prm = trace_params(scene, settings, seed=seed, device=dev, sobol=sobol,
                        sobol_dims=sobol_dims, width=width, height=height,
                        max_path_length=max_path_length, aa_noise_type=aa_noise_type)
-    net = net_struct(model)
+    net, wg = kernel_nets(model, scene)
+    check_nets(net, wg)
+    nets = tuple(None if x is None else ctypes.byref(x) for x in (net, wg))
     sph, dsc = pack_scene(scene.to(dev))
     rad = torch.empty((3, n), dtype=torch.float32, device=dev)
     plen = torch.empty(n, dtype=torch.int32, device=dev)
@@ -214,11 +273,11 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     tail = (_lib.ptr(pid), _lib.ptr(base), _lib.ptr(budgets), budget_block, samples, n,
             int(bool(env_skip)), _lib.ptr(rad), _lib.ptr(plen), _lib.ptr(lum2))
     if stub is None:
-        err = lib.pt_megastep(ctypes.byref(prm), ctypes.byref(net), *common, _lib.ptr(noise),
-                              *tail, _lib.stream(dev))
+        err = lib.pt_megastep(ctypes.byref(prm), *nets, *common, _lib.ptr(noise), *tail,
+                              _lib.stream(dev))
     else:
-        err = lib.pt_megastep_stub(ctypes.byref(prm), ctypes.byref(net), *common, *tail,
-                                   STUBS[stub], _lib.stream(dev))
+        err = lib.pt_megastep_stub(ctypes.byref(prm), *nets, *common, *tail, STUBS[stub],
+                                   _lib.stream(dev))
     _lib.check(err, "megastep" if stub is None else f"megastep stub '{stub}'")
     if stub is None:
         render_megastep.launches += 1

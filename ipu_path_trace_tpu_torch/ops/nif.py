@@ -10,7 +10,8 @@ baked env mode call it).  Both live in ``csrc/nif.cu``.  For a
 ``csrc/nif_wgmma.cuh`` on the slices of ``wgmma_operands`` (``wg_struct``);
 for a ``QuantNifModel`` the int8 chain (K5, ``_quant_mlp_core``) of
 ``csrc/nif_dev.cuh`` (``net_struct``).  The bf16 ``mma.sync`` chain of
-``nif_dev.cuh`` (``kernel_operands``) serves K3 and the probes K6 and K8.
+``nif_dev.cuh`` (``kernel_operands``) serves the probes K6 and K8; K3
+runs the ``wgmma`` chain too (ops/megastep.py).
 Each wrapper launches its kernel for CUDA tensors and runs its ``*_plain``
 version for CPU tensors; a bf16 shape the ``wgmma`` chain cannot take
 raises (``wgmma_plan``).
@@ -64,7 +65,7 @@ def _pack(model: NifModel, dtype: torch.dtype, k_mult: int) -> list[tuple]:
 
 
 def kernel_operands(model: NifModel) -> list[tuple[torch.Tensor, torch.Tensor, int, int]]:
-    """bf16 ``mma.sync`` chain (K3, K6, K8), per layer (packed weights, f32
+    """bf16 ``mma.sync`` chain (K6, K8), per layer (packed weights, f32
     bias, k_trunk, k_pad): bf16 rows with K padded to 16 - the B-fragment
     layout of csrc/nif_dev.cuh::nif_layers.  Cached on the model."""
     def build():
@@ -88,16 +89,19 @@ WG_UV_BYTES = 2 * WG_RAYS * 4  # the tile's (u, v)
 WG_ALIGN = 1024  # slack to align the dynamic shared memory to the swizzle's 1024 B
 
 
-def wgmma_plan(model: NifModel) -> dict:
+def wgmma_plan(model: NifModel, tail_bytes: int = WG_UV_BYTES,
+               what: str = "the wgmma chain") -> dict:
     """The ``wgmma`` chain's layers and shared-memory plan
     (csrc/nif_wgmma.cuh): per layer its weight rows (a hidden layer's
     outputs rounded up to 64-wide chunks, the head's to 8), its trunk
     width and its 64-input K-slices from the activations (``in_atoms``)
     and from the Fourier features (``f_atoms``: layer 0 and the skip
     layer); then the block's bytes - activation and feature atoms, ring
-    stages of the largest slice, barriers, (u, v), alignment - with each
-    piece's offset.  Raises ValueError, naming the limit, for a shape the
-    chain cannot take."""
+    stages of the largest slice (as many as fit, at most 4), barriers,
+    ``tail_bytes`` from ``smem_uv`` on (K2 and K4: the tile's (u, v); K3:
+    ops/megastep.megastep_wg_plan), alignment - with each piece's offset.
+    Raises ValueError, naming the limit, for a shape the chain cannot take
+    (``what`` names the kernel in the shared-memory message)."""
     plan = model.layer_plan()
     if len(plan) > _lib.NIF_MAX_LAYERS:
         raise ValueError(f"NIF has {len(plan)} layers; the kernel takes at most "
@@ -126,17 +130,17 @@ def wgmma_plan(model: NifModel) -> dict:
     stage_bytes = max(lay["slice_bytes"] for lay in layers)
     smem_feat = act_atoms * WG_ATOM_BYTES
     smem_ring = smem_feat + f_atoms * WG_ATOM_BYTES
-    fixed = smem_ring + WG_BAR_BYTES + WG_UV_BYTES + WG_ALIGN
+    fixed = smem_ring + WG_BAR_BYTES + tail_bytes + WG_ALIGN
     stages = min(WG_MAX_STAGES, (WG_SMEM_LIMIT - fixed) // stage_bytes)
     if stages < 2:
-        raise ValueError(f"the wgmma chain needs {fixed + 2 * stage_bytes} B of shared memory "
-                         f"for two ring stages of {stage_bytes} B; a block has {WG_SMEM_LIMIT}")
+        raise ValueError(f"{what} needs {fixed + 2 * stage_bytes} B of shared memory for two "
+                         f"ring stages of {stage_bytes} B; a block has {WG_SMEM_LIMIT}")
     smem_bar = smem_ring + stages * stage_bytes
     smem_uv = smem_bar + WG_BAR_BYTES
     return dict(layers=layers, act_atoms=act_atoms, feat_atoms=f_atoms, stages=stages,
                 stage_bytes=stage_bytes, smem_feat=smem_feat, smem_ring=smem_ring,
                 smem_bar=smem_bar, smem_uv=smem_uv,
-                smem_bytes=smem_uv + WG_UV_BYTES + WG_ALIGN)
+                smem_bytes=smem_uv + tail_bytes + WG_ALIGN)
 
 
 def swizzle128(x: torch.Tensor) -> torch.Tensor:
@@ -153,7 +157,7 @@ def swizzle128(x: torch.Tensor) -> torch.Tensor:
 
 
 def wgmma_operands(model: NifModel) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """bf16 ``wgmma`` chain (K2, K4), per layer (slices, f32 bias): the
+    """bf16 ``wgmma`` chain (K2, K3, K4), per layer (slices, f32 bias): the
     layer's (out, in) weights as ``wgmma_plan``'s K-slices, back to back in
     the order the kernel reads them - trunk inputs, then (layer 0 and the
     skip layer) the Fourier-feature inputs - each (rows, 64) in the
@@ -179,12 +183,13 @@ def wgmma_operands(model: NifModel) -> list[tuple[torch.Tensor, torch.Tensor]]:
     return _cached(model, "_wgmma_operands", model.kernels + model.biases, build)
 
 
-def wg_struct(model: NifModel) -> _lib.NifWg:
-    """The ``wgmma`` kernels' view of a bf16 model: the plan and pointers to
-    the slices and biases (kept alive by the model's cache)."""
+def wg_struct(model: NifModel, plan: dict | None = None) -> _lib.NifWg:
+    """The ``wgmma`` kernels' view of a bf16 model: the plan (K2 and K4's
+    ``wgmma_plan`` unless given; K3 passes its own) and pointers to the
+    slices and biases (kept alive by the model's cache)."""
     if model.dtype != torch.bfloat16:
         raise ValueError(f"the wgmma chain runs bf16 weights; model is {model.dtype}")
-    plan = wgmma_plan(model)
+    plan = plan or wgmma_plan(model)
     net = _lib.NifWg()
     net.num_layers = len(plan["layers"])
     net.embed_dim = model.embedding_dim

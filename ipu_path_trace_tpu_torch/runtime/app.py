@@ -37,7 +37,7 @@ from ..film.imageio import load_hdr_image, save_images
 from ..models.envlight import ConstantEnv, NifEnv, TextureEnv, bake_nif_env
 from ..models.nif import analyse_nif, load_nif_assets
 from ..models.quant import quantize_nif
-from ..ops.megastep import ENV_SKIP_TILE
+from ..ops.megastep import env_skip_tile
 from ..render.adaptive import adaptive_render_step
 from ..render.params import RenderSettings, StaticConfig
 from ..render.wavefront import dead_block_fraction, render_step
@@ -159,8 +159,9 @@ class PathTracerApp:
         """--env-skip as the megastep's flag.  "auto" traces
         AUTO_ENV_SKIP_PROBE_SAMPLES Philox samples over the real ordered
         worklist (K1 on CUDA, its plain version on the CPU), measures the
-        fraction of NIF sub-tiles with no escape - the skip guard's own
-        criterion - and turns the skip on at AUTO_ENV_SKIP_THRESHOLD.  No
+        fraction of NIF tiles with no escape - the skip guard's own
+        criterion, at the tile of the model's chain (128 rays bf16, 64
+        int8) - and turns the skip on at AUTO_ENV_SKIP_THRESHOLD.  No
         probe runs when the fused NIF megastep, the only kernel with the
         skip, will not."""
         cfg = self.cfg
@@ -170,13 +171,14 @@ class PathTracerApp:
             return False
         cols = torch.from_numpy(self.worklist["u"].astype(np.float32)).to(self.device)
         rows = torch.from_numpy(self.worklist["v"].astype(np.float32)).to(self.device)
+        tile = env_skip_tile(self.env.model)  # the skip's tile in this model's kernel
         t0 = time.monotonic()
         frac = dead_block_fraction(self.scene, self.settings(), self.static_config(), cols, rows,
                                    step_seed(torch.Generator().manual_seed(cfg.seed)),
-                                   self.AUTO_ENV_SKIP_PROBE_SAMPLES, ENV_SKIP_TILE)
+                                   self.AUTO_ENV_SKIP_PROBE_SAMPLES, tile)
         skip = frac >= self.AUTO_ENV_SKIP_THRESHOLD
         log.info("--env-skip auto: dead-block fraction %.4f at block %d (threshold %.3f, "
-                 "probe %.1fs) -> %s", frac, ENV_SKIP_TILE, self.AUTO_ENV_SKIP_THRESHOLD,
+                 "probe %.1fs) -> %s", frac, tile, self.AUTO_ENV_SKIP_THRESHOLD,
                  time.monotonic() - t0, "on" if skip else "off")
         return skip
 

@@ -73,6 +73,10 @@ WAIVED_QUICK = {
 
 # Individual fast representatives (file, test base name — all params):
 QUICK_TESTS = {
+    # the bf16 K3 on the wgmma chain: its plan, its chain selector, its tiles
+    ("test_torch_megastep_wgmma.py", "test_canonical_default_plan_bytes"),
+    ("test_torch_megastep_wgmma.py", "test_kernel_nets_pick_the_chain"),
+    ("test_torch_megastep_wgmma.py", "test_k3_tiles_skip_and_budgets_exact"),
     # runtime: records, worklist/load-balancer (+C++ twin), async, CLI
     ("test_runtime.py", "test_trace_record_layout"),
     ("test_runtime.py", "test_max_rays_per_tile"),

@@ -109,7 +109,8 @@ def test_nothing_escapes_the_enclosed_scene():
     assert float(st.radiance.stack().sum()) > 0
 
 
-@pytest.mark.parametrize("block", [megastep.ENV_SKIP_TILE, 256])
+@pytest.mark.parametrize("block", [megastep.ENV_SKIP_TILE_INT8, megastep.ENV_SKIP_TILE_BF16,
+                                   256])
 def test_dead_block_fraction(block):
     """1.0 where nothing escapes, below the auto threshold on the open
     default scene (its sky is in every coherent block)."""
