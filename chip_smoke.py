@@ -9,34 +9,38 @@ Phases, one line each:
                 256x256, L=10;
   4. K2       - env-shade kernel vs its plain version on the canonical NIF
                 and on the mixed-width one, 65,536 numpy-seeded escapes, and
-                with the int8 chain on assets/urban_alley_synth_nif_int8;
-                the bf16 chain (csrc/nif_wgmma.cuh, 128-ray tiles) again on
-                65,536 + 37 escapes, a ragged last tile;
+                with the int8 chain on assets/urban_alley_synth_nif_int8 and
+                the mixed-width PTQ (bit for bit); both chains
+                (csrc/nif_wgmma.cuh, 128-ray tiles) again on 65,536 + 37
+                escapes, a ragged last tile;
   4b. K4      - NIF-apply kernel vs its plain version on 65,536 numpy-seeded
                 (u, v): bf16 on the canonical and mixed-width assets, int8 on
-                both (lattice-calibrated) and on the int8 asset (its QAT grids);
-                bf16 again at 65,536 + 37 points;
-  4c. SASS    - the bf16 env-shade and NIF-apply kernels hold HGMMA (wgmma)
-                and no HMMA (mma.sync) in the built library (cuobjdump; the
-                phase fails without it), and their ptxas registers and spills;
-                likewise K3: every bf16 instantiation (megastep_wg_kernel:
-                Philox, host noise, Sobol, and the 'trace' stubs) holds HGMMA
-                and no HMMA, its 'nif' and 'both' stubs no MMA at all, every
-                int8 one (megastep_kernel) its IMMA and no HMMA, no bf16
-                megastep_kernel (the mma.sync chain) is built, and ptxas
-                reports no spills for the bf16 ones (their lines printed);
+                both (lattice-calibrated) and on the int8 asset (its QAT grids),
+                bit for bit; both chains again at 65,536 + 37 points;
+  4c. SASS    - the env-shade and NIF-apply kernels hold their wgmma in the
+                built library (cuobjdump; the phase fails without it): bf16
+                HGMMA and no HMMA (mma.sync), int8 IGMMA (wgmma s8) and no
+                IMMA, HMMA or HGMMA with a register operand (ptxas may add a
+                dummy HGMMA on RZ, which computes nothing); likewise K3
+                (megastep_wg_kernel, both chains): every instantiation with
+                a chain (Philox, host noise, Sobol, the 'trace' stubs) holds
+                its chain's wgmma and no mma.sync, the 'nif' and 'both' stubs
+                no MMA at all, and no megastep_kernel (the old mma.sync K3) is
+                built; ptxas reports no spills for any K2, K3 or K4 kernel
+                (their lines printed);
   5. K3       - megastep kernel vs its plain version, host noise, 256x256,
-                4 samples, bf16 and int8;
+                4 samples, bf16 and int8 (bit for bit);
   5b. modes   - K1 in Owen-Sobol mode (12 and 4 + 4L dims, bit for bit) and
                 K3, bf16 and int8, in Sobol mode, with per-block budgets and
                 the statistics (hardware and host noise), with the env-skip,
                 and with all of them at once, vs their plain versions at
                 256x256; and K3 with the env-skip on and off on the enclosed
                 scene (nothing escapes), which must agree bit for bit; then
-                K3 bf16 at a ragged 65,317 lanes (the last CUDA block has one
-                live 128-ray tile) with budgets of 0, 1 and 8 in one launch,
-                the statistics and the env-skip, Philox and host noise, and
-                on the enclosed scene skip on = off bit for bit;
+                K3, bf16 and int8, at a ragged 65,317 lanes (the last CUDA
+                block has one live 128-ray tile) with budgets of 0, 1 and 8
+                in one launch, the statistics and the env-skip, Philox and
+                host noise, and on the enclosed scene skip on = off bit for
+                bit;
   5c. stubs   - K3's measurement stubs 'nif', 'trace' and 'both', bf16 and
                 int8, Philox and Sobol, vs their plain versions at 256x256:
                 'trace'/'both' exactly (radiance 0, path lengths S x L),
@@ -82,7 +86,9 @@ Phases, one line each:
                 K2 standalone); the seven-product cuBLAS bf16 chain at the
                 NIF kernels' shapes (a yardstick the port never calls), and
                 K4 bf16 and that chain at the quality gate's 524,288-point
-                batch;
+                batch; and the int8 analog, a torch._int_mm chain with K5's
+                epilogue, and its products alone, at the full frame and the
+                bake chunk (yardsticks the port never calls);
   8. probes   - K6/K7 (probes/overlap.py): every variant vs its plain
                 version at the scripts' 1,105,920 lanes, then the probe's
                 entry point (its lines: ms per call or loop iteration, the
@@ -90,22 +96,27 @@ Phases, one line each:
                 zeroed before and read after, and the plain versions timed;
   9. K8       - the precision probe (probes/quant.py): each of its six
                 variants vs its plain version at the script's 1,105,920 rays
-                (int8 bit for bit; bf16 with the tail rule below; fp8 within
-                the budget measured on this card, below), then the probe's
-                entry point with its launch counters zeroed before and read
-                after, the plain versions and the library chains timed (one
-                cuBLAS product per layer: bf16 matmul, torch._int_mm,
-                torch._scaled_mm; yardsticks the port never calls), the MMA
-                instructions of each variant's compiled kernel counted
-                (cuobjdump); then the on-class quality gate
+                (int8 bit for bit; bf16, on the wgmma tile, within K8's own
+                budget below, its kernel launched K8_BF16_LAUNCHES times and
+                every launch equal; fp8 within the budget measured on this
+                card, below), then the probe's entry point with its launch
+                counters zeroed before and read after, the plain versions
+                and the library chains timed (one cuBLAS product per layer:
+                bf16 matmul, torch._int_mm, torch._scaled_mm; yardsticks the
+                port never calls), the MMA instructions of each variant's
+                compiled kernel counted (cuobjdump: HGMMA and no HMMA in
+                bf16, IGMMA and no IMMA or HMMA in the int8 variants; fp8
+                still runs mma.sync); then the on-class quality gate
                 (probes/quant_psnr.py: the 2048x4096 synthetic frame through
                 K4, bf16 and int8 PTQ) with K4's launches counted against the
                 batches, and again with the plain versions on the card: each
                 PSNR within 0.05 dB of the plain version's.  Then K2 bf16 and
                 K3 bf16 per 1104x1000 sample (wgmma) must each beat the
-                mma.sync chain of the same run over ~1.1 M lanes (K6 'mxu' and
-                K8 bf16), printed beside the cuBLAS chain, the unfused step
-                (K1 + K2) and the device timing split.
+                mma.sync chain of the same run over ~1.1 M lanes (K6 'mxu',
+                the last bf16 mma.sync chain), printed beside the cuBLAS
+                chain, the unfused step (K1 + K2) and the device timing
+                split; and K3 int8 must beat the torch._int_mm chain's
+                products alone (and so the whole chain).
 Then a JSON line with the kernels, the nvidia-smi line again, and the last
 line {"ok": true, "device": {...}}.  Any failed check exits non-zero and
 prints no result.  Tolerances are the reference's own:
@@ -116,14 +127,14 @@ prints no result.  Tolerances are the reference's own:
   * the bf16 NIF chain to median relative error 5e-3 and max 8e-2
     (tests/test_nif_pallas.py: bf16 features may round on opposite sides
     of an ulp and the log decode exponentiates the gap);
-  * the int8 chain to median 1e-3 and max 8e-2, and the int8 env shade to
-    median 1e-3, fewer than 1% of lanes above 1e-2 and max 0.5
-    (tests/test_quant.py:126-127, 274-276: a feature next to a rounding tie
-    may take a neighbouring int8 code);
+  * the int8 chain (K2, K3, K4 and K8's int8 variants) bit for bit: its
+    integer sums are exact in any order and its f32 epilogue rounds where
+    the plain version rounds (--fmad=false), on the same encode;
   * the overlap probes' chains (no log decode) to the bf16 budget, their
     ALU chain to rtol 1e-5 on all but 5e-3 of the lanes (the x > 1 select);
-  * K8's bf16 chain (random He-scaled weights, no decode) with the tail
-    rule of K3's bf16 modes on each of its (3, n) outputs; K8's fp8 chains
+  * K8's bf16 chain (random He-scaled weights, no decode) within K8's own
+    budget (K8_BF16_* below: the rounding tail of these outputs, measured
+    on the wgmma tile, not K3's rule); K8's fp8 chains
     to median 1e-3, at most 1e-4 of the outputs above 1e-2 and max 2: on
     this card the e4m3 sums of the kernel and the f32 sums of the plain
     version round differently, a requantised e4m3 code (3 mantissa bits)
@@ -166,10 +177,18 @@ NIF_MEDIAN, NIF_MAX = 5e-3, 8e-2
 # The bf16 chain's rounding tail: past 8e-2 on about one lane in 10^5, in
 # every RNG mode (Philox included), at its worst 0.13 on one evaluation.
 NIF_TAIL_FRACTION, NIF_TAIL_MAX = 1e-4, 0.25
-INT8_MEDIAN, INT8_SHADE_FRACTION, INT8_SHADE_MAX = 1e-3, 1e-2, 0.5
 # K8's fp8 chains against their plain version (measured on the H100:
 # median 0, 8.4e-6 of the outputs above 1e-2, max 1.43; module docstring).
 FP8_MEDIAN, FP8_ABOVE, FP8_FRACTION, FP8_MAX = 1e-3, 1e-2, 1e-4, 2.0
+# K8's bf16 chain on the wgmma tile against its plain version, its own
+# budget (not K3's NIF_TAIL_*): random He-scaled weights and no decode put
+# many outputs near the 1% floor of the relative error, and the tile's f32
+# sums, in another order than the plain version's, move a bf16 activation
+# by an ulp now and then, which the next six layers carry on.  Measured on
+# the H100 (bring-up, 1,048,576 rays): max 0.304, 6.4e-5 of the outputs
+# past 8e-2; every launch gives the same outputs (K8_BF16_LAUNCHES).
+K8_BF16_MEDIAN, K8_BF16_ABOVE, K8_BF16_FRACTION, K8_BF16_MAX = 5e-3, 8e-2, 2e-4, 0.6
+K8_BF16_LAUNCHES = 10
 K8_ITERS = 20  # timed launches per variant of probes.quant.main
 PSNR_GAP_DB = 0.05  # the quality gate's kernel PSNR against the plain version's
 BAKE_ROWS = 30 * 1472 // 4096  # rows per bake chunk at the default --max-nif-batch-size
@@ -365,6 +384,62 @@ def cublas_chain(model, feats: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def int_mm_chain(model, feats: torch.Tensor, epilogue: bool = True):
+    """The int8 NIF's seven products as torch._int_mm (int8 -> int32) with
+    K5's epilogue between them (models/quant.quant_layer_t: the f32
+    multipliers, bias, ReLU and requant; the skip layer's two dots), over
+    (P, 4E) int8 feature codes: the int8 analog of cublas_chain, a
+    yardstick the port never calls.  Written with few eager passes and the
+    reference's f32 order (addcmul would fuse a product into the sum):
+    every width padded to 16 once (zero weights, multipliers and biases)
+    so no product is sliced, y = acc·m (+ accf·m_skip) + b, then the
+    requant in place - clamp(y·inv, 0, 255) (ReLU included, inv > 0)
+    rounded, cast to uint8 and flipped by 0x80 into the code q − 128.
+    With ``epilogue=False`` only the products run, each on zero codes of
+    its input width: the least any _int_mm chain can take.  Returns the
+    chain as a function of no arguments."""
+    skip, last = model.skip_layer, model.num_layers - 1
+    feat = feats.shape[1]
+
+    def pad(t, rows, cols):  # zeros past the fan-in and fan-out
+        out = t.new_zeros((rows, cols))
+        out[:t.shape[0], :t.shape[-1]] = t
+        return out
+
+    ws, k = [], feat
+    for i, w in enumerate(model.kernels):
+        n = -(-w.shape[1] // 16) * 16
+        trunk, fw = (w[:-feat], w[-feat:]) if i == skip else (w, None)
+        # column-major (K, N), cuBLASLt's int8 layout
+        ws.append((pad(trunk, k, n).t().contiguous().t(),
+                   None if fw is None else pad(fw, feat, n).t().contiguous().t(),
+                   pad(model.biases[i][None], 1, n), pad(model.mults[i][None], 1, n)))
+        k = n
+    mult_skip = pad(model.mult_skip[None], 1, ws[skip][0].shape[1])
+    inv = model.inv_next.tolist()
+    zeros = {w.shape[0]: feats.new_zeros((feats.shape[0], w.shape[0])) for w, *_ in ws[1:]}
+
+    def chain():
+        x = feats
+        for i, (w, wf, b, m) in enumerate(ws):
+            if not epilogue:
+                y = torch._int_mm(feats if i == 0 else zeros[w.shape[0]], w)
+                if wf is not None:
+                    torch._int_mm(feats, wf)
+                continue
+            y = torch.mul(torch._int_mm(x, w), m)
+            if wf is not None:
+                y.add_(torch.mul(torch._int_mm(feats, wf), mult_skip))
+            y.add_(b)
+            if i == last:
+                return y
+            codes = y.mul_(inv[i]).clamp_(0.0, 255.0).round_().to(torch.uint8).view(torch.int8)
+            x = codes.bitwise_xor_(-128)
+        return y
+
+    return chain
+
+
 def library_k8(ops):
     """K8's chain as library products, a yardstick the port never calls:
     per layer one cuBLAS product, ray-major - a bf16 matmul, torch._int_mm
@@ -422,51 +497,90 @@ def sass_functions(lib_path: Path) -> list[tuple[str, str]] | None:
     return [(part.split(None, 1)[0], part) for part in sass.split("Function : ")[1:]]
 
 
-def sass_mma_counts(lib_path: Path) -> dict:
-    """The MMA instructions (HMMA, IMMA, QMMA) of each K8 kernel in the
-    built library's SASS, by variant index; empty without cuobjdump."""
-    counts = {}
-    for name, part in sass_functions(lib_path) or []:
-        if "quant_probe_kernel" in name:
-            variant = name.split("quant_probe_kernelILi", 1)[1].split("E", 1)[0]
-            counts[variant] = {op: part.count(f" {op}.") for op in ("HMMA", "IMMA", "QMMA")}
+MMA_OPS = ("HGMMA", "IGMMA", "QGMMA", "HMMA", "IMMA", "QMMA")
+
+
+def mma_counts(part: str) -> dict:
+    """The MMA instructions of one kernel's SASS: wgmma (HGMMA bf16,
+    IGMMA s8, QGMMA fp8) and mma.sync (HMMA, IMMA, QMMA).  ptxas may add a
+    dummy HGMMA on RZ with no descriptor, which computes nothing (it closes
+    a wgmma group): counted apart as HGMMA_RZ, not as HGMMA."""
+    counts = {op: part.count(f" {op}.") for op in MMA_OPS}
+    counts["HGMMA_RZ"] = len(re.findall(r" HGMMA\.\S+ RZ, gdesc\[URZ\], RZ", part))
+    counts["HGMMA"] -= counts["HGMMA_RZ"]
     return counts
 
 
-# K3's instantiations by their mangled template arguments: the bf16 kernel
-# megastep_wg_kernel<kRng, kStub>, the int8 one megastep_kernel<kRng, true,
-# kStub> (and megastep_kernel<kRng, false, kStub>, the bf16 mma.sync chain,
-# which must no longer be built).
-K3_KERNELS = {"bf16": re.compile(r"18megastep_wg_kernelILi(\d)ELi(\d)EE"),
-              "int8": re.compile(r"15megastep_kernelILi(\d)ELb1ELi(\d)EE"),
-              "bf16 mma.sync": re.compile(r"15megastep_kernelILi(\d)ELb0ELi(\d)EE")}
+def sass_mma_counts(lib_path: Path) -> dict:
+    """The MMA instructions of each K8 kernel in the built library's SASS,
+    by variant index; empty without cuobjdump."""
+    counts = {}
+    for name, part in sass_functions(lib_path) or []:
+        m = re.search(r"quant_probe_(?:wg_)?kernelILi(\d)E", name)
+        if m:
+            counts[m[1]] = mma_counts(part)
+    return counts
+
+
+# The wgmma kernels by their mangled template arguments: K2 and K4
+# (<kInt8>), K3 megastep_wg_kernel<kRng, kStub, kInt8>, K8's
+# quant_probe_wg_kernel<variant>; and the old mma.sync K3, megastep_kernel,
+# which must no longer be built.
+WG_KERNELS = {"K2": re.compile(r"16env_shade_kernelILb([01])E"),
+              "K4": re.compile(r"16nif_apply_kernelILb([01])E"),
+              "K3": re.compile(r"18megastep_wg_kernelILi(\d)ELi(\d)ELb([01])EE"),
+              "K8": re.compile(r"21quant_probe_wg_kernelILi(\d)EE")}
+OLD_K3 = re.compile(r"15megastep_kernelI")
 RNG_NAMES = {0: "philox", 1: "host-noise", 2: "sobol"}
 STUB_NAMES = {0: "production", 1: "stub nif", 2: "stub trace", 3: "stub both"}
+K8_NAMES = {0: "bf16", 1: "int8_requant", 2: "int8_perchan", 3: "int8_raw"}
 
 
-def k3_instantiations(functions, build_log: list[str]) -> dict:
-    """Per K3 instantiation ("<chain> <rng> <stub>"): its HGMMA, HMMA and
-    IMMA count in the SASS, and its ptxas lines (registers, stack, spills)
+def ptxas_lines(build_log: list[str], mangled: str) -> list[str]:
+    """The ptxas lines (registers, stack, spills) of one kernel."""
+    for i, ln in enumerate(build_log):
+        if "Compiling entry" in ln and f"'{mangled}'" in ln:
+            return [x.strip() for x in build_log[i + 1:i + 4]
+                    if "registers" in x or "spill" in x or "stack" in x]
+    return []
+
+
+def wg_instantiations(functions, build_log: list[str]) -> dict:
+    """Per wgmma kernel ("K2 int8", "K3 bf16 sobol stub trace", "K8
+    int8_raw", ...): its chain, whether it should hold MMAs (the 'nif' and
+    'both' stubs run none), its MMA counts in the SASS and its ptxas lines
     with the spill bytes parsed."""
     out = {}
     for name, part in functions or []:
-        for chain, pat in K3_KERNELS.items():
+        for kernel, pat in WG_KERNELS.items():
             m = pat.search(name)
-            if m:
-                key = f"{chain} {RNG_NAMES[int(m[1])]} {STUB_NAMES[int(m[2])]}"
-                out[key] = {"mangled": name,
-                            **{op: part.count(f" {op}.") for op in ("HGMMA", "HMMA", "IMMA")}}
-    for i, ln in enumerate(build_log):
-        if "Compiling entry" not in ln:
-            continue
-        for entry in out.values():
-            if f"'{entry['mangled']}'" in ln:
-                lines = [x.strip() for x in build_log[i + 1:i + 4]
-                         if "registers" in x or "spill" in x or "stack" in x]
-                entry["ptxas"] = lines
-                entry["spill_bytes"] = sum(int(b) for x in lines
-                                           for b in re.findall(r"(\d+) bytes spill", x))
+            if not m:
+                continue
+            if kernel == "K3":
+                chain = "int8" if m[3] == "1" else "bf16"
+                key = f"K3 {chain} {RNG_NAMES[int(m[1])]} {STUB_NAMES[int(m[2])]}"
+                mma = int(m[2]) in (0, 2)
+            elif kernel == "K8":
+                chain = "bf16" if m[1] == "0" else "int8"
+                key, mma = f"K8 {K8_NAMES[int(m[1])]}", True
+            else:
+                chain = "int8" if m[1] == "1" else "bf16"
+                key, mma = f"{kernel} {chain}", True
+            lines = ptxas_lines(build_log, name)
+            out[key] = {"mangled": name, "chain": chain, "mma": mma, **mma_counts(part),
+                        "ptxas": lines,
+                        "spill_bytes": sum(int(b) for x in lines
+                                           for b in re.findall(r"(\d+) bytes spill", x))}
     return out
+
+
+def holds_its_chain(v: dict) -> bool:
+    """A wgmma kernel's SASS: its chain's wgmma and no other MMA where it
+    runs the chain (bf16 HGMMA, int8 IGMMA), no MMA at all where it does
+    not (the 'nif' and 'both' stubs)."""
+    own = "IGMMA" if v["chain"] == "int8" else "HGMMA"
+    others = [op for op in MMA_OPS if op != own]
+    return all(v[op] == 0 for op in others) and (v[own] > 0 if v["mma"] else v[own] == 0)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -509,7 +623,8 @@ def is_int8(model) -> bool:
 
 
 def shade_check(name, model, esc_dir, esc_w, azimuth) -> float:
-    """K2 against its plain version with the NIF budget of the model's chain."""
+    """K2 against its plain version: the int8 chain bit for bit, the bf16
+    one within the NIF budget."""
     from ipu_path_trace_tpu_torch.ops import nif
 
     got = nif.nif_env_shade(model, esc_dir, esc_w, azimuth).stack()
@@ -518,39 +633,42 @@ def shade_check(name, model, esc_dir, esc_w, azimuth) -> float:
     med, mx = float(rel.median()), float(rel.max())
     above = float((rel > 1e-2).float().mean())
     err = float((got - ref).abs().max())
-    if is_int8(model):
-        ok = med < INT8_MEDIAN and above < INT8_SHADE_FRACTION and mx < INT8_SHADE_MAX
-    else:
-        ok = med < NIF_MEDIAN and mx < NIF_MAX
-    phase(name, ok and bool(torch.isfinite(got).all()), median_rel=f"{med:.2e}",
-          max_rel=f"{mx:.2e}", lanes_above_1e2=f"{above:.2e}", max_abs_err=f"{err:.3e}")
+    ok = torch.equal(got, ref) if is_int8(model) else med < NIF_MEDIAN and mx < NIF_MAX
+    phase(name, ok and bool(torch.isfinite(got).all()), equal=torch.equal(got, ref),
+          median_rel=f"{med:.2e}", max_rel=f"{mx:.2e}", lanes_above_1e2=f"{above:.2e}",
+          max_abs_err=f"{err:.3e}")
     return err
 
 
 def apply_check(name, model, u, v) -> float:
-    """K4 against its plain version with the NIF budget of the model's chain."""
+    """K4 against its plain version: the int8 chain bit for bit, the bf16
+    one within the NIF budget."""
     from ipu_path_trace_tpu_torch.ops import nif
 
     got = nif.nif_apply_t(model, u, v)
     ref = nif.nif_apply_t_plain(model, u, v)
     med, mx = nif_rel(got, ref)
     err = float((got - ref).abs().max())
-    phase(name, med < (INT8_MEDIAN if is_int8(model) else NIF_MEDIAN) and mx < NIF_MAX
-          and got.shape == (3, u.shape[0]) and bool(torch.isfinite(got).all()),
-          median_rel=f"{med:.2e}", max_rel=f"{mx:.2e}", max_abs_err=f"{err:.3e}")
+    ok = torch.equal(got, ref) if is_int8(model) else med < NIF_MEDIAN and mx < NIF_MAX
+    phase(name, ok and got.shape == (3, u.shape[0]) and bool(torch.isfinite(got).all()),
+          equal=torch.equal(got, ref), median_rel=f"{med:.2e}", max_rel=f"{mx:.2e}",
+          max_abs_err=f"{err:.3e}")
     return err
 
 
-def megastep_check(name, got, ref) -> float:
-    """K3 against its plain version: the flip rule on the path-length sums,
-    the NIF budget on the radiance of the other lanes."""
+def megastep_check(name, got, ref, int8: bool) -> float:
+    """K3 against its plain version: with the int8 chain bit for bit; with
+    the bf16 chain the flip rule on the path-length sums, the NIF budget on
+    the radiance of the other lanes."""
     flipped = got.path_len != ref.path_len
     frac = float(flipped.float().mean())
     a, b = got.radiance.stack()[:, ~flipped], ref.radiance.stack()[:, ~flipped]
     med, mx = nif_rel(a, b)
     err = float((a - b).abs().max())
-    phase(name, frac < FLIP_FRACTION and med < NIF_MEDIAN and mx < NIF_MAX
-          and bool(torch.isfinite(got.radiance.stack()).all()),
+    equal = torch.equal(got.path_len, ref.path_len) and torch.equal(got.radiance.stack(),
+                                                                     ref.radiance.stack())
+    ok = equal if int8 else frac < FLIP_FRACTION and med < NIF_MEDIAN and mx < NIF_MAX
+    phase(name, ok and bool(torch.isfinite(got.radiance.stack()).all()), equal=equal,
           flipped_fraction=f"{frac:.2e}", median_rel=f"{med:.2e}", max_rel=f"{mx:.2e}",
           max_abs_err=f"{err:.3e}")
     return err
@@ -677,35 +795,39 @@ def main() -> None:
                 int8))
 
     def ragged_checks(cols, rows, kw, settings, seed, noise):
-        """K3 bf16 at a ragged n whose last CUDA block has one live 128-ray
-        tile, with budgets of 0, 1 and 8 in one launch, the statistics and
-        the env-skip (Philox and host noise); on the enclosed scene skip on
-        = off bit for bit."""
+        """K3, bf16 and int8, at a ragged n whose last CUDA block has one
+        live 128-ray tile, with budgets of 0, 1 and 8 in one launch, the
+        statistics and the env-skip (Philox and host noise); on the
+        enclosed scene skip on = off bit for bit."""
         n = RAGGED_K3
         rc, rr = cols[:n].contiguous(), rows[:n].contiguous()
         budgets = torch.from_numpy(gen.choice([0, 1, 8], -(-n // megastep.BUDGET_BLOCK))
                                    .astype(np.int32)).to(dev)
         rnoise = noise[:, :, :n].contiguous()
         common = dict(budgets=budgets, with_stats=True, env_skip=True)
-        for label, args in (("philox", dict(seed=seed, **common)),
-                            ("host-noise", dict(noise=rnoise, **common))):
-            err["megastep_ragged"] = max(err.get("megastep_ragged", 0.0), mode_check(
-                f"K3 ragged {n} {label} budgets 0/1/8+stats+env-skip",
-                megastep.render_megastep(scene, settings, model, rc, rr, **args, **kw),
-                megastep.render_megastep_plain(scene, settings, model, rc, rr, **args, **kw),
-                False))
         ecols, erows = grid(kw["width"], kw["height"], enclosed)
         ec, er = ecols[:n].contiguous(), erows[:n].contiguous()
-        on, off = (megastep.render_megastep(enclosed, settings, model, ec, er, seed,
-                                            budgets=budgets, with_stats=True, env_skip=skip, **kw)
-                   for skip in (True, False))
-        ref = megastep.render_megastep_plain(enclosed, settings, model, ec, er, seed,
-                                             budgets=budgets, with_stats=True, **kw)
-        phase(f"K3 ragged {n} env-skip on = off, enclosed, budgets 0/1/8",
-              all(torch.equal(as_tensor(a), as_tensor(b)) for a, b in zip(on, off)),
-              budgets=sorted(set(budgets.tolist())))
-        err["megastep_ragged"] = max(err["megastep_ragged"], mode_check(
-            f"K3 ragged {n} env-skip enclosed budgets 0/1/8+stats", on, ref, False))
+        for m in (model, q8):
+            int8 = is_int8(m)
+            key, label8 = ("megastep_int8_ragged", "int8 ") if int8 else ("megastep_ragged", "")
+            for label, args in (("philox", dict(seed=seed, **common)),
+                                ("host-noise", dict(noise=rnoise, **common))):
+                err[key] = max(err.get(key, 0.0), mode_check(
+                    f"K3 {label8}ragged {n} {label} budgets 0/1/8+stats+env-skip",
+                    megastep.render_megastep(scene, settings, m, rc, rr, **args, **kw),
+                    megastep.render_megastep_plain(scene, settings, m, rc, rr, **args, **kw),
+                    int8))
+            on, off = (megastep.render_megastep(enclosed, settings, m, ec, er, seed,
+                                                budgets=budgets, with_stats=True, env_skip=skip,
+                                                **kw)
+                       for skip in (True, False))
+            ref = megastep.render_megastep_plain(enclosed, settings, m, ec, er, seed,
+                                                 budgets=budgets, with_stats=True, **kw)
+            phase(f"K3 {label8}ragged {n} env-skip on = off, enclosed, budgets 0/1/8",
+                  all(torch.equal(as_tensor(a), as_tensor(b)) for a, b in zip(on, off)),
+                  budgets=sorted(set(budgets.tolist())))
+            err[key] = max(err[key], mode_check(
+                f"K3 {label8}ragged {n} env-skip enclosed budgets 0/1/8+stats", on, ref, int8))
 
     def stub_checks(tag, cols, rows, kw, settings, seed):
         """Phase 5c: K3's stubs in both chains and both hardware RNG modes."""
@@ -773,7 +895,7 @@ def main() -> None:
     err["nif_apply_int8"] = max(apply_check("K4 int8", q8, u, v),
                                 apply_check("K4 int8 canonical PTQ", q8_canonical, u, v),
                                 apply_check("K4 int8 mixed-width", q8_mixed, u, v))
-    # The bf16 chain's 128-ray tiles with a ragged last one (37 lanes).
+    # The chains' 128-ray tiles with a ragged last one (37 lanes).
     ragged = n2 + 37
     rd = gen.normal(size=(3, ragged)).astype(np.float32)
     rd /= np.linalg.norm(rd, axis=0, keepdims=True)
@@ -784,59 +906,45 @@ def main() -> None:
     rdir = Vec3.unstack(torch.from_numpy(rd).to(dev))
     rw = Vec3.unstack(torch.from_numpy(r_weight).to(dev))
     ru, rv = (torch.from_numpy(gen.uniform(0.0, 1.0, (2, ragged)).astype(np.float32)).to(dev))
-    for m, tag in ((model, ""), (mixed, " mixed-width")):
-        err["env_shade"] = max(err["env_shade"], shade_check(
-            f"K2{tag} ragged {ragged}", m, rdir, rw, 0.7))
-        err["nif_apply"] = max(err["nif_apply"], apply_check(
-            f"K4 bf16{tag} ragged {ragged}", m, ru, rv))
+    for m, tag in ((model, "bf16"), (mixed, "bf16 mixed-width"), (q8, "int8"),
+                   (q8_canonical, "int8 canonical PTQ"), (q8_mixed, "int8 mixed-width")):
+        suffix = "_int8" if is_int8(m) else ""
+        err["env_shade" + suffix] = max(err["env_shade" + suffix], shade_check(
+            f"K2 {tag} ragged {ragged}", m, rdir, rw, 0.7))
+        err["nif_apply" + suffix] = max(err["nif_apply" + suffix], apply_check(
+            f"K4 {tag} ragged {ragged}", m, ru, rv))
 
-    # 4c. the bf16 K2/K4 on wgmma: SASS and ptxas ------------------------
-    wg_kernels = {"env_shade": "env_shade_kernelILb0E", "nif_apply": "nif_apply_kernelILb0E"}
+    # 4c. the wgmma kernels (K2, K3, K4 and K8's): SASS and ptxas -------
     functions = sass_functions(lib_path)
-    wg_sass = {}
-    for key, tag in wg_kernels.items():
-        parts = [part for name, part in functions or [] if tag in name]
-        wg_sass[key] = {op: sum(part.count(f" {op}.") for part in parts)
-                        for op in ("HGMMA", "HMMA")}
-        phase(f"SASS {key} bf16", functions is not None and len(parts) == 1
-              and wg_sass[key]["HGMMA"] > 0 and wg_sass[key]["HMMA"] == 0,
-              cuobjdump=functions is not None, **wg_sass[key])
     build_log = lib_path.with_suffix(".log").read_text().splitlines()
-    wg_ptxas = {}
-    for i, ln in enumerate(build_log):
-        for key, tag in wg_kernels.items():
-            if "Compiling entry" in ln and tag in ln:
-                wg_ptxas[key] = [x.strip() for x in build_log[i + 1:i + 4]
-                                 if "registers" in x or "spill" in x or "stack" in x]
-    for key, lines in wg_ptxas.items():
-        print(f"[ptxas] {key} bf16 (wgmma): {' | '.join(lines)}", flush=True)
+    wg_sass = wg_instantiations(functions, build_log)
+    for key, v in wg_sass.items():
+        print(f"[ptxas] {key} (wgmma): {' | '.join(v['ptxas'])}", flush=True)
     for ln in build_log:
         if "wgmma" in ln.lower():
             print(f"[ptxas] {ln.strip()}", flush=True)
-    # K3: every bf16 instantiation on wgmma (the 'nif' and 'both' stubs run no
-    # MMA), every int8 one on mma.sync s8, no bf16 mma.sync K3 left.
-    k3_sass = k3_instantiations(functions, build_log)
-    bf16 = {k: v for k, v in k3_sass.items() if k.startswith("bf16 ") and "mma.sync" not in k}
-    int8 = {k: v for k, v in k3_sass.items() if k.startswith("int8 ")}
+    for kernel in ("K2", "K4"):
+        for chain in ("bf16", "int8"):
+            v = wg_sass.get(f"{kernel} {chain}")
+            phase(f"SASS {kernel} {chain}", functions is not None and v is not None
+                  and holds_its_chain(v), cuobjdump=functions is not None,
+                  **{op: (v or {}).get(op) for op in MMA_OPS + ("HGMMA_RZ",)})
     built = [f"{r} production" for r in RNG_NAMES.values()] + [
         f"{r} {st}" for r in ("philox", "sobol") for st in list(STUB_NAMES.values())[1:]]
-    mma = ("production", "stub trace")
-    phase("SASS megastep bf16", functions is not None
-          and sorted(bf16) == sorted(f"bf16 {b}" for b in built)
-          and all(v["HMMA"] == 0 and (v["HGMMA"] > 0 if k.endswith(mma) else v["HGMMA"] == 0)
-                  for k, v in bf16.items())
-          and not any("mma.sync" in k for k in k3_sass), cuobjdump=functions is not None,
-          **{k[5:].replace(" ", "_"): f"{v['HGMMA']}/{v['HMMA']}" for k, v in bf16.items()})
-    phase("SASS megastep int8", functions is not None
-          and sorted(int8) == sorted(f"int8 {b}" for b in built)
-          and all(v["HMMA"] == 0 and (v["IMMA"] > 0 if k.endswith(mma) else True)
-                  for k, v in int8.items()), cuobjdump=functions is not None,
-          **{k[5:].replace(" ", "_"): v["IMMA"] for k, v in int8.items()})
-    for key, v in bf16.items():
-        print(f"[ptxas] megastep {key} (wgmma): {' | '.join(v.get('ptxas', []))}", flush=True)
-    phase("ptxas megastep bf16 no spills", len(bf16) == len(built)
-          and all("ptxas" in v and v["spill_bytes"] == 0 for v in bf16.values()),
-          spill_bytes={k[5:]: v.get("spill_bytes") for k, v in bf16.items()})
+    for chain in ("bf16", "int8"):
+        k3 = {k: v for k, v in wg_sass.items() if k.startswith(f"K3 {chain} ")}
+        own = "IGMMA" if chain == "int8" else "HGMMA"
+        phase(f"SASS megastep {chain}", functions is not None
+              and sorted(k3) == sorted(f"K3 {chain} {b}" for b in built)
+              and all(holds_its_chain(v) for v in k3.values())
+              and not any(OLD_K3.search(name) for name, _ in functions),
+              cuobjdump=functions is not None,
+              **{k[4 + len(chain):].replace(" ", "_"): f"{v[own]}/{v['HMMA'] + v['IMMA']}"
+                 for k, v in k3.items()})
+    spills = {k: v["spill_bytes"] for k, v in wg_sass.items() if not k.startswith("K8")}
+    phase("ptxas K2 K3 K4 no spills", len(spills) == 4 + 2 * len(built)
+          and all(v["ptxas"] for v in wg_sass.values()) and not any(spills.values()),
+          spill_bytes=spills)
 
     # 5. K3 ------------------------------------------------------------------
     s3 = 4
@@ -848,7 +956,7 @@ def main() -> None:
             f"K3 {'int8 ' if is_int8(m) else ''}host-noise",
             megastep.render_megastep(scene, settings, m, cols, rows, noise=noise3_t, **kw),
             megastep.render_megastep_plain(scene, settings, m, cols, rows, noise=noise3_t,
-                                           **kw))
+                                           **kw), is_int8(m))
 
     # 5b. the Sobol, budget/statistics and env-skip modes -------------------
     mode_checks("256x256", cols, rows, kw, settings, (13, 14), noise3_t)
@@ -1038,7 +1146,8 @@ def main() -> None:
         err[name] = max(err[name], megastep_check(
             f"K3 {'int8 ' if is_int8(m) else ''}philox 1104x1000 {MAIN_SPS} samples",
             megastep.render_megastep(scene, settings, m, cols, rows, seed, **kw),
-            megastep.render_megastep_plain(scene, settings, m, cols, rows, seed, **kw)))
+            megastep.render_megastep_plain(scene, settings, m, cols, rows, seed, **kw),
+            is_int8(m)))
     # One bake chunk at the default --max-nif-batch-size: rows 0..9 of the
     # 2048x4096 lattice, as models/envlight.bake_nif_env lays it out.
     bake_h, bake_w = meta.image_shape[:2]
@@ -1058,7 +1167,7 @@ def main() -> None:
     mode_checks("1104x1000", cols, rows, kw, settings, seed, noise8)
     del noise8
     stub_checks("1104x1000", cols, rows, kw, settings, seed)
-    times = {}
+    times, library_ms, int_mm_products = {}, {}, {}
 
     def versus(a, b, a_reps, b_reps):
         """b, a, a, b: two versions in turns on one card; ms per call of each."""
@@ -1193,6 +1302,27 @@ def main() -> None:
               f"{times[f'cublas_chain_{tag}'][0]:.3f} ms ({smi}; a yardstick, not the port)",
               flush=True)
         del feats
+    # The int8 analog: the torch._int_mm chain with K5's epilogue at the
+    # full frame (K2, K3) and the bake chunk (K4), each the library time of
+    # the int8 rows; and its seven products alone, the least any such chain
+    # takes (its time is mostly the eager epilogue's passes over f32).
+    from ipu_path_trace_tpu_torch.models.quant import quantize_features
+
+    for names, npts in ((("env_shade_int8", "megastep_int8", "megastep_int8_sobol_budgets_stats"),
+                         cols.shape[0]), (("nif_apply_int8",), bake_u.shape[0])):
+        codes = quantize_features(
+            torch.rand((npts, 4 * q8.embedding_dim), device=dev) * 2.0 - 1.0)
+        ms = cuda_ms(int_mm_chain(q8, codes), 10)
+        times[f"int_mm_chain_{npts}"] = (ms, None)
+        products = cuda_ms(int_mm_chain(q8, codes, epilogue=False), 10)
+        times[f"int_mm_products_{npts}"] = (products, None)
+        for name in names:
+            library_ms[name] = ms
+            int_mm_products[name] = products
+        print(f"[timing] torch._int_mm int8 chain (7 products, K5's epilogue) at {npts} rays: "
+              f"{ms:.3f} ms, the products alone {products:.3f} ms ({smi}; yardsticks, not "
+              f"the port)", flush=True)
+        del codes
 
     for suffix in ("", " int8"):
         on, off = guard["enclosed" + suffix]
@@ -1274,7 +1404,7 @@ def main() -> None:
     from ipu_path_trace_tpu_torch.probes import quant, quant_psnr
 
     t9 = time.monotonic()
-    k8_ops, library_ms = {}, {}
+    k8_ops = {}
     for variant in quant.VARIANTS:
         feats, ws, bs, _, xmax = quant.calibration(None if variant == "bf16" else quant.PAD)
         ops = k8_ops[variant] = quant.build_operands(variant, ws, bs, feats, xmax).to(dev)
@@ -1283,9 +1413,15 @@ def main() -> None:
         err[name] = float((got - ref).abs().max())
         rel = rel_err(got, ref)
         med, mx = float(rel.median()), float(rel.max())
-        if variant == "bf16":
-            above = float((rel > NIF_MAX).float().mean())
-            ok = med < NIF_MEDIAN and above <= NIF_TAIL_FRACTION and mx < NIF_TAIL_MAX
+        if variant == "bf16":  # K8's own budget; every launch the same outputs
+            same = all(torch.equal(quant.quant_probe(ops), got)
+                       for _ in range(K8_BF16_LAUNCHES - 1))
+            above = float((rel > K8_BF16_ABOVE).float().mean())
+            ok = (same and med < K8_BF16_MEDIAN and above <= K8_BF16_FRACTION
+                  and mx < K8_BF16_MAX)
+            print(f"[K8] bf16 on the wgmma tile vs its plain version, {quant.RAYS} outputs x 3, "
+                  f"{K8_BF16_LAUNCHES} launches all equal: {same}; max rel {mx:.4e}, outputs "
+                  f"past {K8_BF16_ABOVE:g}: {above:.3e} ({smi})", flush=True)
         elif variant.startswith("fp8"):
             above = float((rel > FP8_ABOVE).float().mean())
             ok = med < FP8_MEDIAN and above <= FP8_FRACTION and mx < FP8_MAX
@@ -1314,8 +1450,16 @@ def main() -> None:
     k8_sass = sass_mma_counts(lib_path)
     for idx, counts in sorted(k8_sass.items()):
         print(f"[sass] quant_probe_{quant.VARIANTS[int(idx)]}: {counts}", flush=True)
-    if not k8_sass:
-        print("[sass] cuobjdump not found: the MMA instructions are not counted", flush=True)
+    # bf16 and int8 on the wgmma tiles, their chain's wgmma alone (fp8 still
+    # runs mma.sync: HMMA, printed above); no spills in their kernels.
+    k8_wg = {k[3:]: v for k, v in wg_sass.items() if k.startswith("K8 ")}
+    phase("SASS K8 bf16 and int8", functions is not None
+          and sorted(k8_wg) == sorted(quant.VARIANTS[:4])
+          and all(holds_its_chain(v) for v in k8_wg.values()),
+          **{k: f"{v['HGMMA'] + v['IGMMA']}/{v['HMMA'] + v['IMMA']}" for k, v in k8_wg.items()})
+    phase("ptxas K8 bf16 and int8 no spills", len(k8_wg) == 4
+          and all(v["ptxas"] and v["spill_bytes"] == 0 for v in k8_wg.values()),
+          spill_bytes={k: v["spill_bytes"] for k, v in k8_wg.items()})
     # The quality gate through its entry point, then once more with the
     # plain versions in place of K4 (same batches, same frames).
     nif.nif_apply_t.launches = nif.nif_apply_t_plain.cuda_runs = 0
@@ -1344,9 +1488,9 @@ def main() -> None:
           flush=True)
 
     # The wgmma chain of K2/K4 against the mma.sync chain of the same run
-    # (K6 'mxu' and K8 bf16, ~1.1 M lanes each) and the cuBLAS chain.
-    mma_sync = {"overlap_mxu": times["overlap_mxu"][0],
-                "quant_probe_bf16": times["quant_probe_bf16"][0]}
+    # (K6 'mxu', ~1.1 M lanes: the last bf16 mma.sync chain, since K8 bf16
+    # runs the wgmma tile) and the cuBLAS chain.
+    mma_sync = {"overlap_mxu": times["overlap_mxu"][0]}
     for name, chain_key, unit in (
             ("env_shade", "cublas_chain_full frame",
              f"1104x1000 sample ({cols.shape[0]} lanes)"),
@@ -1356,8 +1500,10 @@ def main() -> None:
         print(f"[wgmma] {name} bf16: {times[name][0]:.4f} ms per {unit}, cuBLAS chain "
               f"{times[chain_key][0]:.4f} ms ({times[name][0] / times[chain_key][0]:.3f}x); "
               f"({smi})", flush=True)
-    print(f"[wgmma] mma.sync chain per ~1.1 M lanes: K6 mxu {mma_sync['overlap_mxu']:.4f} ms, "
-          f"K8 bf16 {mma_sync['quant_probe_bf16']:.4f} ms ({smi})", flush=True)
+    print(f"[wgmma] mma.sync chain per ~1.1 M lanes: K6 mxu {mma_sync['overlap_mxu']:.4f} ms; "
+          f"K8 on wgmma per {quant.RAYS} rays: "
+          + ", ".join(f"{v} {times[f'quant_probe_{v}'][0]:.4f} ms" for v in quant.VARIANTS[:4])
+          + f" ({smi})", flush=True)
     phase("K2 bf16 wgmma beats the mma.sync chain",
           times["env_shade"][0] < min(mma_sync.values()),
           env_shade_ms=f"{times['env_shade'][0]:.4f}",
@@ -1378,6 +1524,21 @@ def main() -> None:
           times["megastep"][0] < min(mma_sync.values()),
           megastep_ms=f"{times['megastep'][0]:.4f}",
           **{f"{k}_ms": f"{v:.4f}" for k, v in mma_sync.items()})
+    # The int8 chain on wgmma s8 per 1104x1000 sample (K2, K3) and bake chunk
+    # (K4), beside bf16 and the torch._int_mm chain with the same epilogue.
+    for name, unit in (("env_shade", "1104x1000 sample"), ("megastep", "1104x1000 sample"),
+                       ("nif_apply", f"bake chunk ({bake_u.shape[0]} points)")):
+        print(f"[wgmma] {name} int8 {times[name + '_int8'][0]:.4f} ms, bf16 "
+              f"{times[name][0]:.4f} ms ({times[name + '_int8'][0] / times[name][0]:.3f}x), "
+              f"_int_mm chain {library_ms[name + '_int8']:.4f} ms (its products alone "
+              f"{int_mm_products[name + '_int8']:.4f}) per {unit} ({smi})", flush=True)
+    # K3 (trace and chain) against the chain's products alone, the stricter
+    # of the two yardsticks.
+    phase("K3 int8 wgmma beats the _int_mm chain",
+          times["megastep_int8"][0] < int_mm_products["megastep_int8"] < library_ms["megastep_int8"],
+          megastep_int8_ms=f"{times['megastep_int8'][0]:.4f}",
+          int_mm_products_ms=f"{int_mm_products['megastep_int8']:.4f}",
+          int_mm_chain_ms=f"{library_ms['megastep_int8']:.4f}")
 
     # The least time of each row's unit of work (bound), on this run's data.
     n = cols.shape[0]
@@ -1447,11 +1608,11 @@ def main() -> None:
     rows_out = [
         ("trace", "csrc/trace.cu", k1, launches["main unfused"]["trace"]),
         ("env_shade", "csrc/nif_wgmma.cuh", k2, launches["main unfused"]["env_shade"]),
-        ("env_shade_int8", "csrc/nif.cu", k5, launches["main int8 unfused"]["env_shade"]),
+        ("env_shade_int8", "csrc/nif_wgmma.cuh", k5, launches["main int8 unfused"]["env_shade"]),
         ("megastep", "csrc/megastep.cuh", k3, launches["main fused"]["megastep"]),
         ("megastep_int8", "csrc/megastep.cuh", k5, launches["main int8 fused"]["megastep"]),
         ("nif_apply", "csrc/nif_wgmma.cuh", k4, launches["main baked"]["nif_apply"]),
-        ("nif_apply_int8", "csrc/nif.cu", k5, launches["main baked int8"]["nif_apply"]),
+        ("nif_apply_int8", "csrc/nif_wgmma.cuh", k5, launches["main baked int8"]["nif_apply"]),
         # The modes of this slice, each with the launches of the CLI run
         # that drove it.
         ("trace_sobol", "csrc/trace.cu", k1, launches["sobol unfused"]["trace"]),
@@ -1497,7 +1658,7 @@ def main() -> None:
          "times_ms": times, "bounds_ms": bounds, "max_abs_err": err,
          "cublas_chain_ms": {k: v[0] for k, v in times.items() if k.startswith("cublas")},
          "quant_probe": k8_res, "quant_probe_sass_mma": k8_sass, "quality_gate": quality,
-         "wgmma_sass": wg_sass, "wgmma_ptxas": wg_ptxas, "megastep_sass_ptxas": k3_sass,
+         "wgmma_sass_ptxas": wg_sass,
          "quality_gate_plain": quality_plain, "quality_gate_s": gate_s,
          "bound_counts": {"escapes": escapes, "bounces": bounces,
                           "escapes_enclosed": escapes_enclosed,

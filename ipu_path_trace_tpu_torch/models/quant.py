@@ -21,7 +21,7 @@ The plain forward computes the integer dots as float32 matrix products of
 integer-valued tensors.  Every product is at most 127 * 128 in magnitude,
 so every partial sum is an integer below 2^24 - exact in f32, in any
 order - while K * 127 * 128 < 2^24 (K <= 1031, asserted).  The CUDA
-kernels (csrc/nif_dev.cuh::nif_tile_int8) run the same arithmetic on the
+kernels (csrc/nif_wgmma.cuh::ChainInt8) run the same arithmetic on the
 int8 tensor cores, so given the same int8 features every integer and
 every requantised code agrees.  The f32 encode is the port's direct
 sin/cos (models/nif.fourier_features), not the TPU kernel's double-angle

@@ -135,7 +135,12 @@ class NifWg(ctypes.Structure):
         + [(n, ctypes.c_int * NIF_MAX_LAYERS) for n in (
             "chunks", "in_atoms", "f_atoms", "slice_bytes")]
         + [("w", ctypes.c_void_p * NIF_MAX_LAYERS), ("b", ctypes.c_void_p * NIF_MAX_LAYERS),
-           ("max_v", ctypes.c_float), ("mean", ctypes.c_float * 3)]
+           ("max_v", ctypes.c_float), ("mean", ctypes.c_float * 3),
+           # the 8-bit chains
+           ("int8", ctypes.c_int), ("smem_codes", ctypes.c_int),
+           ("passes", ctypes.c_int * NIF_MAX_LAYERS),
+           ("inv_next", ctypes.c_float * NIF_MAX_LAYERS),
+           ("mult", ctypes.c_void_p * NIF_MAX_LAYERS), ("mult_skip", ctypes.c_void_p)]
     )
 
 
@@ -149,23 +154,20 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.pt_trace.argtypes = [ctypes.POINTER(TraceParams), _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _P, _P, _P, _P, _P, _P]
-    # K2 and K4 take an int8 model's NifNet or a bf16 model's NifWg (the other None).
-    lib.pt_env_shade.argtypes = [ctypes.POINTER(NifNet), ctypes.POINTER(NifWg), _P, _P,
-                                 ctypes.c_float, _I, _P, _P]
-    lib.pt_nif_apply.argtypes = [ctypes.POINTER(NifNet), ctypes.POINTER(NifWg), _P, _P, _I, _P,
-                                 _P]
-    # K3 likewise: an int8 model's NifNet or a bf16 model's NifWg (K3's plan).
-    lib.pt_megastep.argtypes = [ctypes.POINTER(TraceParams), ctypes.POINTER(NifNet),
-                                ctypes.POINTER(NifWg), _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _P, _P, _P, _P]
-    lib.pt_megastep_stub.argtypes = [ctypes.POINTER(TraceParams), ctypes.POINTER(NifNet),
-                                     ctypes.POINTER(NifWg), _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _I, _P, _P, _P, _I, _P]
+    # K2, K3 and K4 take the model's NifWg (bf16 or int8 by its flag; K3's plan for K3).
+    wg = ctypes.POINTER(NifWg)
+    lib.pt_env_shade.argtypes = [wg, _P, _P, ctypes.c_float, _I, _P, _P]
+    lib.pt_nif_apply.argtypes = [wg, _P, _P, _I, _P, _P]
+    lib.pt_megastep.argtypes = [ctypes.POINTER(TraceParams), wg, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _P, _P, _P, _P]
+    lib.pt_megastep_stub.argtypes = [ctypes.POINTER(TraceParams), wg, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _P, _P, _P, _I, _P]
     lib.pt_probe_mxu.argtypes = [ctypes.POINTER(NifNet), _P, _I, _P, _P]
     lib.pt_probe_alu.argtypes = [_P, _I, _I, _P, _P]
     lib.pt_probe_both.argtypes = [ctypes.POINTER(NifNet), _P, _I, _I, _P, _P]
     lib.pt_probe_loop.argtypes = [ctypes.POINTER(NifNet), _P, _I, _I, _I, _I, _I, _P, _P]
-    lib.pt_quant_probe.argtypes = [ctypes.POINTER(NifNet), _I, _P, _I, _P, _P]
+    # K8: a NifWg for bf16 and int8 (with the feature rows), a NifNet for fp8.
+    lib.pt_quant_probe.argtypes = [ctypes.POINTER(NifNet), wg, _I, _P, _I, _I, _P, _P]
     lib.pt_error_string.argtypes = [_I]
     lib.pt_error_string.restype = ctypes.c_char_p
     for fn in (lib.pt_trace, lib.pt_env_shade, lib.pt_nif_apply, lib.pt_megastep,

@@ -11,12 +11,12 @@ applied) and of path length.
 Modes, as the reference kernel's: hardware (Philox, ``seed``), host noise
 (``noise`` of shape (S, 4 + 4L, P)) and Owen-Sobol (``seed`` with
 ``sobol=(pixel_id, base, key)``, ``sobol_dims``), each with the bf16
-chain (``NifModel``: ``megastep_wg_kernel``, the ``wgmma`` chain of
-``csrc/nif_wgmma.cuh`` under ``megastep_wg_plan``) or the int8 chain
-(``QuantNifModel``: ``megastep_kernel``, ``mma.sync`` s8); per-block
-sample ``budgets`` (adaptive sampling), ``with_stats`` (the per-record
-sum of squared sample luminance, ``lum2``) and ``env_skip`` (the NIF
-chain skipped for tiles with no escape, ``env_skip_tile`` rays each).
+chain (``NifModel``) or the int8 chain (``QuantNifModel``), both
+``megastep_wg_kernel`` on the ``wgmma`` chains of ``csrc/nif_wgmma.cuh``
+under ``megastep_wg_plan``; per-block sample ``budgets`` (adaptive
+sampling), ``with_stats`` (the per-record sum of squared sample
+luminance, ``lum2``) and ``env_skip`` (the NIF chain skipped for
+128-ray tiles with no escape, ``ENV_SKIP_TILE``).
 For a CUDA tensor there is no fallback: a plan, build or launch that
 fails raises.  The measurement stubs of
 --device-timing (``stub``, utils/devtime.py) are the reference's:
@@ -39,7 +39,7 @@ from ..core.vecmath import Vec3
 from ..models.nif import NifModel
 from ..models.quant import QuantNifModel
 from . import _lib
-from .nif import WG_RAYS, model_tensors, net_struct, nif_env_shade_plain, wg_struct, wgmma_plan
+from .nif import WG_RAYS, model_tensors, nif_env_shade_plain, wg_arg, wg_struct, wgmma_plan
 from .trace import (TraceOut, check_sobol, pack_scene, sample_rows, trace_params,
                     trace_sample_plain)
 
@@ -47,15 +47,14 @@ from .trace import (TraceOut, check_sobol, pack_scene, sample_rows, trace_params
 # here): the reference's tuned TPU block, so the controller allocates at
 # the reference's granularity.  A multiple of the kernels' 256-ray CUDA
 # block, whose NIF chain needs one budget for all its rays: block-wide
-# barriers, and (bf16) both consumer warpgroups taking every weight slice.
+# barriers, and both consumer warpgroups taking every weight slice.
 BUDGET_BLOCK = 2048
 RAYS_PER_CUDA_BLOCK = 256  # csrc/megastep.cuh kRaysPerBlock: two 128-ray wgmma tiles
 # Rays per env-skip tile, the guard's granularity, at which
-# render/wavefront.dead_block_fraction measures: the bf16 kernel's wgmma
-# tile and the int8 kernel's NIF sub-tile (csrc/nif_dev.cuh kTile).
-ENV_SKIP_TILE_BF16 = WG_RAYS
-ENV_SKIP_TILE_INT8 = 64
-# The bf16 kernel's tail of the chain's shared-memory plan
+# render/wavefront.dead_block_fraction measures: the wgmma tile of either
+# chain.
+ENV_SKIP_TILE = WG_RAYS
+# The kernel's tail of the chain's shared-memory plan
 # (csrc/megastep.cuh kMegaUvBytes, kMegaOutBytes, kMegaCtlBytes): the
 # block's (u, v), the head's 3 outputs per ray, the control word; the
 # scene's tables follow.
@@ -76,11 +75,6 @@ class MegaStepOut(NamedTuple):
     lum2: torch.Tensor | None = None
 
 
-def env_skip_tile(model: NifModel) -> int:
-    """Rays per env-skip tile of the kernel that runs ``model``'s chain."""
-    return ENV_SKIP_TILE_INT8 if isinstance(model, QuantNifModel) else ENV_SKIP_TILE_BF16
-
-
 def table_bytes(scene: Scene) -> int:
     """Bytes of the scene's tables in shared memory (csrc/common.cuh
     tables_bytes: 12 floats per sphere, 15 per disc)."""
@@ -88,37 +82,25 @@ def table_bytes(scene: Scene) -> int:
 
 
 def megastep_wg_plan(model: NifModel, scene: Scene) -> dict:
-    """The bf16 kernel's shared-memory plan: the ``wgmma`` chain's
-    (ops/nif.wgmma_plan) with K3's tail from ``smem_uv`` on - the block's
-    (u, v), the head's outputs and the control word (MEGA_TAIL_BYTES),
-    then the scene's tables at ``smem_tables``, 16-byte aligned - and as
-    many ring stages as then fit (at most 4; 3 for the canonical net and
-    the default scene).  Raises ValueError, naming the limit, where not
-    even two stages fit."""
+    """The kernel's shared-memory plan: the ``wgmma`` chain's
+    (ops/nif.wgmma_plan, bf16 or int8) with K3's tail from ``smem_uv`` on -
+    the block's (u, v), the head's outputs and the control word
+    (MEGA_TAIL_BYTES), then the scene's tables at ``smem_tables``, 16-byte
+    aligned - and as many ring stages as then fit (at most 4; 3 bf16 and 4
+    int8 for the canonical net and the default scene).  Raises ValueError,
+    naming the limit, where not even two stages fit."""
     tables = -(-table_bytes(scene) // 16) * 16
+    chain = "int8" if isinstance(model, QuantNifModel) else "bf16"
     plan = wgmma_plan(model, MEGA_TAIL_BYTES + tables,
-                      f"the megastep's bf16 chain with {tables} B of scene tables")
+                      f"the megastep's {chain} chain with {tables} B of scene tables")
     plan["smem_tables"] = plan["smem_uv"] + MEGA_TAIL_BYTES
     return plan
 
 
-def check_nets(net, wg) -> None:
-    """The launchers' rule (csrc/megastep.cuh launch_chain): exactly one of
-    an int8 model's NifNet and a bf16 model's NifWg; a bf16 NifNet (the
-    mma.sync chain) is refused."""
-    if (net is None) == (wg is None):
-        raise ValueError("megastep: pass exactly one of a NifNet (int8) and a NifWg (bf16)")
-    if net is not None and not net.int8:
-        raise ValueError("megastep: a bf16 model runs the wgmma chain (NifWg); a bf16 NifNet "
-                         "is refused")
-
-
-def kernel_nets(model: NifModel, scene: Scene) -> tuple:
-    """(NifNet, NifWg) of the model's chain, the other None: an int8 model's
-    NifNet, or a bf16 model's NifWg under ``megastep_wg_plan``."""
-    if isinstance(model, QuantNifModel):
-        return net_struct(model), None
-    return None, wg_struct(model, megastep_wg_plan(model, scene))
+def kernel_net(model: NifModel, scene: Scene):
+    """The NifWg of the model's chain (bf16 or int8) under
+    ``megastep_wg_plan``."""
+    return wg_struct(model, megastep_wg_plan(model, scene))
 
 
 def luminance(rad: Vec3) -> torch.Tensor:
@@ -260,9 +242,7 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     prm = trace_params(scene, settings, seed=seed, device=dev, sobol=sobol,
                        sobol_dims=sobol_dims, width=width, height=height,
                        max_path_length=max_path_length, aa_noise_type=aa_noise_type)
-    net, wg = kernel_nets(model, scene)
-    check_nets(net, wg)
-    nets = tuple(None if x is None else ctypes.byref(x) for x in (net, wg))
+    wg = wg_arg(kernel_net(model, scene))
     sph, dsc = pack_scene(scene.to(dev))
     rad = torch.empty((3, n), dtype=torch.float32, device=dev)
     plen = torch.empty(n, dtype=torch.int32, device=dev)
@@ -273,10 +253,10 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     tail = (_lib.ptr(pid), _lib.ptr(base), _lib.ptr(budgets), budget_block, samples, n,
             int(bool(env_skip)), _lib.ptr(rad), _lib.ptr(plen), _lib.ptr(lum2))
     if stub is None:
-        err = lib.pt_megastep(ctypes.byref(prm), *nets, *common, _lib.ptr(noise), *tail,
+        err = lib.pt_megastep(ctypes.byref(prm), wg, *common, _lib.ptr(noise), *tail,
                               _lib.stream(dev))
     else:
-        err = lib.pt_megastep_stub(ctypes.byref(prm), *nets, *common, *tail, STUBS[stub],
+        err = lib.pt_megastep_stub(ctypes.byref(prm), wg, *common, *tail, STUBS[stub],
                                    _lib.stream(dev))
     _lib.check(err, "megastep" if stub is None else f"megastep stub '{stub}'")
     if stub is None:

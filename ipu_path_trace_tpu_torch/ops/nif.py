@@ -5,16 +5,17 @@ nif_env_shade_pallas``: equirect (u, v) of each escape direction, the NIF
 chain, the bgr -> rgb flip and the product with the escape weights, in
 one kernel.  ``nif_apply_t`` replaces ``nif_apply_pallas_t``: the NIF at
 given (u, v), (3, P) f32 in network channel order (``eval_env`` and the
-baked env mode call it).  Both live in ``csrc/nif.cu``.  For a
-``NifModel`` (bf16) they run the ``wgmma`` chain of
-``csrc/nif_wgmma.cuh`` on the slices of ``wgmma_operands`` (``wg_struct``);
-for a ``QuantNifModel`` the int8 chain (K5, ``_quant_mlp_core``) of
-``csrc/nif_dev.cuh`` (``net_struct``).  The bf16 ``mma.sync`` chain of
-``nif_dev.cuh`` (``kernel_operands``) serves the probes K6 and K8; K3
-runs the ``wgmma`` chain too (ops/megastep.py).
+baked env mode call it).  Both live in ``csrc/nif.cu`` and run the
+``wgmma`` chains of ``csrc/nif_wgmma.cuh`` on the slices of
+``wgmma_operands`` (``wg_struct``): a ``NifModel``'s bf16 chain, or a
+``QuantNifModel``'s int8 chain (K5, ``_quant_mlp_core``: s8 slices under
+the 64-byte swizzle, with its multipliers from ``wgmma_scales``).  K3
+runs the same chains (ops/megastep.py), K8 too (probes/quant.py); the
+bf16 ``mma.sync`` chain of ``nif_dev.cuh`` (``kernel_operands``,
+``net_struct``) serves the probe K6 alone.
 Each wrapper launches its kernel for CUDA tensors and runs its ``*_plain``
-version for CPU tensors; a bf16 shape the ``wgmma`` chain cannot take
-raises (``wgmma_plan``).
+version for CPU tensors; a shape the ``wgmma`` chain cannot take raises
+(``wgmma_plan``), and the launchers take a ``NifWg`` only (``wg_arg``).
 """
 
 from __future__ import annotations
@@ -44,44 +45,40 @@ def _cached(model: NifModel, attr: str, tensors, build):
     return cached[1]
 
 
-def _pack(model: NifModel, dtype: torch.dtype, k_mult: int) -> list[tuple]:
-    """Per layer (packed weights, k_trunk, k_pad): (round8(out), k_pad)
-    rows, one per output - the trunk inputs zero-padded to k_trunk =
-    round(trunk, k_mult), then (skip layer) the Fourier-feature inputs
-    zero-padded to k_mult on their own.  Zero padding leaves every dot
-    product unchanged."""
-    feat = 4 * model.embedding_dim
-    out = []
-    for (fan_in, fan_out, skip), w in zip(model.layer_plan(), model.kernels):
-        trunk = fan_in - feat if skip else fan_in
-        k_trunk = _round(trunk, k_mult)
-        k_pad = k_trunk + (_round(feat, k_mult) if skip else 0)
-        packed = torch.zeros((_round(fan_out, 8), k_pad), dtype=dtype, device=w.device)
-        packed[:fan_out, :trunk] = w[:trunk].t()
-        if skip:
-            packed[:fan_out, k_trunk:k_trunk + feat] = w[trunk:].t()
-        out.append((packed, k_trunk, k_pad))
-    return out
-
-
 def kernel_operands(model: NifModel) -> list[tuple[torch.Tensor, torch.Tensor, int, int]]:
-    """bf16 ``mma.sync`` chain (K6, K8), per layer (packed weights, f32
-    bias, k_trunk, k_pad): bf16 rows with K padded to 16 - the B-fragment
-    layout of csrc/nif_dev.cuh::nif_layers.  Cached on the model."""
+    """bf16 ``mma.sync`` chain (the probe K6), per layer (packed weights, f32
+    bias, k_trunk, k_pad): (round8(out), k_pad) bf16 rows, one per output -
+    the trunk inputs zero-padded to k_trunk = round(trunk, 16), then (skip
+    layer) the Fourier-feature inputs zero-padded to 16 on their own - the
+    B-fragment layout of csrc/nif_dev.cuh::nif_layers.  Zero padding leaves
+    every dot product unchanged.  Cached on the model."""
     def build():
-        return [(packed, b.float().contiguous(), k_trunk, k_pad) for (packed, k_trunk, k_pad), b
-                in zip(_pack(model, torch.bfloat16, 16), model.biases)]
+        feat = 4 * model.embedding_dim
+        out = []
+        for (fan_in, fan_out, skip), w, b in zip(model.layer_plan(), model.kernels,
+                                                 model.biases):
+            trunk = fan_in - feat if skip else fan_in
+            k_trunk = _round(trunk, 16)
+            k_pad = k_trunk + (_round(feat, 16) if skip else 0)
+            packed = torch.zeros((_round(fan_out, 8), k_pad), dtype=torch.bfloat16,
+                                 device=w.device)
+            packed[:fan_out, :trunk] = w[:trunk].t()
+            if skip:
+                packed[:fan_out, k_trunk:k_trunk + feat] = w[trunk:].t()
+            out.append((packed, b.float().contiguous(), k_trunk, k_pad))
+        return out
 
     return _cached(model, "_kernel_operands", model.kernels, build)
 
 
 # The wgmma chain's fixed shapes (csrc/nif_wgmma.cuh).
 WG_RAYS = 128  # kWgRays: rays per tile
-WG_ATOM = 64  # K values of a slice and of an activation atom: one 128-byte row
-WG_ATOM_BYTES = WG_RAYS * 2 * WG_ATOM  # kWgAtomBytes
+WG_ATOM = 64  # K values of a slice row and of an activation atom
+WG_ATOM_BYTES = WG_RAYS * 2 * WG_ATOM  # kWgAtomBytes of the bf16 chain (128-byte rows)
 WG_CHUNK = 64  # wgmma N of a hidden layer's output chunk
 WG_MAX_CHUNKS = 5  # kWgMaxChunks: hidden widths up to 320
-WG_HEAD_ROWS = 8  # wgmma N of the head: 3 outputs padded to 8
+WG_HEAD_ROWS = 8  # wgmma N of the head: outputs padded to 8
+WG_PASS_ROWS = 128  # kWgPassRows: outputs per pass of the 8-bit skip layer
 WG_MAX_STAGES = 4  # kWgMaxStages
 WG_SMEM_LIMIT = 232_448  # kWgSmemLimit: dynamic shared memory a block may use
 WG_BAR_BYTES = 2 * WG_MAX_STAGES * 8  # full and empty mbarriers
@@ -89,28 +86,33 @@ WG_UV_BYTES = 2 * WG_RAYS * 4  # the tile's (u, v)
 WG_ALIGN = 1024  # slack to align the dynamic shared memory to the swizzle's 1024 B
 
 
-def wgmma_plan(model: NifModel, tail_bytes: int = WG_UV_BYTES,
+def chain_plan(layer_plan, feat: int, elem: int, tail_bytes: int = WG_UV_BYTES,
                what: str = "the wgmma chain") -> dict:
     """The ``wgmma`` chain's layers and shared-memory plan
-    (csrc/nif_wgmma.cuh): per layer its weight rows (a hidden layer's
-    outputs rounded up to 64-wide chunks, the head's to 8), its trunk
-    width and its 64-input K-slices from the activations (``in_atoms``)
-    and from the Fourier features (``f_atoms``: layer 0 and the skip
-    layer); then the block's bytes - activation and feature atoms, ring
-    stages of the largest slice (as many as fit, at most 4), barriers,
+    (csrc/nif_wgmma.cuh) for ``layer_plan`` [(fan_in, fan_out, skip)] over
+    ``feat`` feature columns, in ``elem``-byte operands (2: bf16, 1: s8):
+    per layer its weight rows (a hidden layer's outputs rounded up to
+    64-wide chunks, the head's to 8), its trunk width, its 64-input
+    K-slices from the activations (``in_atoms``) and from the features
+    (``f_atoms``: layer 0 and the skip layer), its ``passes`` (the 8-bit
+    skip layer's two dots run over WG_PASS_ROWS outputs at a time, each
+    pass reading those rows of every slice); then the block's bytes -
+    activation and feature atoms (128 rows of 64 * elem bytes), the codes
+    of the skip layer's passes but the last (``smem_codes``), ring stages
+    of the largest slice (as many as fit, at most 4), barriers,
     ``tail_bytes`` from ``smem_uv`` on (K2 and K4: the tile's (u, v); K3:
     ops/megastep.megastep_wg_plan), alignment - with each piece's offset.
     Raises ValueError, naming the limit, for a shape the chain cannot take
     (``what`` names the kernel in the shared-memory message)."""
-    plan = model.layer_plan()
-    if len(plan) > _lib.NIF_MAX_LAYERS:
-        raise ValueError(f"NIF has {len(plan)} layers; the kernel takes at most "
+    if len(layer_plan) > _lib.NIF_MAX_LAYERS:
+        raise ValueError(f"NIF has {len(layer_plan)} layers; the kernel takes at most "
                          f"{_lib.NIF_MAX_LAYERS}")
-    feat = 4 * model.embedding_dim
+    row_bytes = WG_ATOM * elem
+    atom_bytes = WG_RAYS * row_bytes
     f_atoms = -(-feat // WG_ATOM)
     layers = []
-    for i, (fan_in, fan_out, skip) in enumerate(plan):
-        if i == len(plan) - 1:
+    for i, (fan_in, fan_out, skip) in enumerate(layer_plan):
+        if i == len(layer_plan) - 1:
             if fan_out > WG_HEAD_ROWS:
                 raise ValueError(f"NIF head has {fan_out} outputs; the wgmma chain's head "
                                  f"takes at most {WG_HEAD_ROWS}")
@@ -125,11 +127,14 @@ def wgmma_plan(model: NifModel, tail_bytes: int = WG_UV_BYTES,
         layers.append(dict(fan_in=fan_in, fan_out=fan_out, trunk=trunk, rows=rows, chunks=chunks,
                            in_atoms=-(-trunk // WG_ATOM),
                            f_atoms=f_atoms if i == 0 or skip else 0,
-                           slice_bytes=rows * 2 * WG_ATOM))
+                           passes=-(-chunks // 2) if elem == 1 and i and skip and chunks else 1,
+                           slice_bytes=rows * row_bytes))
     act_atoms = max([lay["chunks"] for lay in layers] + [0])
     stage_bytes = max(lay["slice_bytes"] for lay in layers)
-    smem_feat = act_atoms * WG_ATOM_BYTES
-    smem_ring = smem_feat + f_atoms * WG_ATOM_BYTES
+    codes = WG_RAYS * WG_PASS_ROWS * (max(lay["passes"] for lay in layers) - 1)
+    smem_feat = act_atoms * atom_bytes
+    smem_codes = smem_feat + f_atoms * atom_bytes
+    smem_ring = smem_codes + -(-codes // WG_ALIGN) * WG_ALIGN
     fixed = smem_ring + WG_BAR_BYTES + tail_bytes + WG_ALIGN
     stages = min(WG_MAX_STAGES, (WG_SMEM_LIMIT - fixed) // stage_bytes)
     if stages < 2:
@@ -137,125 +142,169 @@ def wgmma_plan(model: NifModel, tail_bytes: int = WG_UV_BYTES,
                          f"ring stages of {stage_bytes} B; a block has {WG_SMEM_LIMIT}")
     smem_bar = smem_ring + stages * stage_bytes
     smem_uv = smem_bar + WG_BAR_BYTES
-    return dict(layers=layers, act_atoms=act_atoms, feat_atoms=f_atoms, stages=stages,
-                stage_bytes=stage_bytes, smem_feat=smem_feat, smem_ring=smem_ring,
-                smem_bar=smem_bar, smem_uv=smem_uv,
+    return dict(layers=layers, elem=elem, act_atoms=act_atoms, feat_atoms=f_atoms, stages=stages,
+                stage_bytes=stage_bytes, smem_feat=smem_feat, smem_codes=smem_codes,
+                smem_ring=smem_ring, smem_bar=smem_bar, smem_uv=smem_uv,
                 smem_bytes=smem_uv + tail_bytes + WG_ALIGN)
 
 
-def swizzle128(x: torch.Tensor) -> torch.Tensor:
+def _elem(model: NifModel) -> int:
+    """Operand bytes of the model's chain: 1 int8, 2 bf16; other types raise."""
+    if isinstance(model, QuantNifModel):
+        return 1
+    if model.dtype != torch.bfloat16:
+        raise ValueError(f"the wgmma chains run bf16 or int8 weights; model is {model.dtype}")
+    return 2
+
+
+def wgmma_plan(model: NifModel, tail_bytes: int = WG_UV_BYTES,
+               what: str = "the wgmma chain") -> dict:
+    """``chain_plan`` of the model: its layers, its 4E Fourier features,
+    its chain's operand width (bf16 or, for a QuantNifModel, int8)."""
+    return chain_plan(model.layer_plan(), 4 * model.embedding_dim, _elem(model), tail_bytes, what)
+
+
+def swizzle(x: torch.Tensor) -> torch.Tensor:
     """(rows, 64 * atoms) -> (atoms, rows, 64): each 64-column atom in the
-    K-major 128-byte-swizzle image that ``wgmma`` reads, 8-element (16-byte)
-    chunk c of row r at chunk c ^ (r % 8).  The permutation is its own
-    inverse within an atom."""
+    K-major swizzle image that ``wgmma`` reads - a row of 64 values is 128
+    bytes of bf16 (128-byte swizzle: 16-byte chunk c of row r at chunk
+    c ^ (r % 8)) or 64 bytes of int8 (64-byte swizzle: chunk c at
+    c ^ ((r // 2) % 4)).  The permutation is its own inverse within an
+    atom."""
     rows, atoms = x.shape[0], x.shape[1] // WG_ATOM
-    chunks = x.reshape(rows, atoms, 8, 8).permute(1, 0, 2, 3)
+    per = 16 // x.element_size()  # values per 16-byte chunk
+    n = WG_ATOM // per  # chunks per row: 8 or 4
+    chunks = x.reshape(rows, atoms, n, per).permute(1, 0, 2, 3)
     r = torch.arange(rows, device=x.device)
-    idx = torch.arange(8, device=x.device)[None, :] ^ (r[:, None] % 8)
-    return torch.gather(chunks, 2, idx[None, :, :, None].expand(atoms, rows, 8, 8)).reshape(
+    idx = torch.arange(n, device=x.device)[None, :] ^ ((r[:, None] // (8 // n)) % n)
+    return torch.gather(chunks, 2, idx[None, :, :, None].expand(atoms, rows, n, per)).reshape(
         atoms, rows, WG_ATOM)
 
 
+def chain_slices(lay: dict, wt: torch.Tensor) -> torch.Tensor:
+    """One layer's (out, in) weights as ``chain_plan``'s K-slices, back to
+    back in the order the kernel reads them - trunk inputs, then (layer 0
+    and the skip layer) the feature inputs - each (rows, 64) in the swizzle
+    image of its type, zero past fan-in and fan-out.  One slice is one
+    bulk copy into the ring."""
+    parts = []
+    for lo, hi, atoms in ((0, lay["trunk"], lay["in_atoms"]),
+                          (lay["trunk"], lay["fan_in"], lay["f_atoms"])):
+        if atoms:
+            x = wt.new_zeros((lay["rows"], atoms * WG_ATOM))
+            x[:lay["fan_out"], :hi - lo] = wt[:, lo:hi]
+            parts.append(swizzle(x))
+    return torch.cat(parts).contiguous()
+
+
+def pad_rows(v: torch.Tensor, rows: int) -> torch.Tensor:
+    """An (out,) per-output vector as f32 (rows,), zeros past out."""
+    out = torch.zeros(rows, dtype=torch.float32, device=v.device)
+    out[:v.shape[0]] = v.reshape(-1).float()
+    return out
+
+
 def wgmma_operands(model: NifModel) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """bf16 ``wgmma`` chain (K2, K3, K4), per layer (slices, f32 bias): the
-    layer's (out, in) weights as ``wgmma_plan``'s K-slices, back to back in
-    the order the kernel reads them - trunk inputs, then (layer 0 and the
-    skip layer) the Fourier-feature inputs - each (rows, 64) in the
-    128-byte-swizzle image, zero past fan-in and fan-out; the bias padded
-    with zeros to the rows.  One slice is one bulk copy into the ring.
-    Cached on the model."""
+    """The ``wgmma`` chain's operands (K2, K3, K4), per layer (slices, f32
+    bias): ``chain_slices`` of the layer's (out, in) weights - bf16, or a
+    QuantNifModel's int8 codes - and the bias padded with zeros to the
+    rows.  Cached on the model."""
     def build():
-        out = []
-        for lay, w, b in zip(wgmma_plan(model)["layers"], model.kernels, model.biases):
-            wt = w.t()
-            parts = []
-            for lo, hi, atoms in ((0, lay["trunk"], lay["in_atoms"]),
-                                  (lay["trunk"], lay["fan_in"], lay["f_atoms"])):
-                if atoms:
-                    x = wt.new_zeros((lay["rows"], atoms * WG_ATOM))
-                    x[:lay["fan_out"], :hi - lo] = wt[:, lo:hi]
-                    parts.append(swizzle128(x))
-            bias = torch.zeros(lay["rows"], dtype=torch.float32, device=b.device)
-            bias[:lay["fan_out"]] = b.float()
-            out.append((torch.cat(parts).contiguous(), bias))
-        return out
+        return [(chain_slices(lay, w.t()), pad_rows(b, lay["rows"]))
+                for lay, w, b in zip(wgmma_plan(model)["layers"], model.kernels, model.biases)]
 
     return _cached(model, "_wgmma_operands", model.kernels + model.biases, build)
 
 
-def wg_struct(model: NifModel, plan: dict | None = None) -> _lib.NifWg:
-    """The ``wgmma`` kernels' view of a bf16 model: the plan (K2 and K4's
-    ``wgmma_plan`` unless given; K3 passes its own) and pointers to the
-    slices and biases (kept alive by the model's cache)."""
-    if model.dtype != torch.bfloat16:
-        raise ValueError(f"the wgmma chain runs bf16 weights; model is {model.dtype}")
-    plan = plan or wgmma_plan(model)
+def wgmma_scales(model: QuantNifModel) -> tuple[list[torch.Tensor], torch.Tensor, list]:
+    """The int8 chain's multipliers as the kernel reads them: per layer the
+    accumulator multipliers, and the skip layer's feature-dot ones, each
+    padded with zeros to the layer's rows (a padded output computes 0);
+    and the quant steps ``inv_next`` as host floats (read from the device
+    once, not at every launch).  Cached on the model."""
+    def build():
+        layers = wgmma_plan(model)["layers"]
+        skip = model.skip_layer
+        return ([pad_rows(m, lay["rows"]) for lay, m in zip(layers, model.mults)],
+                pad_rows(model.mult_skip,
+                         layers[skip]["rows"] if skip >= 0 else model.mult_skip.shape[0]),
+                model.inv_next.tolist())
+
+    return _cached(model, "_wgmma_scales", model.mults + [model.mult_skip, model.inv_next],
+                   build)
+
+
+def wg_net(plan: dict, operands, embed_dim: int, log_flag: bool, max_v: float, mean,
+           scales=None) -> _lib.NifWg:
+    """A NifWg of ``plan`` over ``operands`` [(slices, bias)] - and for the
+    8-bit chain (``plan["elem"] == 1``) ``scales``: the per-layer
+    multipliers, the skip multipliers and the per-layer quant steps - with
+    the decode's constants.  The tensors must outlive the launches."""
     net = _lib.NifWg()
     net.num_layers = len(plan["layers"])
-    net.embed_dim = model.embedding_dim
-    net.log_flag = int(model.log_tone_map)
+    net.embed_dim = embed_dim
+    net.log_flag = int(log_flag)
     for key in ("stages", "stage_bytes", "feat_atoms", "smem_feat", "smem_ring", "smem_bar",
-                "smem_uv", "smem_bytes"):
+                "smem_uv", "smem_bytes", "smem_codes"):
         setattr(net, key, plan[key])
-    for i, (lay, (w, b)) in enumerate(zip(plan["layers"], wgmma_operands(model))):
-        for key in ("chunks", "in_atoms", "f_atoms", "slice_bytes"):
+    for i, (lay, (w, b)) in enumerate(zip(plan["layers"], operands)):
+        for key in ("chunks", "in_atoms", "f_atoms", "slice_bytes", "passes"):
             getattr(net, key)[i] = lay[key]
         net.w[i], net.b[i] = w.data_ptr(), b.data_ptr()
-    net.max_v = model.max
+    net.max_v = max_v
     for c in range(3):
-        net.mean[c] = model.mean[c]
+        net.mean[c] = mean[c]
+    net.int8 = int(plan["elem"] == 1)
+    if net.int8:
+        mults, mult_skip, inv_next = scales
+        for i, (m, inv) in enumerate(zip(mults, inv_next)):
+            net.mult[i], net.inv_next[i] = m.data_ptr(), inv
+        net.mult_skip = mult_skip.data_ptr()
     return net
 
 
-def _kernel_nets(model: NifModel) -> tuple:
-    """(NifNet, NifWg) arguments of K2 and K4: an int8 model's NifNet or a
-    bf16 model's NifWg, the other None."""
-    if isinstance(model, QuantNifModel):
-        return ctypes.byref(net_struct(model)), None
-    return None, ctypes.byref(wg_struct(model))
+def wg_struct(model: NifModel, plan: dict | None = None) -> _lib.NifWg:
+    """The ``wgmma`` kernels' view of a bf16 or int8 model: the plan (K2 and
+    K4's ``wgmma_plan`` unless given; K3 passes its own) and pointers to
+    the slices, biases and (int8) multipliers, kept alive by the model's
+    cache."""
+    _elem(model)  # bf16 or int8
+    plan = plan or wgmma_plan(model)
+    return wg_net(plan, wgmma_operands(model), model.embedding_dim, model.log_tone_map,
+                  model.max, model.mean,
+                  wgmma_scales(model) if isinstance(model, QuantNifModel) else None)
 
 
-def quant_kernel_operands(model: QuantNifModel) -> list[tuple]:
-    """int8 chain, per layer (packed int8 weights, f32 bias, f32 mults,
-    k_trunk, k_pad): int8 rows with K padded to 32, the s8 ``mma.sync``'s
-    K (and the TPU's int8 tile; ops/nif_pallas.py::pack_quant_operands),
-    the skip layer's trunk and feature columns padded separately because
-    they are two dots with two multipliers.  Cached on the model."""
-    def build():
-        return [(packed, b.contiguous(), m.contiguous(), k_trunk, k_pad)
-                for (packed, k_trunk, k_pad), b, m
-                in zip(_pack(model, torch.int8, 32), model.biases, model.mults)]
-
-    return _cached(model, "_quant_kernel_operands", model.kernels + model.mults, build)
+def wg_arg(net) -> ctypes._CArgObject:
+    """The NIF kernels' chain argument: a NifWg (``wg_struct``).  A NifNet,
+    the ``mma.sync`` chains' struct that K2, K3 and K4 no longer run, or
+    anything else raises."""
+    if not isinstance(net, _lib.NifWg):
+        raise ValueError(f"the NIF kernels take a NifWg (the wgmma chain), not a "
+                         f"{type(net).__name__}")
+    return ctypes.byref(net)
 
 
 def net_struct(model: NifModel) -> _lib.NifNet:
-    """The kernel's view of the model: per-layer shapes, skip flags and
-    pointers to the packed operands (kept alive by the model's cache)."""
+    """The ``mma.sync`` chain's view of a bf16 model (the probe K6):
+    per-layer shapes, skip flags and pointers to the packed operands (kept
+    alive by the model's cache).  The int8 chain runs on ``wgmma`` only."""
     plan = model.layer_plan()
     if len(plan) > _lib.NIF_MAX_LAYERS:
         raise ValueError(f"NIF has {len(plan)} layers; the kernel takes at most "
                          f"{_lib.NIF_MAX_LAYERS}")
-    quant = isinstance(model, QuantNifModel)
-    if not quant and model.dtype != torch.bfloat16:
-        raise ValueError(f"the NIF kernels run the bf16 or the int8 chain; model is "
-                         f"{model.dtype}")
+    if isinstance(model, QuantNifModel):
+        raise ValueError("the int8 chain runs on wgmma only (wg_struct); the mma.sync chain "
+                         "takes bf16 weights")
+    if model.dtype != torch.bfloat16:
+        raise ValueError(f"the mma.sync chain runs bf16 weights; model is {model.dtype}")
     net = _lib.NifNet()
     net.num_layers = len(plan)
     net.embed_dim = model.embedding_dim
     net.max_width = max([1] + [fo for _, fo, _ in plan[:-1]])
     net.log_flag = int(model.log_tone_map)
-    net.int8 = int(quant)
-    if quant:
-        ops = quant_kernel_operands(model)
-        net.mult_skip = model.mult_skip.data_ptr()
-        for i, ((_, _, m, _, _), inv) in enumerate(zip(ops, model.inv_next.tolist())):
-            net.mult[i] = m.data_ptr()
-            net.inv_next[i] = inv
-        ops = [(w, b, k_trunk, k_pad) for w, b, _, k_trunk, k_pad in ops]
-    else:
-        ops = kernel_operands(model)
-    for i, ((fan_in, fan_out, skip), (w, b, k_trunk, k_pad)) in enumerate(zip(plan, ops)):
+    for i, ((fan_in, fan_out, skip), (w, b, k_trunk, k_pad)) in enumerate(
+            zip(plan, kernel_operands(model))):
         net.fan_in[i], net.fan_out[i], net.skip[i] = fan_in, fan_out, int(skip)
         net.k_trunk[i], net.k_pad[i] = k_trunk, k_pad
         net.w[i], net.b[i] = w.data_ptr(), b.data_ptr()
@@ -307,7 +356,7 @@ def nif_apply_t(model: NifModel, u: torch.Tensor, v: torch.Tensor) -> torch.Tens
     if v.shape != (n,):
         raise ValueError("nif apply: u and v must be (P,)")
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    err = _lib.library().pt_nif_apply(*_kernel_nets(model), _lib.ptr(u), _lib.ptr(v), n,
+    err = _lib.library().pt_nif_apply(wg_arg(wg_struct(model)), _lib.ptr(u), _lib.ptr(v), n,
                                       _lib.ptr(out), _lib.stream(dev))
     _lib.check(err, "nif apply")
     nif_apply_t.launches += 1
@@ -342,8 +391,9 @@ def nif_env_shade(model: NifModel, esc_dir: Vec3, esc_w: Vec3, azimuth: float) -
     dev = _lib.require_cuda("env shade", escd, escw, *model_tensors(model))
     n = escd.shape[1]
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    err = _lib.library().pt_env_shade(*_kernel_nets(model), _lib.ptr(escd), _lib.ptr(escw),
-                                      float(azimuth), n, _lib.ptr(out), _lib.stream(dev))
+    err = _lib.library().pt_env_shade(wg_arg(wg_struct(model)), _lib.ptr(escd),
+                                      _lib.ptr(escw), float(azimuth), n, _lib.ptr(out),
+                                      _lib.stream(dev))
     _lib.check(err, "env shade")
     nif_env_shade.launches += 1
     return Vec3.unstack(out)

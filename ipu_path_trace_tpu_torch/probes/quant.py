@@ -22,20 +22,24 @@ gives NaN past 464 (PyTorch saturates at 448), f32 -> int8 truncates
 toward zero and saturates (PyTorch wraps); ``to_e4m3`` and ``to_int8``
 say so in code.
 
-Each variant has a plain PyTorch version (``probe_plain``) and one kernel
-family, ``csrc/quant_probe.cu``, templated on the variant; the wrapper
-``quant_probe`` launches the kernel for CUDA operands and runs the plain
-version for CPU ones, and counts its launches per variant.  The host side
-(``build_operands``) is the script's numpy, so the operands equal
-``build_call``'s byte for byte.
+Each variant has a plain PyTorch version (``probe_plain``) and a kernel in
+``csrc/quant_probe.cu``, templated on the variant: bf16 and the three int8
+variants on the ``wgmma`` chains of ``csrc/nif_wgmma.cuh`` (the slices of
+``ops/nif.chain_slices``), fp8_e4m3 and fp8_raw on the ``mma.sync``
+fragments of ``csrc/nif_dev.cuh`` (on sm_90 those run as f16 HMMA, not the
+card's fp8 path).  The wrapper ``quant_probe`` launches the kernel for
+CUDA operands and runs the plain version for CPU ones, and counts its
+launches per variant.  The host side (``build_operands``) is the
+script's numpy, so the operands equal ``build_call``'s byte for byte.
 
     python -m ipu_path_trace_tpu_torch.probes.quant [--variants ...] [--iters N]
 
 times each variant on the card and prints the script's lines
 (ms per 1,105,920-ray sample, relative error against the f32 chain,
-speedup against bf16), then one JSON line of them with the card's
-nvidia-smi name and power limit.  The script's ``docs/QUANT.json`` is not
-written: the JSON line on stdout takes its place.
+speedup against bf16; the fp8 lines say that they still run mma.sync),
+then one JSON line of them with the card's nvidia-smi name and power
+limit.  The script's ``docs/QUANT.json`` is not written: the JSON line
+on stdout takes its place.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 
 from ..ops import _lib
+from ..ops.nif import chain_plan, chain_slices, pad_rows, wg_arg, wg_net
 from ..utils.devtime import card_line, time_per_call
 
 WIDTH, HEIGHT = 1104, 1000
@@ -167,7 +172,7 @@ class ProbeOperands:
     scal: torch.Tensor | None = None
     mults: list[torch.Tensor] | None = None
     mult_f: torch.Tensor | None = None
-    # The kernel's NifNet and the tensors it points to (_kernel_net).
+    # The kernel's NifWg or NifNet and the tensors it points to (_kernel_net).
     _net: tuple | None = dataclasses.field(default=None, init=False, repr=False,
                                            compare=False)
 
@@ -327,46 +332,74 @@ def probe_plain(ops: ProbeOperands) -> torch.Tensor:
 
 # ------------------------------------------------------------- kernel ----
 
-def _kernel_net(ops: ProbeOperands) -> _lib.NifNet:
-    """The kernel's view of the operands (csrc/quant_probe.cu): a NifNet
-    with (round8(out), K) weight rows, (out,) biases and, for the narrow
-    variants, (out,) accumulator multipliers (the scalar m_i repeated
-    where the script has one), the skip dot's multipliers and the quant
-    steps.  Built once and cached on ``ops`` with the tensors it points to."""
+def _scales(ops: ProbeOperands) -> tuple[list, torch.Tensor | None, list | None]:
+    """The narrow variants' (out,) accumulator multipliers per layer (the
+    scalar m_i repeated where the script has one), the skip dot's (out,)
+    multipliers and the quant steps; bf16 has none."""
+    if ops.scal is None:
+        return [None] * len(ops.weights), None, None
+    scal = ops.scal.tolist()
+    perchan = ops.variant == "int8_perchan"
+    dev = ops.device
+    mults = [ops.mults[i].reshape(-1) if perchan else torch.full((w.shape[0],), scal[3 * i],
+                                                                  device=dev)
+             for i, w in enumerate(ops.weights)]
+    mf = (ops.mult_f.reshape(-1) if perchan
+          else torch.full((HIDDEN,), scal[3 * SKIP + 2], device=dev))
+    return mults, mf, [scal[3 * i + 1] for i in range(len(ops.weights))]
+
+
+def probe_plan(ops: ProbeOperands) -> dict:
+    """The wgmma chain's plan of the bf16 and int8 variants
+    (ops/nif.chain_plan): the script's layers over its 48 (bf16) or 64
+    (int8, zero padded) feature rows."""
+    dims = [(k, out, i == SKIP) for i, (out, k) in enumerate(w.shape for w in ops.weights)]
+    return chain_plan(dims, ops.feats.shape[0], 1 if ops.variant.startswith("int8") else 2,
+                      what=f"the precision probe's {ops.variant} chain")
+
+
+def _kernel_net(ops: ProbeOperands):
+    """The kernel's view of the operands (csrc/quant_probe.cu), built once
+    and cached on ``ops`` with the tensors it points to: for bf16 and the
+    int8 variants a NifWg of ``probe_plan`` (the weights as swizzled
+    slices, biases and (int8) multipliers padded to the rows, the decode
+    y * 1 + 0); for fp8 a NifNet with (round8(out), K) e4m3 weight rows,
+    (out,) biases and multipliers, the skip dot's multipliers and the
+    quant steps."""
     if ops._net is not None:
         return ops._net[0]
-    dev = ops.device
-    scal = None if ops.scal is None else ops.scal.tolist()
-    keep = []
+    mults, mf, inv = _scales(ops)
+    biases = [b.reshape(-1).float().contiguous() for b in ops.biases]
+    if not ops.variant.startswith("fp8"):
+        plan = probe_plan(ops)
+        operands = [(chain_slices(lay, w), pad_rows(b, lay["rows"]))
+                    for lay, w, b in zip(plan["layers"], ops.weights, biases)]
+        scales = None
+        if plan["elem"] == 1:
+            scales = ([pad_rows(m, lay["rows"]) for lay, m in zip(plan["layers"], mults)],
+                      pad_rows(mf, HIDDEN), inv)
+        net = wg_net(plan, operands, EMBED, False, 1.0, (0.0, 0.0, 0.0), scales)
+        ops._net = (net, (operands, scales))
+        return net
     net = _lib.NifNet()
     net.num_layers = len(ops.weights)
     net.embed_dim = EMBED
     net.max_width = HIDDEN
-    net.int8 = int(ops.variant != "bf16")  # ray-major 8-bit activations
+    net.int8 = 1  # ray-major 8-bit activations
     feat_rows = ops.feats.shape[0]
-    for i, (w, b) in enumerate(zip(ops.weights, ops.biases)):
+    keep = [*mults, mf]
+    for i, (w, b, m) in enumerate(zip(ops.weights, biases, mults)):
         out, k = w.shape
-        if out % 8:  # the bf16 head: 3 rows of 8, zeros below
-            w = torch.cat([w, w.new_zeros((8 - out % 8, k))])
-        w, b = w.contiguous(), b.reshape(-1).float().contiguous()
+        w = w.contiguous()
         net.fan_in[i], net.fan_out[i] = k, out
         net.skip[i] = int(i == SKIP)
         net.k_trunk[i] = k - feat_rows if i == SKIP else k
         net.k_pad[i] = k
-        net.w[i], net.b[i] = w.data_ptr(), b.data_ptr()
+        net.w[i], net.b[i], net.mult[i] = w.data_ptr(), b.data_ptr(), m.data_ptr()
+        net.inv_next[i] = inv[i]
         keep += [w, b]
-        if scal is not None:
-            m = (ops.mults[i].reshape(-1).contiguous() if ops.variant == "int8_perchan"
-                 else torch.full((out,), scal[3 * i], device=dev))
-            net.mult[i] = m.data_ptr()
-            net.inv_next[i] = scal[3 * i + 1]
-            keep.append(m)
-    if scal is not None:
-        mf = (ops.mult_f.reshape(-1).contiguous() if ops.variant == "int8_perchan"
-              else torch.full((HIDDEN,), scal[3 * SKIP + 2], device=dev))
-        net.mult_skip = mf.data_ptr()
-        keep.append(mf)
-    net.max_v = 1.0  # the bf16 chain's decode, y * 1 + 0, leaves y as it is
+    net.mult_skip = mf.data_ptr()
+    net.max_v = 1.0
     ops._net = (net, keep)
     return net
 
@@ -391,11 +424,13 @@ def quant_probe(ops: ProbeOperands) -> torch.Tensor:
     if ops.device.type == "cpu":
         return probe_plain(ops)
     dev = _lib.require_cuda(f"quant probe {ops.variant}", ops.feats, *ops.weights, *ops.biases)
-    n = ops.feats.shape[1]
+    rows, n = ops.feats.shape
     net = _kernel_net(ops)
+    nets = ((ctypes.byref(net), None) if ops.variant.startswith("fp8")
+            else (None, wg_arg(net)))
     out = torch.empty((3 if ops.variant == "bf16" else 8, n), dtype=torch.float32, device=dev)
-    err = _lib.library().pt_quant_probe(ctypes.byref(net), VARIANTS.index(ops.variant),
-                                        _lib.ptr(ops.feats), n, _lib.ptr(out),
+    err = _lib.library().pt_quant_probe(*nets, VARIANTS.index(ops.variant),
+                                        _lib.ptr(ops.feats), rows, n, _lib.ptr(out),
                                         _lib.stream(dev))
     _lib.check(err, f"quant probe {ops.variant}")
     quant_probe.launches[ops.variant] += 1
@@ -447,8 +482,11 @@ def main(argv=None) -> dict:
         if base_ms:
             entry["speedup_vs_bf16"] = base_ms / ms
         results["variants"][variant] = entry
+        if variant.startswith("fp8"):  # not the card's fp8 rate: say so beside the ratio
+            entry["chain"] = "mma.sync e4m3 (runs as f16 HMMA on sm_90, not QGMMA)"
         print(f"{variant}: {ms:.3f} ms/sample  rel_err={rel:.2e}"
-              + (f"  ({base_ms / ms:.2f}x bf16)" if base_ms else ""), flush=True)
+              + (f"  ({base_ms / ms:.2f}x bf16)" if base_ms else "")
+              + (f"  [{entry['chain']}]" if "chain" in entry else ""), flush=True)
     print(json.dumps({"quant_probe": results["variants"], "card": card}), flush=True)
     return results
 

@@ -233,11 +233,10 @@ def dead_block_fraction(scene: Scene, settings: RenderSettings, cfg: StaticConfi
     """Fraction of ``block_size``-lane blocks of the worklist whose escape
     weights are all zero, averaged over ``n_samples`` Philox samples: the
     criterion of the megastep's env-skip guard, at its granularity for
-    the model's chain (ops/megastep.env_skip_tile: the bf16 kernel's
-    128-ray wgmma tile, the int8 kernel's 64-ray sub-tile; both tile the
-    worklist from lane 0).  The trace is ops/trace.trace_sample:
-    the kernel on CUDA (which equals its plain version bit for bit), the
-    plain version on the CPU.  The ragged tail counts as escaping
+    the model's chain (ops/megastep.ENV_SKIP_TILE: the 128-ray wgmma tile
+    of both chains, which tiles the worklist from lane 0).  The trace is
+    ops/trace.trace_sample: the kernel on CUDA (which equals its plain
+    version bit for bit), the plain version on the CPU.  The ragged tail counts as escaping
     nothing, as the kernel's masked lanes do."""
     from ..ops.trace import trace_sample
 

@@ -37,7 +37,7 @@ from ..film.imageio import load_hdr_image, save_images
 from ..models.envlight import ConstantEnv, NifEnv, TextureEnv, bake_nif_env
 from ..models.nif import analyse_nif, load_nif_assets
 from ..models.quant import quantize_nif
-from ..ops.megastep import env_skip_tile
+from ..ops.megastep import ENV_SKIP_TILE
 from ..render.adaptive import adaptive_render_step
 from ..render.params import RenderSettings, StaticConfig
 from ..render.wavefront import dead_block_fraction, render_step
@@ -160,8 +160,9 @@ class PathTracerApp:
         AUTO_ENV_SKIP_PROBE_SAMPLES Philox samples over the real ordered
         worklist (K1 on CUDA, its plain version on the CPU), measures the
         fraction of NIF tiles with no escape - the skip guard's own
-        criterion, at the tile of the model's chain (128 rays bf16, 64
-        int8) - and turns the skip on at AUTO_ENV_SKIP_THRESHOLD.  No
+        criterion, at the tile of the model's chain (the 128-ray wgmma
+        tile of both chains) - and turns the skip on at
+        AUTO_ENV_SKIP_THRESHOLD.  No
         probe runs when the fused NIF megastep, the only kernel with the
         skip, will not."""
         cfg = self.cfg
@@ -171,7 +172,7 @@ class PathTracerApp:
             return False
         cols = torch.from_numpy(self.worklist["u"].astype(np.float32)).to(self.device)
         rows = torch.from_numpy(self.worklist["v"].astype(np.float32)).to(self.device)
-        tile = env_skip_tile(self.env.model)  # the skip's tile in this model's kernel
+        tile = ENV_SKIP_TILE  # the skip's tile in the kernel of either chain
         t0 = time.monotonic()
         frac = dead_block_fraction(self.scene, self.settings(), self.static_config(), cols, rows,
                                    step_seed(torch.Generator().manual_seed(cfg.seed)),

@@ -45,6 +45,7 @@ QUICK_FILES = {
     "test_torch_core.py",
     "test_torch_nif.py",
     "test_torch_nif_wgmma.py",
+    "test_torch_int8_wgmma.py",
     "test_torch_trace.py",
     "test_torch_megastep.py",
     "test_torch_app.py",

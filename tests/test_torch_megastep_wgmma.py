@@ -1,5 +1,6 @@
-"""The host side of the bf16 K3 on the wgmma chain (csrc/megastep.cuh
-megastep_wg_kernel), and a CPU model of its tiles against the JAX package.
+"""The host side of K3 on the wgmma chains (csrc/megastep.cuh
+megastep_wg_kernel), and a CPU model of its bf16 tiles against the JAX
+package (the int8 tiles: tests/test_torch_int8_wgmma.py).
 
 The kernel needs an H100 (chip_smoke.py holds it against its plain version
 there and reads HGMMA, no HMMA, in its SASS).  What the CPU checks is what
@@ -12,10 +13,10 @@ the kernel is given and what its geometry computes:
     leave no room for 2 stages raises, naming the limit;
   * the budget contract: a budget block is whole CUDA blocks, and a CUDA
     block two 128-ray wgmma tiles;
-  * the chain selector: a bf16 model's NifWg (with K3's plan), an int8
-    model's NifNet; a bf16 NifNet (the mma.sync chain) is refused;
-  * the env-skip tile: 128 rays for bf16, 64 for int8, as the app's auto
-    probe logs it;
+  * the chain selector: a bf16 model's NifWg and an int8 model's NifWg,
+    each with K3's plan; a NifNet (the mma.sync chains' struct) is refused;
+  * the env-skip tile: 128 rays for both chains, as the app's auto probe
+    logs it;
   * the kernel's arithmetic from its operands - per 256-ray block its
     budget of samples, per sample the trace and then the two 128-ray tiles
     through the chain of the swizzled slices (test_torch_nif_wgmma), a tile
@@ -124,7 +125,7 @@ def test_stages_follow_the_tables(count, stages):
         with pytest.raises(ValueError, match=f"megastep's bf16 chain.*a block has {LIMIT}"):
             megastep.megastep_wg_plan(model, scene)
         with pytest.raises(ValueError, match="shared memory"):  # the launch path: no fallback
-            megastep.kernel_nets(model, scene)
+            megastep.kernel_net(model, scene)
     else:
         assert megastep.megastep_wg_plan(model, scene)["stages"] == stages
 
@@ -133,49 +134,53 @@ def test_budget_and_tile_contract():
     assert megastep.BUDGET_BLOCK % megastep.RAYS_PER_CUDA_BLOCK == 0
     assert megastep.RAYS_PER_CUDA_BLOCK % nif_ops.WG_RAYS == 0
     assert megastep.RAYS_PER_CUDA_BLOCK == 2 * nif_ops.WG_RAYS == 256
-    assert megastep.RAYS_PER_CUDA_BLOCK % megastep.ENV_SKIP_TILE_INT8 == 0
+    assert megastep.RAYS_PER_CUDA_BLOCK % megastep.ENV_SKIP_TILE == 0
 
 
 @pytest.mark.parametrize("asset", BF16_ASSETS)
 def test_kernel_nets_pick_the_chain(asset):
-    """A bf16 model gets a NifWg carrying K3's plan (not K2's); its int8
-    quantization a NifNet; a bf16 NifNet is refused, as is neither or both."""
+    """A bf16 model and its int8 quantization each get a NifWg carrying
+    K3's plan (not K2's) for their chain; the launcher's argument refuses
+    a NifNet (the mma.sync chains' struct) and anything else."""
     model = _load(asset)
-    net, wg = megastep.kernel_nets(model, default_scene())
-    plan = megastep.megastep_wg_plan(model, default_scene())
-    assert net is None and isinstance(wg, _lib.NifWg)
-    assert (wg.stages, wg.smem_bar, wg.smem_uv, wg.smem_bytes) == (
-        plan["stages"], plan["smem_bar"], plan["smem_uv"], plan["smem_bytes"])
-    assert [wg.w[i] for i in range(wg.num_layers)] == [
-        w.data_ptr() for w, _ in nif_ops.wgmma_operands(model)]
-    megastep.check_nets(net, wg)
     _, meta, weights = nif.load_nif_assets(str(ASSETS / asset))
     q8 = quantize_nif(weights, meta)
-    net8, wg8 = megastep.kernel_nets(q8, default_scene())
-    assert wg8 is None and isinstance(net8, _lib.NifNet) and net8.int8 == 1
-    megastep.check_nets(net8, wg8)
-    for bad in ((nif_ops.net_struct(model), None), (None, None), (net8, wg)):
-        with pytest.raises(ValueError, match="megastep"):
-            megastep.check_nets(*bad)
+    for m, int8 in ((model, 0), (q8, 1)):
+        wg = megastep.kernel_net(m, default_scene())
+        plan = megastep.megastep_wg_plan(m, default_scene())
+        assert isinstance(wg, _lib.NifWg) and wg.int8 == int8 and plan["elem"] == 2 - int8
+        assert (wg.stages, wg.smem_bar, wg.smem_uv, wg.smem_bytes) == (
+            plan["stages"], plan["smem_bar"], plan["smem_uv"], plan["smem_bytes"])
+        assert plan["smem_bytes"] != nif_ops.wgmma_plan(m)["smem_bytes"]
+        assert [wg.w[i] for i in range(wg.num_layers)] == [
+            w.data_ptr() for w, _ in nif_ops.wgmma_operands(m)]
+        assert nif_ops.wg_arg(wg)._obj is wg
+    for bad in (nif_ops.net_struct(model), None, (None, wg)):
+        with pytest.raises(ValueError, match="NifWg"):
+            nif_ops.wg_arg(bad)
 
 
 def test_f32_model_is_refused():
     model = nif.load_nif_assets(str(ASSETS / CANONICAL), torch.float32)[0]
     with pytest.raises(ValueError, match="bf16"):
-        megastep.kernel_nets(model, default_scene())
+        megastep.kernel_net(model, default_scene())
 
 
 @pytest.mark.parametrize("asset", BF16_ASSETS)
 def test_env_skip_tile_by_chain(asset):
+    """Both chains run K3's 128-ray wgmma tiles, so the env-skip tile (the
+    guard's granularity, at which the app's auto probe measures) is 128 for
+    either."""
     model = _load(asset)
     _, meta, weights = nif.load_nif_assets(str(ASSETS / asset))
-    assert megastep.env_skip_tile(model) == 128 == nif_ops.WG_RAYS
-    assert megastep.env_skip_tile(quantize_nif(weights, meta)) == 64
+    assert megastep.ENV_SKIP_TILE == nif_ops.WG_RAYS == 128
+    for m in (model, quantize_nif(weights, meta)):
+        assert megastep.kernel_net(m, default_scene()).num_layers == m.num_layers
 
 
 @pytest.mark.parametrize("asset, flags, tile", [
     (CANONICAL, [], 128),
-    ("urban_alley_synth_nif_int8", ["--nif-precision", "int8"], 64),
+    ("urban_alley_synth_nif_int8", ["--nif-precision", "int8"], 128),
 ])
 def test_cli_probe_uses_the_chains_tile(tmp_path, caplog, asset, flags, tile):
     """--env-skip auto measures at the tile of the model's kernel."""

@@ -149,17 +149,19 @@ def test_unsupported_shapes_raise(widths, embed, head, match):
     with pytest.raises(ValueError, match=match):
         nif_ops.wgmma_plan(model)
     with pytest.raises(ValueError, match=match):  # the launch path raises, with no fallback
-        nif_ops._kernel_nets(model)
+        nif_ops.wg_struct(model)
 
 
 def test_kernel_nets_pick_the_chain():
-    """K2/K4 get a bf16 model's NifWg or an int8 model's NifNet, never the
-    bf16 mma.sync NifNet; an f32 model raises."""
+    """K2/K4 get a NifWg for a bf16 model and for an int8 one (its int8
+    flag set), never a NifNet (the mma.sync chains' struct, which the
+    launchers' argument refuses); an f32 model raises."""
     model, meta, weights = nif.load_nif_assets("assets/urban_alley_synth_nif")
-    net, wg = nif_ops._kernel_nets(model)
-    assert net is None and isinstance(wg._obj, _lib.NifWg)
-    net, wg = nif_ops._kernel_nets(quantize_nif(weights, meta))
-    assert wg is None and isinstance(net._obj, _lib.NifNet) and net._obj.int8 == 1
+    for m, int8 in ((model, 0), (quantize_nif(weights, meta), 1)):
+        wg = nif_ops.wg_arg(nif_ops.wg_struct(m))
+        assert isinstance(wg._obj, _lib.NifWg) and wg._obj.int8 == int8
+    with pytest.raises(ValueError, match="NifWg"):
+        nif_ops.wg_arg(nif_ops.net_struct(model))
     with pytest.raises(ValueError, match="bf16"):
         nif_ops.wg_struct(nif.load_nif_assets("assets/urban_alley_synth_nif",
                                               torch.float32)[0])
@@ -172,10 +174,14 @@ def test_wg_struct_layout():
     assert names == ["num_layers", "embed_dim", "log_flag", "stages", "stage_bytes",
                      "feat_atoms", "smem_feat", "smem_ring", "smem_bar", "smem_uv",
                      "smem_bytes", "chunks", "in_atoms", "f_atoms", "slice_bytes", "w", "b",
-                     "max_v", "mean"]
-    # 11 + 4 x 16 ints (300 B), then the pointers at their 8-byte alignment.
+                     "max_v", "mean", "int8", "smem_codes", "passes", "inv_next", "mult",
+                     "mult_skip"]
+    # 11 + 4 x 16 ints (300 B), then the pointers at their 8-byte alignment;
+    # the 8-bit chains' fields follow (2 + 16 ints, 16 floats, then pointers).
     assert (_lib.NifWg.w.offset, _lib.NifWg.b.offset, _lib.NifWg.max_v.offset) == (304, 432, 560)
-    assert ctypes.sizeof(_lib.NifWg) == 576
+    assert (_lib.NifWg.int8.offset, _lib.NifWg.mult.offset, _lib.NifWg.mult_skip.offset) == (
+        576, 712, 840)
+    assert ctypes.sizeof(_lib.NifWg) == 848
     model, _, _ = nif.load_nif_assets("assets/urban_alley_synth_nif")
     net = nif_ops.wg_struct(model)
     plan = nif_ops.wgmma_plan(model)
@@ -188,6 +194,7 @@ def test_wg_struct_layout():
     assert [net.w[i] for i in range(7)] == [w.data_ptr() for w, _ in ops]
     assert [net.b[i] for i in range(7)] == [b.data_ptr() for _, b in ops]
     assert (net.max_v, *net.mean) == (model.max, *model.mean)  # f32 values, stored exactly
+    assert net.int8 == 0 and list(net.passes[:7]) == [1] * 7 and not any(net.mult[:7])
 
 
 def _chain_from_slices(model, u, v):

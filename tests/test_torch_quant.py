@@ -283,42 +283,70 @@ def test_int8_megastep_matches_pallas_interpret(small):
 
 
 def test_net_struct_int8_layout():
-    """The kernel's view of the canonical int8 net: K padded to 32 with
-    the skip layer's trunk and feature columns padded separately."""
+    """The kernels' view of the canonical int8 net is a NifWg (the wgmma
+    chain; the mma.sync NifNet refuses an int8 model): the plan's s8
+    slices, the skip layer in passes of 128 outputs, the multipliers
+    padded to the rows and the activation grids' quant steps."""
     weights, meta, amax = _asset_nif()
     model = quant.quantize_nif(weights, meta, amax=amax)
-    net = nif_ops.net_struct(model)
-    assert (net.int8, net.num_layers, net.embed_dim, net.max_width) == (1, 7, 12, 320)
-    assert list(net.skip[:7]) == [0, 0, 0, 1, 0, 0, 0]
-    assert list(net.k_trunk[:7]) == [64, 320, 320, 320, 320, 320, 320]
-    assert list(net.k_pad[:7]) == [64, 320, 320, 384, 320, 320, 320]
+    with pytest.raises(ValueError, match="wgmma"):
+        nif_ops.net_struct(model)
+    net = nif_ops.wg_struct(model)
+    assert (net.int8, net.num_layers, net.embed_dim, net.stages) == (1, 7, 12, 4)
+    assert list(net.passes[:7]) == [1, 1, 1, 3, 1, 1, 1]
+    assert list(net.slice_bytes[:7]) == [20_480] * 6 + [512]
     np.testing.assert_allclose(list(net.inv_next[:6]), [255.0 / a for a in amax], rtol=1e-6)
-    ops = nif_ops.quant_kernel_operands(model)
-    assert net.w[3] == ops[3][0].data_ptr() and net.mult[3] == ops[3][2].data_ptr()
-    assert net.mult_skip == model.mult_skip.data_ptr()
-    assert nif_ops.quant_kernel_operands(model)[3][0] is ops[3][0]  # cached per model
+    ops = nif_ops.wgmma_operands(model)
+    mults, mult_skip, _ = nif_ops.wgmma_scales(model)
+    assert net.w[3] == ops[3][0].data_ptr() and net.mult[3] == mults[3].data_ptr()
+    assert net.mult_skip == mult_skip.data_ptr()
+    assert torch.equal(mult_skip[:320], model.mult_skip) and mult_skip.shape == (320,)
+    assert torch.equal(mults[6][:3], model.mults[6]) and not mults[6][3:].any()
+    assert nif_ops.wgmma_operands(model)[3][0] is ops[3][0]  # cached per model
     bf16 = nif_ops.net_struct(nif.load_nif_assets("assets/urban_alley_synth_nif")[0])
     assert bf16.int8 == 0 and list(bf16.k_pad[:7]) == [48, 320, 320, 368, 320, 320, 320]
 
 
 @pytest.mark.parametrize("skip_layer", [2, None])
 def test_int8_packing_keeps_every_integer_dot(skip_layer):
-    """Zero-padded (out, in) int8 rows: the padded dots equal the layer's
-    integer dots exactly, trunk and feature groups apart."""
+    """The s8 slices, un-swizzled, are zero-padded (rows, K) int8 rows: the
+    padded dots - trunk slices and feature slices apart, as the kernel's
+    two accumulator sets - equal the layer's integer dots exactly, the
+    padded outputs give zero, and the multipliers and bias are the
+    layer's, padded with zeros."""
     weights, meta = _synthetic(skip_layer=skip_layer, hidden=[40, 64, 24, 56])
     model = quant.quantize_nif(weights, meta, amax=[1.0, 2.0, 3.0, 4.0])
-    feat = 4 * model.embedding_dim
     rng = np.random.default_rng(13)
-    for (fan_in, fan_out, skip), w, (packed, bias, mult, k_trunk, k_pad) in zip(
-            model.layer_plan(), model.kernels, nif_ops.quant_kernel_operands(model)):
-        assert packed.dtype == torch.int8 and packed.shape == (-(-fan_out // 8) * 8, k_pad)
-        assert k_trunk % 32 == 0 and k_pad % 32 == 0
-        trunk = fan_in - feat if skip else fan_in
+    plan = nif_ops.wgmma_plan(model)
+    mults, _, _ = nif_ops.wgmma_scales(model)
+    for lay, w, b, m, (slices, bias), mp in zip(plan["layers"], model.kernels, model.biases,
+                                                model.mults, nif_ops.wgmma_operands(model),
+                                                mults):
+        n_slices = lay["in_atoms"] + lay["f_atoms"]
+        assert slices.dtype == torch.int8 and slices.shape == (n_slices, lay["rows"], 64)
+        flat = torch.from_numpy(_unswizzle8(slices.numpy())).to(torch.int64)
+        fan_in, fan_out, trunk = lay["fan_in"], lay["fan_out"], lay["trunk"]
         x = torch.from_numpy(rng.integers(-128, 128, size=(5, fan_in)).astype(np.int64))
-        x_pad = torch.zeros(5, k_pad, dtype=torch.int64)
-        x_pad[:, :trunk] = x[:, :trunk]
-        x_pad[:, k_trunk:k_trunk + fan_in - trunk] = x[:, trunk:]
-        got = x_pad @ packed.to(torch.int64).t()
+        k_act = 64 * lay["in_atoms"]
+        x_trunk = torch.zeros(5, k_act, dtype=torch.int64)
+        x_trunk[:, :trunk] = x[:, :trunk]
+        x_feat = torch.zeros(5, flat.shape[1] - k_act, dtype=torch.int64)
+        x_feat[:, :fan_in - trunk] = x[:, trunk:]
+        got = x_trunk @ flat[:, :k_act].t() + x_feat @ flat[:, k_act:].t()
         assert torch.equal(got[:, :fan_out], x @ w.to(torch.int64))
         assert torch.all(got[:, fan_out:] == 0)
-        assert bias.dtype == mult.dtype == torch.float32
+        assert lay["passes"] == (-(-lay["chunks"] // 2) if lay["in_atoms"] and lay["f_atoms"]
+                                 else 1)
+        for full, padded in ((b, bias), (m, mp)):
+            assert padded.dtype == torch.float32 and padded.shape == (lay["rows"],)
+            assert torch.equal(padded[:fan_out], full) and not padded[fan_out:].any()
+
+
+def _unswizzle8(image: np.ndarray) -> np.ndarray:
+    """(atoms, rows, 64) int8 image of the 64-byte swizzle -> (rows, 64 *
+    atoms): 16-byte chunk c of row r was stored at chunk c ^ ((r // 2) % 4)."""
+    atoms, rows, _ = image.shape
+    r = np.arange(rows)[:, None]
+    idx = np.arange(4)[None, :] ^ ((r // 2) % 4)
+    chunks = image.reshape(atoms, rows, 4, 16)[:, r, idx, :]
+    return chunks.transpose(1, 0, 2, 3).reshape(rows, atoms * 64)

@@ -32,6 +32,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from ipu_path_trace_tpu_torch.ops import _lib
 from ipu_path_trace_tpu_torch.probes import quant
 
 SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "quant_probe.py"
@@ -181,31 +182,61 @@ def test_int8_cast_matches_jax():
 
 @pytest.mark.parametrize("variant", quant.VARIANTS)
 def test_kernel_operands_layout(variant):
-    """The NifNet the kernel reads: (round8(out), K) weight rows, the skip
-    layer's trunk/feature split, the multipliers and quant steps."""
+    """What the kernel reads.  bf16 and int8 (the wgmma tiles): a NifWg of
+    probe_plan - the script's layers over 48 or 64 feature rows, the skip
+    layer's trunk/feature split, the weights as swizzled slices, the bf16
+    head padded to 8 rows, for int8 the multipliers padded to the rows (the
+    scalar m_i repeated where the script has one), the skip dot's
+    multipliers and the quant steps, the decode y * 1 + 0.  fp8 (the
+    mma.sync chain): a NifNet of (round8(out), K) weight rows with the
+    same multipliers."""
     ops = _operands(variant)
     net = quant._kernel_net(ops)
     assert net is quant._kernel_net(ops)  # built once per operands
     narrow = variant != "bf16"
-    assert (net.num_layers, net.embed_dim, net.max_width, net.int8) == (7, 12, 320, int(narrow))
     assert net.max_v == 1.0 and list(net.mean) == [0.0] * 3 and net.log_flag == 0
     kdims = [(64, 320), (320, 320), (320, 320), (384, 320), (320, 320), (320, 320), (320, 8)]
     if not narrow:
         kdims = [(48, 320), (320, 320), (320, 320), (368, 320), (320, 320), (320, 320), (320, 3)]
-    for i, (k, out) in enumerate(kdims):
-        assert (net.fan_in[i], net.fan_out[i], net.k_pad[i]) == (k, out, k)
-        assert net.skip[i] == int(i == quant.SKIP)
-        assert net.k_trunk[i] == (320 if i == quant.SKIP else k)
-    _, keep = ops._net
-    heads = [t for t in keep if t.data_ptr() == net.w[6]]
-    assert len(heads) == 1 and heads[0].shape == (8, 320)  # the bf16 head padded to 8 rows
-    assert all(bool(net.mult[i]) == narrow for i in range(7)) and bool(net.mult_skip) == narrow
-    if narrow:
-        assert list(net.inv_next)[:7] == ops.scal.tolist()[1::3]
+    scal = None if ops.scal is None else ops.scal.tolist()
+    if variant.startswith("fp8"):
+        assert isinstance(net, _lib.NifNet)
+        assert (net.num_layers, net.embed_dim, net.max_width, net.int8) == (7, 12, 320, 1)
+        for i, (k, out) in enumerate(kdims):
+            assert (net.fan_in[i], net.fan_out[i], net.k_pad[i]) == (k, out, k)
+            assert net.skip[i] == int(i == quant.SKIP)
+            assert net.k_trunk[i] == (320 if i == quant.SKIP else k)
+        _, keep = ops._net
+        assert all(bool(net.mult[i]) for i in range(7)) and bool(net.mult_skip)
+        assert list(net.inv_next)[:7] == scal[1::3]
         for i in range(7):
             (m,) = [t for t in keep if t.data_ptr() == net.mult[i]]
-            want = ops.mults[i].reshape(-1) if variant == "int8_perchan" else ops.scal[3 * i]
-            assert m.shape == (kdims[i][1],) and torch.equal(m, want.expand_as(m))
+            assert m.shape == (kdims[i][1],) and torch.equal(m, ops.scal[3 * i].expand_as(m))
+        return
+    assert isinstance(net, _lib.NifWg) and net.int8 == int(narrow)
+    plan = quant.probe_plan(ops)
+    assert [(lay["fan_in"], lay["fan_out"]) for lay in plan["layers"]] == kdims
+    assert [lay["trunk"] for lay in plan["layers"]] == [0, 320, 320, 320, 320, 320, 320]
+    assert [lay["f_atoms"] for lay in plan["layers"]] == [1, 0, 0, 1, 0, 0, 0]
+    assert [lay["passes"] for lay in plan["layers"]] == [1, 1, 1, 3 if narrow else 1, 1, 1, 1]
+    assert (net.num_layers, net.stages, net.smem_bytes) == (7, plan["stages"], plan["smem_bytes"])
+    operands, scales = ops._net[1]
+    assert [net.w[i] for i in range(7)] == [w.data_ptr() for w, _ in operands]
+    head, bias = operands[6]
+    assert head.shape == (5, 8, 64) and bias.shape == (8,)  # the head padded to 8 rows
+    assert torch.equal(bias[:kdims[6][1]], ops.biases[6].reshape(-1))
+    if not narrow:
+        assert scales is None and not any(net.mult[:7])
+        return
+    mults, mf, inv = scales
+    assert inv == scal[1::3]
+    assert list(net.inv_next)[:7] == scal[1::3] and net.mult_skip == mf.data_ptr()
+    for i, m in enumerate(mults):
+        assert net.mult[i] == m.data_ptr() and m.shape == (plan["layers"][i]["rows"],)
+        want = (ops.mults[i].reshape(-1) if variant == "int8_perchan"
+                else ops.scal[3 * i].expand(kdims[i][1]))
+        assert torch.equal(m[:kdims[i][1]], want) and not m[kdims[i][1]:].any()
+        assert net.b[i] == operands[i][1].data_ptr()
 
 
 def test_cpu_wrapper_runs_the_plain_version():
