@@ -1,18 +1,16 @@
 // Device code of the NIF env light: equirect (u, v) of an escaped ray,
-// the Fourier encode's angles, and the mma.sync chains of the probes: the
-// bf16 layer chain (nif_layers, f32 accumulation) of K6 (probes.cu) and
-// the e4m3 fragments (mma_rows_e4m3) of K8's fp8 variants
-// (quant_probe.cu), for a tile of kTile rays run by a block of kThreads
-// threads.  K2, K3 and K4 (nif.cu, megastep.cuh) and K8's bf16 and int8
-// variants run their chains on wgmma (nif_wgmma.cuh); the mma.sync chains
-// here are the old design's yardsticks.
+// the Fourier encode's angles, and the one mma.sync chain that remains:
+// the bf16 layer chain (nif_layers, f32 accumulation) of the loop probe K7
+// (probes.cu), for a tile of kTile rays run by a block of kThreads threads.
+// Every other chain - K2, K3, K4, K6 and K8 in all their variants - runs on
+// wgmma (nif_wgmma.cuh).
 //
 // What bounds it: the chain is ~0.54 M multiply-adds per ray for the
 // canonical 6x320 net (1.2 TFLOP per 1104x1000 sample), and its 1.09 MB of
-// bf16 weights (0.55 MB as 8-bit codes) do not fit in one SM's shared
-// memory as they fit in the TPU's VMEM.  So the weights stream layer by
-// layer from device memory, where they stay resident in the 50 MB L2, and
-// every block reuses each weight it loads for the kTile rays of its tile.
+// bf16 weights do not fit in one SM's shared memory as they fit in the
+// TPU's VMEM.  So the weights stream layer by layer from device memory,
+// where they stay resident in the 50 MB L2, and every block reuses each
+// weight it loads for the kTile rays of its tile.
 //
 // bf16 chain: mma.sync m16n8k16, f32 accumulators; a layer is
 // D[ray][out] = X^T[ray][in] * W[in][out]; the activations X live in shared
@@ -25,15 +23,6 @@
 // one A fragment feeds kQMax MMAs.  The Fourier features have a buffer of
 // their own, which the skip layer reads as the tail of its K dimension
 // (the reference's concat(trunk, feats)).
-//
-// 8-bit fragments (mma.sync m16n8k32, e4m3 x e4m3 -> f32): there is no
-// 8-bit ldmatrix.trans, and the 8-bit A fragment wants K contiguous per
-// ray, so 8-bit activations are ray-major ([ray][k], rows of round32(width)
-// + 16 bytes, an odd multiple of 16, so the 8 rows of an ldmatrix phase hit
-// 8 distinct bank groups) and plain ldmatrix yields the A fragments;
-// weights are (out, in) 8-bit rows with K padded to 32.  The skip layer's
-// trunk and feature dots need separate accumulators (two multipliers), so
-// it runs kQSkip output tiles per warp and pass instead of kQMax.
 //
 // The encode uses sincosf on the direct angles 2^j * 2 (u - 1) (exact in
 // f32), like the trainer's models/nif.fourier_features, instead of the TPU
@@ -54,28 +43,20 @@ constexpr int kThreads = 256;  // threads per block of the NIF kernels
 constexpr int kWarps = kThreads / 32;
 constexpr int kMTiles = kTile / 16;
 constexpr int kQMax = 5;  // 8-wide output tiles per warp and pass: 320 outputs in one pass
-constexpr int kQSkip = 2;  // the same for the 8-bit skip layer (two accumulator sets)
 
 // Mirrored by ops/_lib.py::NifNet (ctypes); keep the field order.
 struct NifNet {
   int num_layers, embed_dim, max_width, log_flag;
-  int int8;  // 1: 8-bit ray-major activations (K8's fp8 chain); 0: the bf16 chain
   int fan_in[kNifMaxLayers], fan_out[kNifMaxLayers], skip[kNifMaxLayers];
-  int k_trunk[kNifMaxLayers];  // trunk inputs rounded up to 16 (bf16) or 32 (int8)
+  int k_trunk[kNifMaxLayers];  // trunk inputs rounded up to 16
   int k_pad[kNifMaxLayers];  // packed row length: k_trunk (+ features rounded likewise)
-  const void* w[kNifMaxLayers];  // bf16 or int8 (round8(fan_out), k_pad), zero padded
+  const void* w[kNifMaxLayers];  // bf16 (round8(fan_out), k_pad), zero padded
   const float* b[kNifMaxLayers];  // f32 (fan_out,)
-  const float* mult[kNifMaxLayers];  // 8-bit: f32 (fan_out,) accumulator multipliers
-  const float* mult_skip;  // 8-bit: f32 multipliers of the skip layer's feature dot
-  float inv_next[kNifMaxLayers];  // 8-bit: the next layer's quant steps
   float max_v;
   float mean[3];
 };
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
-
-// Row of ray-major int8 activations of `width` features, in bytes.
-__host__ __device__ inline int row8(int width) { return ((width + 31) & ~31) + 16; }
 
 PT_HD uint16_t f32_to_bf16(float x) {  // round to nearest even, NaN kept quiet
   const uint32_t u = __float_as_uint(x);
@@ -91,26 +72,9 @@ PT_HD void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
                : "r"(addr));
 }
 
-PT_HD void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 PT_HD void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-
-// e4m3 x e4m3 -> f32 (sm_89 and later).  The m16n8k32 A and B fragments
-// of e4m3 are laid out as those of s8: four 8-bit values per register.
-PT_HD void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -125,10 +89,8 @@ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
 inline NifSmem nif_smem_plan(const NifNet& net, size_t offset) {
   const size_t row = kTileP * sizeof(uint16_t);
-  const size_t feat = net.int8 ? (size_t)kTile * row8(4 * net.embed_dim)
-                               : round16(4 * net.embed_dim) * row;
-  const size_t act = net.int8 ? (size_t)kTile * row8(net.max_width)
-                              : round16(net.max_width) * row;
+  const size_t feat = round16(4 * net.embed_dim) * row;
+  const size_t act = round16(net.max_width) * row;
   NifSmem s;
   s.u = offset;
   s.v = s.u + align16(kTile * sizeof(float));
@@ -144,8 +106,7 @@ struct NifTile {
   float* u;  // [kTile]
   float* v;  // [kTile]
   float* out;  // [3][kTile] decoded network (bgr) order
-  // bf16: [round16(4E)][kTileP] and [round16(max_width)][kTileP] feature-major;
-  // int8: [kTile][row8(4E)] and [kTile][row8(max_width)] ray-major.
+  // bf16 [round16(4E)][kTileP] and [round16(max_width)][kTileP], feature-major
   unsigned char* feat;
   unsigned char* buf0;
   unsigned char* buf1;
@@ -205,11 +166,6 @@ PT_HD void mma_rows(float (&acc)[kQMax][kMTiles][4], const uint16_t* x, int kste
   }
 }
 
-// Called after each layer's products and epilogue, before its barrier.
-struct NoLayerHook {
-  __device__ void operator()(int) const {}
-};
-
 // The bf16 layer chain and decode over the features in t.feat; leaves the
 // decoded network-order output in t.out.  after_layer(l) runs in every
 // thread after layer l (the overlap probes put ALU work there).  All
@@ -261,40 +217,6 @@ __device__ inline void nif_layers(const NifNet& net, const NifTile& t, AfterLaye
     __syncthreads();
     in = out;
     out = out == buf0 ? buf1 : buf0;
-  }
-}
-
-// acc[q][mt] += X[ray][k] * W[out][k] over `ksteps` K-steps of 32, e4m3
-// codes and f32 accumulators: A fragments from the ray-major 8-bit
-// activations x (rows of `stride` bytes; plain ldmatrix: matrix i of the
-// x4 is rays +8 (i & 1), K bytes +16 (i >> 1), exactly the 8-bit A
-// fragment a0..a3), B fragments from the packed 8-bit weight rows at
-// column k_off, for the warp's output tiles j0 + q * kWarps (q < Q,
-// j < n_tiles).
-template <int Q>
-PT_HD void mma_rows_e4m3(float (&acc)[Q][kMTiles][4], const uint8_t* x, int stride, int ksteps,
-                         const uint8_t* __restrict__ w, int k_pad, int k_off, int n_tiles, int j0,
-                         int lane) {
-  const int g = lane >> 2, tg = lane & 3;
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix row of this lane
-  const int lcol = (lane >> 4) * 16;
-#pragma unroll 2
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint32_t a[kMTiles][4];
-#pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt)
-      ldmatrix_x4(smem_u32(x + (mt * 16 + lrow) * stride + ks * 32 + lcol), a[mt]);
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int j = j0 + q * kWarps;
-      if (j < n_tiles) {
-        const uint8_t* wr = w + (size_t)(j * 8 + g) * k_pad + k_off + ks * 32 + tg * 4;
-        const uint32_t b0 = __ldg(reinterpret_cast<const unsigned int*>(wr));
-        const uint32_t b1 = __ldg(reinterpret_cast<const unsigned int*>(wr + 16));
-#pragma unroll
-        for (int mt = 0; mt < kMTiles; ++mt) mma_e4m3(acc[q][mt], a[mt], b0, b1);
-      }
-    }
   }
 }
 

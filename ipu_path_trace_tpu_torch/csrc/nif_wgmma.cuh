@@ -1,9 +1,11 @@
 // The NIF chains on Hopper's warpgroup MMA, for K2 and K4 (nif.cu), K3
-// (megastep.cuh) and the precision probe K8 (quant_probe.cu): encode ->
-// layers -> decode for tiles of kWgRays rays, the weights streamed through
-// shared memory by bulk copies.  Two chains share the tile, the ring and
-// the slice sequence; a chain policy (ChainBf16, ChainInt8, K8's ChainK8)
-// gives the operand width and the epilogue:
+// (megastep.cuh) and the probes K6 (probes.cu) and K8 (quant_probe.cu):
+// encode -> layers -> decode for tiles of kWgRays rays, the weights
+// streamed through shared memory by bulk copies.  The chains share the
+// tile, the ring and the slice sequence; a chain policy (ChainBf16,
+// ChainInt8, K8's ChainK8 and ChainK8Wide) gives the operand width and MMA
+// (kInt8: 1-byte operands, the s8 tile, s8 wgmma; else bf16) and the
+// epilogue (kNarrow: K8's on the bf16 tile):
 //  * bf16 (ChainBf16): what models/nif.nif_apply computes - encode_bf16's
 //    direct sincosf angles, bf16 weights and activations with f32
 //    accumulation, f32 bias, ReLU and a round to bf16 between layers, the
@@ -18,16 +20,27 @@
 //    codes, the head's f32 decode.  Integer sums are exact in any order and
 //    --fmad=false keeps each f32 product and sum apart, so the chain equals
 //    its plain version bit for bit.  The skip layer's trunk and feature
-//    dots have two multipliers, so two accumulator sets (wg_skip).
+//    dots have two multipliers, so two accumulator sets (wg_skip);
+//  * K8's fp8 variants: the e4m3 codes' bf16 values (exact) on the bf16
+//    tile (ChainK8Wide: HGMMA, f32 sums; the skip layer's two dots by
+//    wg_skip_wide).  Not e4m3 wgmma (QGMMA): its sums keep only part of
+//    their bits and break K8's fp8 budget (PERF.md;
+//    probes/fp8_qgmma.py rebuilds and measures that route).
+// A layer hook (wg_layers' hook, WgNoHook in K2, K3, K4 and K8) runs in
+// every consumer thread once per layer, after the layer's last wgmma is
+// issued and before the wait for it, so that its work overlaps the tensor
+// cores' (K6 'both' runs its ALU rounds there).
 //
 // The pieces, in the order a kernel calls them: wg_block and wg_setup (the
 // plan's shared memory, the ring's barriers, the features' zero columns),
 // then the role split wg_producer_role (setmaxnreg; the producer thread
 // runs a WgProducer), then per tile wg_tile (encode from the tile's (u, v),
-// the layers, the head storing through an Io).  K2, K4 and K8 walk a fixed
-// list of tiles (nif_wg_tiles; K8's Io hands precomputed features in place
-// of the encode); K3 decides per sample which tiles to shade and streams
-// them through wg_stream (megastep.cuh says how).
+// the layers, the head storing through an Io).  K2, K4, K6 and K8 walk a
+// fixed list of tiles (wg_tiles; K2, K4 and K8 through nif_wg_tiles, whose
+// K8 Io hands precomputed features in place of the encode; K6 puts its own
+// features and adds its ALU value after the head); K3 decides per sample
+// which tiles to shade and streams them through wg_stream (megastep.cuh
+// says how).
 //
 // Why: the mma.sync chains (nif_dev.cuh) ran 64-ray tiles whose warps load
 // their B fragments from L2 with 4-byte __ldg's, so each 64-ray tile reads
@@ -44,7 +57,7 @@
 // empty[s] on one arrival per consumer warp once its MMAs on the slice have
 // completed.  A consumer issues a slice's MMAs while the previous slice's
 // are still in flight (wgmma.wait_group 1), so it holds two stages.
-// Per K step (16 bf16 or 32 s8 values: 32 bytes) a hidden layer of NC
+// Per K step (16 bf16 or 32 8-bit values: 32 bytes) a hidden layer of NC
 // 64-wide output chunks is one wgmma of N = 64 min(NC, 4) plus, for a
 // fifth chunk, one of N = 64; the head is one of N = 8 (outputs padded to 8).
 //
@@ -81,8 +94,8 @@
 // (0.63x), because 320 inputs pad to 384 in 128-value rows; wgmma s8 runs
 // at the full int8 rate from it (measured: PERF.md).
 //
-// The int8 skip layer (wg_skip): both accumulator sets of 320 outputs would
-// be 2 x 160 registers per consumer thread, past kWgConsumerRegs.  So it
+// The 8-bit skip layer (wg_skip): both accumulator sets of 320 outputs
+// would be 2 x 160 registers per consumer thread, past kWgConsumerRegs.  So it
 // runs as passes over kWgPassRows = 128 outputs at a time (3 for 320
 // outputs: rows 0-127, 128-255, 256-319), at most 2 x 64 accumulators, so
 // the skip layer never holds more than a hidden layer.  Each pass's rows of
@@ -310,6 +323,20 @@ PT_HD void wgmma<8>(float (&d)[4], uint64_t da, uint64_t db) {
       "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+PT_HD void wgmma<32>(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(1));
 }
 
@@ -577,10 +604,10 @@ PT_HD void wgmma_s8<256>(int (&d)[128], uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
-// The MMA of a chain: bf16 (f32 accumulators) or s8 (s32).
-template <bool kInt8, int N, class Acc>
-PT_HD void wg_mma(Acc (&d)[N / 2], uint64_t da, uint64_t db) {
-  if constexpr (kInt8)
+// The MMA of chain policy Ch on N outputs: s8 (s32 accumulators) or bf16 (f32).
+template <class Ch, int N>
+PT_HD void wg_mma(typename Ch::Acc (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (Ch::kInt8)
     wgmma_s8<N>(d, da, db);
   else
     wgmma<N>(d, da, db);
@@ -604,6 +631,7 @@ PT_HD int wg_offset(int row, int k) {
 // bf16: y = acc + b; hidden layers ReLU and round to bf16; the head decodes.
 struct ChainBf16 {
   static constexpr bool kInt8 = false;
+  static constexpr bool kNarrow = false;  // (2-byte chains) K8's epilogue in place of ReLU
   static constexpr int kHeadOutputs = 3;
   using Acc = float;
   PT_HD static float head(const NifWg& net, int l, int o, float acc) {
@@ -653,6 +681,11 @@ PT_HD float2 wg_pair(const float* v, int o) {
 template <bool kInt8>
 using NifChain = typename std::conditional<kInt8, ChainInt8, ChainBf16>::type;
 
+// The layer hook of the chains that run none (K2, K3, K4, K8).
+struct WgNoHook {
+  PT_HD void operator()(int) const {}
+};
+
 // ---- the chain ---------------------------------------------------------
 
 // A consumer's place in the ring (the producer's sequence of slices).
@@ -660,6 +693,15 @@ struct WgPipe {
   uint32_t full, empty, ring;
   int stage;
   uint32_t phase;
+};
+
+// A consumer thread's place: its warpgroup's rows of the activations and
+// features (wgmma's A), and its ring position.
+struct WgConsumer {
+  unsigned char* smem;
+  uint32_t a_act, a_feat;
+  int wg, t, lane;
+  WgPipe pipe;
 };
 
 // Waits for the ring's next slice, the s-th of layer l (slices 0..
@@ -736,6 +778,15 @@ PT_HD void wg_store(const typename Ch::Acc (&acc)[N / 2], const NifWg& net, int 
                                                  e ? bias.y : bias.x),
                                        inv);
                      }));
+    } else if constexpr (Ch::kNarrow) {  // the narrow epilogue, its codes as bf16 values
+      const float2 m = wg_pair(ml, o);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 64 * wg + 16 * warp + g + 8 * h;
+        const uint32_t lo = Ch::act(Ch::dense(acc[4 * i + 2 * h], m.x, bias.x), inv);
+        const uint32_t hi = Ch::act(Ch::dense(acc[4 * i + 2 * h + 1], m.y, bias.y), inv);
+        *reinterpret_cast<uint32_t*>(act + wg_offset<false>(row, o)) = lo | (hi << 16);
+      }
     } else {  // relu(acc + bias) as bf16
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -754,12 +805,16 @@ PT_HD void wg_store(const typename Ch::Acc (&acc)[N / 2], const NifWg& net, int 
 // times); then the epilogue over this warpgroup's rows of the
 // activations, in place.  One slice's MMAs stay in flight while the next
 // slice's are issued (wait_group 1), and a slice returns to the producer
-// when its MMAs have completed.  (bf16 runs the skip layer here too: its
-// feature slices extend the one dot.)
-template <class Ch, int NC>
-PT_HD void wg_hidden(const NifWg& net, int l, WgPipe& p, unsigned char* act, uint32_t a_act,
-                     uint32_t a_feat, int wg, int lane) {
+// when its MMAs have completed.  hook(l) runs while the last slice's MMAs
+// are in flight.  (bf16 runs the skip layer here too: its feature slices
+// extend the one dot.)
+template <class Ch, int NC, class Hook>
+PT_HD void wg_hidden(const NifWg& net, int l, WgConsumer& c, const Hook& hook) {
   constexpr bool k8 = Ch::kInt8;
+  WgPipe& p = c.pipe;
+  unsigned char* const act = c.smem;
+  const uint32_t a_act = c.a_act, a_feat = c.a_feat;
+  const int wg = c.wg, lane = c.lane;
   constexpr int N0 = 64 * (NC > 4 ? 4 : NC), N1 = 64 * NC - N0;
   typename Ch::Acc acc0[N0 / 2], acc1[N1 ? N1 / 2 : 2];
   wg_zero(acc0);
@@ -774,9 +829,9 @@ PT_HD void wg_hidden(const NifWg& net, int l, WgPipe& p, unsigned char* act, uin
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < kWgKSteps<k8>; ++ks) {
-      wg_mma<k8, N0>(acc0, da + 2 * ks, db + 2 * ks);
+      wg_mma<Ch, N0>(acc0, da + 2 * ks, db + 2 * ks);
       if constexpr (N1 > 0)
-        wg_mma<k8, N1>(acc1, da + 2 * ks, db + 2 * ks + N0 * kWgRowBytes<k8> / 16);
+        wg_mma<Ch, N1>(acc1, da + 2 * ks, db + 2 * ks + N0 * kWgRowBytes<k8> / 16);
     }
     wg_commit();
     wg_wait<1>();
@@ -786,6 +841,7 @@ PT_HD void wg_hidden(const NifWg& net, int l, WgPipe& p, unsigned char* act, uin
     held = p.stage;
     wg_advance(net, p);
   }
+  hook(l);
   wg_wait<0>();
   wg_fence_regs(acc0);
   wg_fence_regs(acc1);
@@ -799,24 +855,25 @@ PT_HD void wg_hidden(const NifWg& net, int l, WgPipe& p, unsigned char* act, uin
 
 // One pass of the 8-bit skip layer over NH outputs: the trunk slices'
 // products into acc, the feature slices' into accf (the ring holds the
-// pass's half-slices).
-template <class Ch, int NH>
+// pass's half-slices); hook(l) while the last slice's MMAs are in flight.
+template <class Ch, int NH, class Hook>
 PT_HD void wg_skip_dots(const NifWg& net, int l, WgPipe& p, uint32_t a_act, uint32_t a_feat,
-                        int lane, int (&acc)[NH / 2], int (&accf)[NH / 2]) {
+                        int lane, typename Ch::Acc (&acc)[NH / 2],
+                        typename Ch::Acc (&accf)[NH / 2], const Hook& hook) {
   wg_zero(acc);
   wg_zero(accf);
   const int ia = net.in_atoms[l], slices = ia + net.f_atoms[l];
   int held = -1;
   // Slice s into d; two loops, not a branch per slice: around a branch
   // ptxas adds a dummy HGMMA to balance the paths' MMA groups.
-  auto dots = [&](int s, int (&d)[NH / 2]) {
+  auto dots = [&](int s, typename Ch::Acc (&d)[NH / 2]) {
     uint64_t da, db;
     wg_slice_begin<true>(net, l, s, p, a_act, a_feat, da, db);
     wg_fence_regs(acc);
     wg_fence_regs(accf);
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < kWgKSteps<true>; ++ks) wgmma_s8<NH>(d, da + 2 * ks, db + 2 * ks);
+    for (int ks = 0; ks < kWgKSteps<true>; ++ks) wg_mma<Ch, NH>(d, da + 2 * ks, db + 2 * ks);
     wg_commit();
     wg_wait<1>();
     wg_fence_regs(acc);
@@ -827,6 +884,7 @@ PT_HD void wg_skip_dots(const NifWg& net, int l, WgPipe& p, uint32_t a_act, uint
   };
   for (int s = 0; s < ia; ++s) dots(s, acc);
   for (int s = ia; s < slices; ++s) dots(s, accf);
+  hook(l);
   wg_wait<0>();
   wg_fence_regs(acc);
   wg_fence_regs(accf);
@@ -838,9 +896,12 @@ PT_HD void wg_skip_dots(const NifWg& net, int l, WgPipe& p, uint32_t a_act, uint
 // plan's codes area (word w of consumer thread t at [w][t]: each thread
 // reads back only its own words) until every warp of the group has
 // finished the last pass's reads of the trunk.
-template <class Ch, int NC>
-PT_HD void wg_skip(const NifWg& net, int l, WgPipe& p, unsigned char* act, uint32_t a_act,
-                   uint32_t a_feat, int wg, int lane) {
+template <class Ch, int NC, class Hook>
+PT_HD void wg_skip(const NifWg& net, int l, WgConsumer& c, const Hook& hook) {
+  WgPipe& p = c.pipe;
+  unsigned char* const act = c.smem;
+  const uint32_t a_act = c.a_act, a_feat = c.a_feat;
+  const int wg = c.wg, lane = c.lane;
   constexpr int kPasses = (NC + 1) / 2, NL = 64 * (NC - 2 * (kPasses - 1));  // last pass
   constexpr int kWords = kWgPassRows / 8;  // code words per thread and full pass
   const int tg = lane & 3;
@@ -860,14 +921,14 @@ PT_HD void wg_skip(const NifWg& net, int l, WgPipe& p, unsigned char* act, uint3
     });
   };
   for (int pass = 0; pass < kPasses - 1; ++pass) {
-    int acc[kWgPassRows / 2], accf[kWgPassRows / 2];
-    wg_skip_dots<Ch, kWgPassRows>(net, l, p, a_act, a_feat, lane, acc, accf);
+    typename Ch::Acc acc[kWgPassRows / 2], accf[kWgPassRows / 2];
+    wg_skip_dots<Ch, kWgPassRows>(net, l, p, a_act, a_feat, lane, acc, accf, WgNoHook{});
 #pragma unroll
     for (int i = 0; i < kWords; ++i)
       stash[(kWords * pass + i) * kWgConsumers] = codes(kWgPassRows * pass, i, acc, accf);
   }
-  int acc[NL / 2], accf[NL / 2];
-  wg_skip_dots<Ch, NL>(net, l, p, a_act, a_feat, lane, acc, accf);
+  typename Ch::Acc acc[NL / 2], accf[NL / 2];
+  wg_skip_dots<Ch, NL>(net, l, p, a_act, a_feat, lane, acc, accf, hook);
   group_sync(wg);
   for (int w = 0; w < kWords * (kPasses - 1); ++w)
     wg_store_codes(act, wg, lane, 8 * w + 2 * tg, stash[w * kWgConsumers]);
@@ -879,12 +940,99 @@ PT_HD void wg_skip(const NifWg& net, int l, WgPipe& p, unsigned char* act, uint3
   group_sync(wg);
 }
 
+// The skip layer of a narrow 2-byte chain (K8's fp8 codes on the bf16
+// tile, Ch::kNarrow), whose trunk and feature dots have two multipliers:
+// the trunk slices' products of all NC chunks as wg_hidden's; then, once
+// every warp of the group has read the trunk, per 32 outputs the one
+// feature slice's products into a set of 16 registers (two full sets would
+// not fit; 32 more spilled) and those outputs' epilogue, stored in place.
+template <class Ch, int NC, class Hook>
+PT_HD void wg_skip_wide(const NifWg& net, int l, WgConsumer& c, const Hook& hook) {
+  WgPipe& p = c.pipe;
+  const int warp = (threadIdx.x >> 5) & 3, g = c.lane >> 2, tg = c.lane & 3;
+  constexpr int N0 = 64 * (NC > 4 ? 4 : NC), N1 = 64 * NC - N0;
+  float acc0[N0 / 2], acc1[N1 ? N1 / 2 : 2];
+  wg_zero(acc0);
+  wg_zero(acc1);
+  int held = -1;
+  for (int s = 0; s < net.in_atoms[l]; ++s) {
+    uint64_t da, db;
+    wg_slice_begin<false>(net, l, s, p, c.a_act, c.a_feat, da, db);
+    wg_fence_regs(acc0);
+    wg_fence_regs(acc1);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWgKSteps<false>; ++ks) {
+      wgmma<N0>(acc0, da + 2 * ks, db + 2 * ks);
+      if constexpr (N1 > 0) wgmma<N1>(acc1, da + 2 * ks, db + 2 * ks + N0 * 128 / 16);
+    }
+    wg_commit();
+    wg_wait<1>();
+    wg_fence_regs(acc0);
+    wg_fence_regs(acc1);
+    if (held >= 0) wg_release(p.empty, held, c.lane);
+    held = p.stage;
+    wg_advance(net, p);
+  }
+  hook(l);
+  wg_wait<0>();
+  wg_fence_regs(acc0);
+  wg_fence_regs(acc1);
+  wg_release(p.empty, held, c.lane);
+  group_sync(c.wg);  // the trunk is read: the chunks' outputs may overwrite it
+  uint64_t da, db;
+  wg_slice_begin<false>(net, l, net.in_atoms[l], p, c.a_act, c.a_feat, da, db);
+  const float* const bl = net.b[l];
+  const float* const ml = net.mult[l];
+  const float* const msl = net.mult_skip;
+  const float inv = net.inv_next[l];
+  // Outputs 32 q.. (their trunk sums t[base..base + 15]): the feature
+  // products, the epilogue, the stores.
+  auto part = [&](int q, const auto& t, int base) {
+    float accf[16];
+    wg_zero(accf);
+    wg_fence_regs(accf);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWgKSteps<false>; ++ks)
+      wgmma<32>(accf, da + 2 * ks, db + 2 * ks + q * 32 * 128 / 16);
+    wg_commit();
+    wg_wait<0>();
+    wg_fence_regs(accf);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = 32 * q + 8 * i + 2 * tg;
+      const float2 m = wg_pair(ml, o), ms = wg_pair(msl, o), bias = wg_pair(bl, o);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 4 * i + 2 * h;  // register of output o in the part's set
+        const uint32_t lo = Ch::act(Ch::skip(t[base + r], accf[r], m.x, ms.x, bias.x), inv);
+        const uint32_t hi =
+            Ch::act(Ch::skip(t[base + r + 1], accf[r + 1], m.y, ms.y, bias.y), inv);
+        *reinterpret_cast<uint32_t*>(
+            c.smem + wg_offset<false>(64 * c.wg + 16 * warp + g + 8 * h, o)) = lo | (hi << 16);
+      }
+    }
+  };
+#pragma unroll
+  for (int q = 0; q < N0 / 32; ++q) part(q, acc0, 16 * q);
+  if constexpr (N1 > 0) {
+    part(N0 / 32, acc1, 0);
+    part(N0 / 32 + 1, acc1, 16);
+  }
+  wg_release(p.empty, p.stage, c.lane);
+  wg_advance(net, p);
+  fence_proxy_async();
+  group_sync(c.wg);
+}
+
 // The head (last layer, outputs padded to 8) and its epilogue, stored
-// through io for the tile's rays below io.n.  Accumulator register 2h + e
-// is (row 16 * warp + g + 8h, output 2tg + e).
-template <class Ch, class Io>
+// through io for the tile's rays below io.n; hook(l) while the last slice's
+// MMAs are in flight.  Accumulator register 2h + e is (row 16 * warp + g +
+// 8h, output 2tg + e).
+template <class Ch, class Io, class Hook>
 PT_HD void wg_head(const NifWg& net, int l, WgPipe& p, uint32_t a_act, uint32_t a_feat, int ray0,
-                   int lane, const Io& io) {
+                   int lane, const Io& io, const Hook& hook) {
   constexpr bool k8 = Ch::kInt8;
   typename Ch::Acc acc[4];
   wg_zero(acc);
@@ -895,8 +1043,9 @@ PT_HD void wg_head(const NifWg& net, int l, WgPipe& p, uint32_t a_act, uint32_t 
     wg_fence_regs(acc);
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < kWgKSteps<k8>; ++ks) wg_mma<k8, 8>(acc, da + 2 * ks, db + 2 * ks);
+    for (int ks = 0; ks < kWgKSteps<k8>; ++ks) wg_mma<Ch, 8>(acc, da + 2 * ks, db + 2 * ks);
     wg_commit();
+    if (s == slices - 1) hook(l);
     wg_wait<0>();
     wg_fence_regs(acc);
     wg_release(p.empty, p.stage, lane);
@@ -1045,15 +1194,6 @@ PT_HD bool wg_producer_role(Produce produce) {
   return false;
 }
 
-// A consumer thread's place: its warpgroup's rows of the activations and
-// features (wgmma's A), and its ring position.
-struct WgConsumer {
-  unsigned char* smem;
-  uint32_t a_act, a_feat;
-  int wg, t, lane;
-  WgPipe pipe;
-};
-
 template <bool kInt8>
 PT_HD WgConsumer wg_consumer(const NifWg& net, const WgBlock& b) {
   const int tid = threadIdx.x, wg = tid >> 7;
@@ -1093,37 +1233,45 @@ PT_HD void wg_encode(const NifWg& net, const WgConsumer& c, const float* su, con
 
 // The layers of one tile over the features in place, run by both consumer
 // warpgroups; the head stored through io for rays ray0 (this group's
-// first row) + 0..63.
-template <class Ch, class Io>
-PT_HD void wg_layers(const NifWg& net, WgConsumer& c, int ray0, const Io& io) {
+// first row) + 0..63; hook(l) once per layer l (header comment).
+template <class Ch, class Io, class Hook = WgNoHook>
+PT_HD void wg_layers(const NifWg& net, WgConsumer& c, int ray0, const Io& io,
+                     const Hook& hook = {}) {
   for (int l = 0; l < net.num_layers; ++l) {
     const int nc = net.chunks[l];
     if (nc == 0) {
-      wg_head<Ch>(net, l, c.pipe, c.a_act, c.a_feat, ray0, c.lane, io);
+      wg_head<Ch>(net, l, c.pipe, c.a_act, c.a_feat, ray0, c.lane, io, hook);
       continue;
     }
-    if constexpr (Ch::kInt8) {
-      if (net.in_atoms[l] && net.f_atoms[l]) {  // the skip layer: two dots
+    if constexpr (Ch::kInt8) {  // the skip layer: two dots
+      if (net.in_atoms[l] && net.f_atoms[l]) {
         switch (nc) {
-          case 1: wg_skip<Ch, 1>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
-          case 2: wg_skip<Ch, 2>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
-          case 3: wg_skip<Ch, 3>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
-          case 4: wg_skip<Ch, 4>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
-          default:
-            wg_skip<Ch, kWgMaxChunks>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane);
-            break;
+          case 1: wg_skip<Ch, 1>(net, l, c, hook); break;
+          case 2: wg_skip<Ch, 2>(net, l, c, hook); break;
+          case 3: wg_skip<Ch, 3>(net, l, c, hook); break;
+          case 4: wg_skip<Ch, 4>(net, l, c, hook); break;
+          default: wg_skip<Ch, kWgMaxChunks>(net, l, c, hook); break;
+        }
+        continue;
+      }
+    } else if constexpr (Ch::kNarrow) {  // its skip layer: two dots, chunk by chunk
+      if (net.in_atoms[l] && net.f_atoms[l]) {
+        switch (nc) {
+          case 1: wg_skip_wide<Ch, 1>(net, l, c, hook); break;
+          case 2: wg_skip_wide<Ch, 2>(net, l, c, hook); break;
+          case 3: wg_skip_wide<Ch, 3>(net, l, c, hook); break;
+          case 4: wg_skip_wide<Ch, 4>(net, l, c, hook); break;
+          default: wg_skip_wide<Ch, kWgMaxChunks>(net, l, c, hook); break;
         }
         continue;
       }
     }
     switch (nc) {
-      case 1: wg_hidden<Ch, 1>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
-      case 2: wg_hidden<Ch, 2>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
-      case 3: wg_hidden<Ch, 3>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
-      case 4: wg_hidden<Ch, 4>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane); break;
-      default:
-        wg_hidden<Ch, kWgMaxChunks>(net, l, c.pipe, c.smem, c.a_act, c.a_feat, c.wg, c.lane);
-        break;
+      case 1: wg_hidden<Ch, 1>(net, l, c, hook); break;
+      case 2: wg_hidden<Ch, 2>(net, l, c, hook); break;
+      case 3: wg_hidden<Ch, 3>(net, l, c, hook); break;
+      case 4: wg_hidden<Ch, 4>(net, l, c, hook); break;
+      default: wg_hidden<Ch, kWgMaxChunks>(net, l, c, hook); break;
     }
   }
 }
@@ -1164,21 +1312,19 @@ PT_HD void wg_tile_stub(const NifWg& net, const WgConsumer& c, const float* su, 
   }
 }
 
-// K2, K4 and K8's body: io.n rays, the block persistent over tiles
-// blockIdx.x + i * gridDim.x.  An Io with kFeatures = false gives each
-// ray's (u, v) (io.uv) for the encode; one with kFeatures = true gives
-// io.rows precomputed feature rows (io.feature(k, ray)).  io.store(o, ray,
-// y) takes each head output.  Launch with kWgThreads threads and
-// net.smem_bytes of dynamic shared memory.
-template <class Ch, class Io>
-__device__ __forceinline__ void nif_wg_tiles(const NifWg& net, const Io& io) {
+// The block's roles over `tiles` tiles, the block persistent over tiles
+// blockIdx.x + i * gridDim.x: the producer streams each tile's slices, and
+// every consumer thread runs tile(c, t) for each tile t (K2, K4 and K8
+// through nif_wg_tiles, K6 with its own ends).  Launch with kWgThreads
+// threads and net.smem_bytes of dynamic shared memory.
+template <bool kInt8, class Tile>
+__device__ __forceinline__ void wg_tiles(const NifWg& net, int tiles, Tile tile) {
   const WgBlock b = wg_block(net);
-  const int tiles = (io.n + kWgRays - 1) / kWgRays;
   wg_setup(net, b);
   __syncthreads();
   if (wg_producer_role([&] {
         WgProducer prod{b.full, b.empty, b.s0 + net.smem_ring, 0, 0, 0};
-        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x)
           prod.chain(net, [](uint32_t bar, uint32_t parity) {
             mbar_wait(bar, parity);
             return true;
@@ -1186,21 +1332,30 @@ __device__ __forceinline__ void nif_wg_tiles(const NifWg& net, const Io& io) {
       }))
     return;
 
-  WgConsumer c = wg_consumer<Ch::kInt8>(net, b);
-  float* const su = (float*)(b.smem + net.smem_uv) + 64 * c.wg;
-  float* const sv = su + kWgRays;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  WgConsumer c = wg_consumer<kInt8>(net, b);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) tile(c, t);
+}
+
+// K2, K4 and K8's body: io.n rays.  An Io with kFeatures = false gives each
+// ray's (u, v) (io.uv) for the encode; one with kFeatures = true puts
+// io.rows precomputed feature rows (io.put).  io.store(o, ray, y) takes
+// each head output.
+template <class Ch, class Io>
+__device__ __forceinline__ void nif_wg_tiles(const NifWg& net, const Io& io) {
+  wg_tiles<Ch::kInt8>(net, (io.n + kWgRays - 1) / kWgRays, [&](WgConsumer& c, int tile) {
     const int ray0 = tile * kWgRays + 64 * c.wg;
     if constexpr (Io::kFeatures) {  // the group's rows of the features (the encode's place)
       unsigned char* const feat = c.smem + net.smem_feat;
       for (int idx = c.t; idx < 64 * io.rows; idx += 128) {
         const int r = idx & 63, k = idx >> 6;
-        io.template put<Ch::kInt8>(feat, 64 * c.wg + r, k, ray0 + r);
+        io.template put<Ch>(feat, 64 * c.wg + r, k, ray0 + r);
       }
       fence_proxy_async();
       group_sync(c.wg);
       wg_layers<Ch>(net, c, ray0, io);
     } else {
+      float* const su = (float*)(c.smem + net.smem_uv) + 64 * c.wg;
+      float* const sv = su + kWgRays;
       if (c.t < 64) {
         float u = 0.0f, v = 0.0f;
         if (ray0 + c.t < io.n) io.uv(ray0 + c.t, &u, &v);
@@ -1210,7 +1365,7 @@ __device__ __forceinline__ void nif_wg_tiles(const NifWg& net, const Io& io) {
       group_sync(c.wg);
       wg_tile<Ch>(net, c, su, sv, ray0, io);
     }
-  }
+  });
 }
 
 // K2's ends: equirect (u, v) of the escape direction; bgr -> rgb times the

@@ -3,17 +3,24 @@
 //
 // Replace scripts/overlap_probe.py::build (k_mxu :55, k_vpu :62, k_both
 // :67) and scripts/overlap_probe2.py::build (k_loop :53).  The matrix part
-// is the chain K3 runs (nif_dev.cuh::nif_layers: 64-ray tiles, bf16
-// mma.sync from mma_rows, the skip layer's concat of the features) over
-// the probes' seven bias-free layers, packed as a NifModel with zero biases
-// and a decode of y * 1 + 0 (ops/nif.py::net_struct), whose 48 feature
-// rows all hold bf16(v) of the lane.  The ALU part is per thread: rounds
-// of x = sin(x) * 1.1 + sqrt(|x| + 0.3), then x > 1 ? x / 2 : x + 1/4.
+// is the probes' seven bias-free bf16 layers, packed as a NifModel with
+// zero biases and a decode of y * 1 + 0, whose 48 feature rows all hold
+// bf16(v) of the lane; the output is the head's row 0.  The ALU part is per
+// thread: rounds of x = sin(x) * 1.1 + sqrt(|x| + 0.3), then
+// x > 1 ? x / 2 : x + 1/4.
 //
-// probe_mxu_kernel: the chain alone, output row 0 (k_mxu).
+// K6 runs the bf16 wgmma chain of nif_wgmma.cuh (128-ray tiles, the
+// weights streamed through shared memory: the NifWg of ops/nif.py's
+// wg_struct), K7 still the mma.sync chain of nif_dev.cuh (nif_layers: 64-ray
+// tiles, bf16 mma.sync, the NifNet of ops/nif.py::net_struct):
+//
+// probe_wg_kernel<false> (K6 'mxu'): the chain alone, output row 0 (k_mxu).
 // probe_alu_kernel: `rounds` ALU rounds alone, one lane per thread (k_vpu).
-// probe_both_kernel: the chain with `per_layer` ALU rounds for the tile's
-//   lanes after each layer (k_both), output row 0 + the ALU value.
+// probe_wg_kernel<true> (K6 'both'): the chain with `per_layer` ALU rounds
+//   after each layer's last wgmma is issued and before the wait for it
+//   (the layer hook), run by the 64 threads of each consumer warpgroup
+//   that own a lane, so they overlap the layer's MMAs in flight (k_both);
+//   output row 0 + the ALU value.
 // probe_loop_kernel<kPrng, kState>: `iters` iterations of the interleaved
 //   chain in the kernel (k_loop): v = u + acc 1e-6, with kPrng plus the top
 //   24 bits of a Philox4x32-10 word (key (7, 0), counter (lane, iteration,
@@ -24,11 +31,13 @@
 // What bounds them: the chain kernels are bound by the tensor cores'
 // multiply-adds (0.54 M per lane, as K2: 1.2 TFLOP per call at 1,105,920
 // lanes), the ALU kernel by the SFU's sin and sqrt (the f32 work is ~1%
-// of one chain).  Each ALU lane runs on one thread of the tile's first
-// two warps while all eight warps share the products, so ALU and tensor
-// work can overlap across the warps of a block and across the blocks of
-// an SM; the probe measures how much does.
-#include "nif_dev.cuh"
+// of one chain).  In K6 'both' the ALU rounds run while the layer's last
+// MMAs are in flight (wgmma is asynchronous: the issuing threads go on);
+// in K7 each ALU lane runs on one thread of the tile's first two warps
+// while all eight warps share the products, so ALU and tensor work can
+// overlap across the warps of a block and across the blocks of an SM.  The
+// probes measure how much does.
+#include "nif_wgmma.cuh"
 
 namespace pt {
 
@@ -56,16 +65,55 @@ struct AluHook {
   }
 };
 
-__global__ void __launch_bounds__(kThreads, 2) probe_mxu_kernel(NifNet net, NifSmem plan,
-                                                             const float* __restrict__ u, int n,
-                                                             float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const NifTile t(smem, plan);
-  const int tid = threadIdx.x, p = blockIdx.x * kTile + tid;
-  if (tid < kTile) fill_features(net, t, p < n ? u[p] : 0.0f);
-  __syncthreads();
-  nif_layers(net, t, NoLayerHook{});
-  if (tid < kTile && p < n) out[p] = t.out[tid];
+// K6's ALU rounds after each layer, in the consumer threads that own a
+// lane (the first 64 of each warpgroup: two whole warps).
+struct WgAluHook {
+  float& v;
+  int rounds;
+  bool own;
+  PT_HD void operator()(int) const {
+    if (own)
+      for (int k = 0; k < rounds; ++k) v = alu_round(v);
+  }
+};
+
+// K6's head output: row 0 of ray p into shared memory (row0[p - ray0]),
+// where the thread that owns the lane picks it up.
+struct WgOverlapIo {
+  int n, ray0;
+  float* row0;
+  PT_HD void store(int o, int p, float y) const {
+    if (o == 0) row0[p - ray0] = y;
+  }
+};
+
+template <bool kAlu>
+__global__ void __launch_bounds__(kWgThreads, 1) probe_wg_kernel(NifWg net,
+                                                               const float* __restrict__ u, int n,
+                                                               int per_layer,
+                                                               float* __restrict__ out) {
+  wg_tiles<false>(net, (n + kWgRays - 1) / kWgRays, [&](WgConsumer& c, int tile) {
+    const int ray0 = tile * kWgRays + 64 * c.wg;
+    // Every feature row of ray p <- bf16(u[p]); the rows from 4E up stay
+    // zero (wg_setup).
+    unsigned char* const feat = c.smem + net.smem_feat;
+    for (int idx = c.t; idx < 64 * 4 * net.embed_dim; idx += 128) {
+      const int r = idx & 63, k = idx >> 6;
+      *reinterpret_cast<uint16_t*>(feat + wg_offset<false>(64 * c.wg + r, k)) =
+          f32_to_bf16(ray0 + r < n ? u[ray0 + r] : 0.0f);
+    }
+    fence_proxy_async();
+    group_sync(c.wg);
+    const bool own = c.t < 64;
+    float v = own && ray0 + c.t < n ? u[ray0 + c.t] : 0.0f;
+    float* const row0 = (float*)(c.smem + net.smem_uv) + 64 * c.wg;
+    if constexpr (kAlu)
+      wg_layers<ChainBf16>(net, c, ray0, WgOverlapIo{n, ray0, row0}, WgAluHook{v, per_layer, own});
+    else
+      wg_layers<ChainBf16>(net, c, ray0, WgOverlapIo{n, ray0, row0});
+    group_sync(c.wg);  // row 0 of the group's rays stored
+    if (own && ray0 + c.t < n) out[ray0 + c.t] = kAlu ? row0[c.t] + v : row0[c.t];
+  });
 }
 
 __global__ void probe_alu_kernel(const float* __restrict__ u, int n, int rounds,
@@ -75,20 +123,6 @@ __global__ void probe_alu_kernel(const float* __restrict__ u, int n, int rounds,
   float x = u[p];
   for (int k = 0; k < rounds; ++k) x = alu_round(x);
   out[p] = x;
-}
-
-__global__ void __launch_bounds__(kThreads, 2) probe_both_kernel(NifNet net, NifSmem plan,
-                                                              const float* __restrict__ u, int n,
-                                                              int per_layer,
-                                                              float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const NifTile t(smem, plan);
-  const int tid = threadIdx.x, p = blockIdx.x * kTile + tid;
-  float v = tid < kTile && p < n ? u[p] : 0.0f;
-  if (tid < kTile) fill_features(net, t, v);
-  __syncthreads();
-  nif_layers(net, t, AluHook{v, per_layer});
-  if (tid < kTile && p < n) out[p] = t.out[tid] + v;
 }
 
 constexpr int kProbeExtras = 12;
@@ -134,9 +168,9 @@ __global__ void __launch_bounds__(kThreads, 2) probe_loop_kernel(NifNet net, Nif
   if (tid < kTile && p < n) out[p] = acc + sum;
 }
 
+// K7's launch: one block of kThreads threads per kTile lanes.
 template <typename Kernel, typename... Args>
 int launch_probe(Kernel kernel, const NifNet& net, int n, void* stream, Args... args) {
-  if (net.int8) return (int)cudaErrorInvalidValue;  // the probes run the bf16 chain
   const NifSmem plan = nif_smem_plan(net, 0);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)plan.total);
@@ -149,9 +183,12 @@ int launch_probe(Kernel kernel, const NifNet& net, int n, void* stream, Args... 
 
 }  // namespace pt
 
-extern "C" int pt_probe_mxu(const pt::NifNet* net, const float* u, int n, float* out,
+// K6 'mxu' and 'both' take the probe model's bf16 NifWg; K7 its NifNet.
+extern "C" int pt_probe_mxu(const pt::NifWg* wg, const float* u, int n, float* out,
                             void* stream) {
-  return pt::launch_probe(pt::probe_mxu_kernel, *net, n, stream, u, n, out);
+  if (wg == nullptr || wg->int8) return (int)cudaErrorInvalidValue;
+  void (*const kernel)(pt::NifWg, const float*, int, int, float*) = pt::probe_wg_kernel<false>;
+  return pt::launch_wg(kernel, *wg, n, stream, *wg, u, n, 0, out);
 }
 
 extern "C" int pt_probe_alu(const float* u, int n, int rounds, float* out, void* stream) {
@@ -161,9 +198,11 @@ extern "C" int pt_probe_alu(const float* u, int n, int rounds, float* out, void*
   return (int)cudaGetLastError();
 }
 
-extern "C" int pt_probe_both(const pt::NifNet* net, const float* u, int n, int per_layer,
+extern "C" int pt_probe_both(const pt::NifWg* wg, const float* u, int n, int per_layer,
                              float* out, void* stream) {
-  return pt::launch_probe(pt::probe_both_kernel, *net, n, stream, u, n, per_layer, out);
+  if (wg == nullptr || wg->int8) return (int)cudaErrorInvalidValue;
+  void (*const kernel)(pt::NifWg, const float*, int, int, float*) = pt::probe_wg_kernel<true>;
+  return pt::launch_wg(kernel, *wg, n, stream, *wg, u, n, per_layer, out);
 }
 
 extern "C" int pt_probe_loop(const pt::NifNet* net, const float* u, int n, int per_layer,

@@ -2,25 +2,25 @@
 // precomputed Fourier features, in one of six arithmetics.
 //
 // Replaces scripts/quant_probe.py::build_call (kernel bodies _bf16_kernel
-// :142, _int8_perchan_kernel :161, _narrow_kernel :197).  Two kernel
-// bodies, each instantiated per variant:
-//
-//  * quant_probe_wg_kernel<V>, the wgmma chains of nif_wgmma.cuh (128-ray
-//    tiles, the weights streamed through shared memory; probes/quant.py
-//    packs the slices and the plan), with the features read from the
-//    input in place of the encode:
-//     - bf16: the (48, n) f32 features cast to bf16, the bf16 chain
-//       (ChainBf16: f32 bias + ReLU, the skip concat) and a decode of
-//       y * 1 + 0; out (3, n);
-//     - int8_requant / int8_perchan / int8_raw: the (64, n) int8 codes as
-//       they are, s8 x s8 -> s32 wgmma, the epilogue below (ChainK8<V>);
-//       out (8, n), all eight head rows;
-//  * quant_probe_kernel<V>, fp8_e4m3 / fp8_raw: a block of kThreads
-//    threads runs a tile of kTile rays on the mma.sync fragments of
-//    nif_dev.cuh (ray-major 8-bit activations, plain ldmatrix), m16n8k32
-//    e4m3 x e4m3 -> f32 (mma_rows_e4m3).  On sm_90 that instruction runs
-//    as f16 HMMA, not the fp8 tensor-core path (QGMMA, wgmma only): a
-//    later slice moves it, with the quality gate's fp8 arm.
+// :142, _int8_perchan_kernel :161, _narrow_kernel :197).  One kernel body,
+// quant_probe_wg_kernel<V>, on the wgmma chains of nif_wgmma.cuh
+// (128-ray tiles, the weights streamed through shared memory;
+// probes/quant.py packs the slices and the plan), with the features read
+// from the input in place of the encode:
+//  - bf16: the (48, n) f32 features cast to bf16, the bf16 chain
+//    (ChainBf16: f32 bias + ReLU, the skip concat) and a decode of
+//    y * 1 + 0; out (3, n);
+//  - int8_requant / int8_perchan / int8_raw: the (64, n) int8 codes as
+//    they are, s8 x s8 -> s32 wgmma (IGMMA), the epilogue below
+//    (ChainK8<V>); out (8, n), all eight head rows;
+//  - fp8_e4m3 / fp8_raw: the (64, n) e4m3 codes and weights as their bf16
+//    values (exact: an e4m3 value has 4 significant bits) on the bf16
+//    tile, bf16 wgmma (HGMMA) with f32 sums as the plain version's, the
+//    same epilogue, each code stored as its bf16 value (ChainK8Wide<V>;
+//    the skip layer's two dots by wg_skip_wide); out (8, n).  Not the
+//    card's fp8 MMA: e4m3 wgmma (QGMMA) keeps only part of a sum's bits
+//    and breaks K8's fp8 budget, as cuBLAS's fp8 chain does (PERF.md;
+//    probes/fp8_qgmma.py rebuilds this kernel on QGMMA and measures it).
 //
 // The narrow epilogue is the script's: y = acc * m_l + b, at the skip
 // layer (two dots: trunk columns against the activations, feature
@@ -70,35 +70,68 @@ __device__ __forceinline__ uint8_t next_code(float y, float inv) {
   }
 }
 
-// The int8 variants' chain on the wgmma tile: the script's epilogue with
-// the accumulators of wgmma s8, the head's eight rows as they are.
-template <int V>
-struct ChainK8 {
-  static constexpr bool kInt8 = true;
+// e4m3 code -> the bf16 bits of its value, exact (an e4m3 value has 4
+// significant bits, its exponents fit f16's): e4m3 -> f16 -> f32 by the
+// hardware's conversions, then the f32's top half; NaN stays NaN.
+PT_HD uint32_t e4m3_to_bf16(uint32_t code) {
+  uint32_t h2;
+  float f;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h2) : "h"((unsigned short)code));
+  asm("cvt.f32.f16 %0, %1;" : "=f"(f) : "h"((unsigned short)(h2 & 0xFFFFu)));
+  return __float_as_uint(f) >> 16;
+}
+
+// The script's narrow epilogue (its products and sums in its order).
+template <int V, class A>
+struct K8Epilogue {
   static constexpr int kHeadOutputs = 8;
-  using Acc = int;
-  PT_HD static float dense(int acc, float m, float b) { return fmaf((float)acc, m, b); }
-  PT_HD static float skip(int acc, int accf, float m, float ms, float b) {
+  using Acc = A;
+  PT_HD static float dense(Acc acc, float m, float b) { return fmaf((float)acc, m, b); }
+  PT_HD static float skip(Acc acc, Acc accf, float m, float ms, float b) {
     return fmaf((float)acc, m, (float)accf * ms) + b;
   }
   PT_HD static uint32_t code(float y, float inv) { return next_code<V>(y < 0.0f ? 0.0f : y, inv); }
-  PT_HD static float head(const NifWg& net, int l, int o, int acc) {
+  PT_HD static float head(const NifWg& net, int l, int o, Acc acc) {
     return dense(acc, net.mult[l][o], net.b[l][o]);
+  }
+};
+
+// The int8 variants' chain on the s8 tile: wgmma s8's accumulators, the
+// head's eight rows as they are.
+template <int V>
+struct ChainK8 : K8Epilogue<V, int> {
+  static constexpr bool kInt8 = true;
+};
+
+// The fp8 variants' chain: the same epilogue on the bf16 tile, the codes
+// as their bf16 values, bf16 wgmma with f32 sums; a hidden layer stores
+// each code's bf16 value (act).
+template <int V>
+struct ChainK8Wide : K8Epilogue<V, float> {
+  static constexpr bool kInt8 = false;
+  static constexpr bool kNarrow = true;
+  PT_HD static uint32_t act(float y, float inv) {
+    return e4m3_to_bf16(K8Epilogue<V, float>::code(y, inv));
   }
 };
 
 // The probe's ends on the wgmma tile: `rows` feature rows of the (rows, n)
 // input in place of the encode (bf16: f32 values cast; int8: the codes as
-// they are), the head's rows into the (kHeadOutputs, n) output.
+// they are; fp8: the e4m3 codes' bf16 values), the head's rows into the
+// (kHeadOutputs, n) output.
 struct WgProbeIo {
   static constexpr bool kFeatures = true;
   const void* feats;
   int rows, n;
   float* out;
-  template <bool kInt8>
+  template <class Ch>
   PT_HD void put(unsigned char* feat, int row, int k, int p) const {
-    if constexpr (kInt8)
-      feat[wg_offset<true>(row, k)] = p < n ? ((const uint8_t*)feats)[(size_t)k * n + p] : 0;
+    const uint8_t* const codes = (const uint8_t*)feats;
+    if constexpr (Ch::kInt8)
+      feat[wg_offset<true>(row, k)] = p < n ? codes[(size_t)k * n + p] : 0;
+    else if constexpr (Ch::kNarrow)
+      *reinterpret_cast<uint16_t*>(feat + wg_offset<false>(row, k)) =
+          p < n ? (uint16_t)e4m3_to_bf16(codes[(size_t)k * n + p]) : (uint16_t)0;
     else
       *reinterpret_cast<uint16_t*>(feat + wg_offset<false>(row, k)) =
           f32_to_bf16(p < n ? ((const float*)feats)[(size_t)k * n + p] : 0.0f);
@@ -107,133 +140,37 @@ struct WgProbeIo {
 };
 
 template <int V>
+using K8Chain = typename std::conditional<
+    V == kBf16, ChainBf16,
+    typename std::conditional<(V < kFp8), ChainK8<V>, ChainK8Wide<V>>::type>::type;
+
+template <int V>
 __global__ void __launch_bounds__(kWgThreads, 1) quant_probe_wg_kernel(NifWg net,
                                                                      const void* __restrict__ feats,
                                                                      int rows, int n,
                                                                      float* __restrict__ out) {
-  using Chain = typename std::conditional<V == kBf16, ChainBf16, ChainK8<V>>::type;
-  nif_wg_tiles<Chain>(net, WgProbeIo{feats, rows, n, out});
-}
-
-// One pass of fp8 layer l over the warp's output tiles j0 + q * kWarps:
-// the dots, the epilogue; hidden layers write codes out[ray][o], the head
-// writes y to row o of the (8, n) output.
-template <int V, int Q, bool kSkip>
-__device__ inline void k8_layer_pass(const NifNet& net, int l, const uint8_t* in, int in_stride,
-                                     const uint8_t* feat, int feat_stride, uint8_t* out,
-                                     int out_stride, float* __restrict__ y_out, int n, int tile0,
-                                     int j0, int lane) {
-  const int fan_out = net.fan_out[l], k_trunk = net.k_trunk[l], k_pad = net.k_pad[l];
-  const int n_tiles = (fan_out + 7) / 8;
-  const bool last = l == net.num_layers - 1;
-  const uint8_t* w = (const uint8_t*)net.w[l];
-  float acc[Q][kMTiles][4] = {};
-  float accf[kSkip ? Q : 1][kMTiles][4] = {};
-  mma_rows_e4m3<Q>(acc, in, in_stride, k_trunk / 32, w, k_pad, 0, n_tiles, j0, lane);
-  if constexpr (kSkip)
-    mma_rows_e4m3<Q>(accf, feat, feat_stride, (k_pad - k_trunk) / 32, w, k_pad, k_trunk, n_tiles,
-                     j0, lane);
-  const int g = lane >> 2, tg = lane & 3;
-  const float inv = net.inv_next[l];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int j = j0 + q * kWarps;
-    if (j >= n_tiles) continue;
-#pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // C fragment: (ray g [+8], output 2 tg [+1])
-        const int o = j * 8 + tg * 2 + (e & 1);
-        const int ray = mt * 16 + g + (e >> 1) * 8;
-        if (o >= fan_out) continue;
-        const float m = __ldg(net.mult[l] + o);
-        float y;
-        if constexpr (kSkip)
-          y = fmaf(acc[q][mt][e], m, accf[q][mt][e] * __ldg(net.mult_skip + o)) +
-              __ldg(net.b[l] + o);
-        else
-          y = fmaf(acc[q][mt][e], m, __ldg(net.b[l] + o));
-        if (last) {
-          if (tile0 + ray < n) y_out[(size_t)o * n + tile0 + ray] = y;
-        } else {
-          out[ray * out_stride + o] = next_code<V>(y < 0.0f ? 0.0f : y, inv);
-        }
-      }
-  }
-}
-
-template <int V>
-__global__ void __launch_bounds__(kThreads, 2) quant_probe_kernel(NifNet net, NifSmem plan,
-                                                                const void* __restrict__ feats,
-                                                                int n, float* __restrict__ out) {
-  static_assert(V == kFp8 || V == kFp8Raw, "bf16 and int8 run quant_probe_wg_kernel");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const NifTile t(smem, plan);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tile0 = blockIdx.x * kTile;
-  const int rows = net.fan_in[0];  // feature rows: 64 (zero padded)
-  // (rows, n) 8-bit codes -> ray-major [ray][row8(rows)]: the transpose
-  // of the feature-major input, one byte per thread and step.
-  const uint8_t* f = (const uint8_t*)feats;
-  const int fs = row8(rows), as = row8(net.max_width);
-  uint8_t* const fb = t.feat;
-  for (int idx = tid; idx < rows * kTile; idx += kThreads) {
-    const int r = idx / kTile, ray = idx % kTile;
-    fb[ray * fs + r] = tile0 + ray < n ? f[(size_t)r * n + tile0 + ray] : (uint8_t)0;
-  }
-  __syncthreads();
-  const uint8_t* in = fb;
-  int in_stride = fs;
-  uint8_t* o8 = t.buf0;
-  for (int l = 0; l < net.num_layers; ++l) {
-    const int n_tiles = (net.fan_out[l] + 7) / 8;
-    if (net.skip[l]) {
-      for (int j0 = warp; j0 < n_tiles; j0 += kQSkip * kWarps)
-        k8_layer_pass<V, kQSkip, true>(net, l, in, in_stride, fb, fs, o8, as, out, n, tile0, j0,
-                                       lane);
-    } else {
-      for (int j0 = warp; j0 < n_tiles; j0 += kQMax * kWarps)
-        k8_layer_pass<V, kQMax, false>(net, l, in, in_stride, fb, fs, o8, as, out, n, tile0, j0,
-                                       lane);
-    }
-    __syncthreads();
-    in = o8;
-    in_stride = as;
-    o8 = o8 == t.buf0 ? t.buf1 : t.buf0;
-  }
-}
-
-template <int V>
-int launch_quant_probe(const NifNet& net, const void* feats, int n, float* out, void* stream) {
-  const NifSmem plan = nif_smem_plan(net, 0);
-  cudaError_t err = cudaFuncSetAttribute(quant_probe_kernel<V>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)plan.total);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + kTile - 1) / kTile;
-  if (blocks == 0) return 0;
-  quant_probe_kernel<V><<<blocks, kThreads, plan.total, (cudaStream_t)stream>>>(net, plan, feats,
-                                                                               n, out);
-  return (int)cudaGetLastError();
+  nif_wg_tiles<K8Chain<V>>(net, WgProbeIo{feats, rows, n, out});
 }
 
 template <int V>
 int launch_quant_probe_wg(const NifWg& net, const void* feats, int rows, int n, float* out,
                           void* stream) {
+  using Chain = K8Chain<V>;
   void (*const kernel)(NifWg, const void*, int, int, float*) = quant_probe_wg_kernel<V>;
-  if ((V == kBf16) == (net.int8 != 0)) return (int)cudaErrorInvalidValue;
+  if (Chain::kInt8 != (net.int8 != 0) || (V != kBf16 && net.mult[0] == nullptr))
+    return (int)cudaErrorInvalidValue;
   return launch_wg(kernel, net, n, stream, net, feats, rows, n, out);
 }
 
 }  // namespace pt
 
 // variant: the index in probes/quant.py::VARIANTS (bf16, int8_requant,
-// int8_perchan, int8_raw, fp8_e4m3, fp8_raw).  bf16 and int8 take wg (the
-// wgmma chain) and rows, the feature rows of feats; fp8 takes net.
-extern "C" int pt_quant_probe(const pt::NifNet* net, const pt::NifWg* wg, int variant,
-                              const void* feats, int rows, int n, float* out, void* stream) {
-  const bool fp8 = variant == pt::kFp8 || variant == pt::kFp8Raw;
-  if ((fp8 ? (const void*)net : (const void*)wg) == nullptr) return (int)cudaErrorInvalidValue;
+// int8_perchan, int8_raw, fp8_e4m3, fp8_raw); wg the variant's wgmma chain
+// (bf16 slices; the 8-bit slices of the int8 codes; the bf16 slices of the
+// e4m3 codes' values) and rows the feature rows of feats.
+extern "C" int pt_quant_probe(const pt::NifWg* wg, int variant, const void* feats, int rows,
+                              int n, float* out, void* stream) {
+  if (wg == nullptr) return (int)cudaErrorInvalidValue;
   switch (variant) {
     case pt::kBf16: return pt::launch_quant_probe_wg<pt::kBf16>(*wg, feats, rows, n, out, stream);
     case pt::kInt8Requant:
@@ -242,8 +179,9 @@ extern "C" int pt_quant_probe(const pt::NifNet* net, const pt::NifWg* wg, int va
       return pt::launch_quant_probe_wg<pt::kInt8Perchan>(*wg, feats, rows, n, out, stream);
     case pt::kInt8Raw:
       return pt::launch_quant_probe_wg<pt::kInt8Raw>(*wg, feats, rows, n, out, stream);
-    case pt::kFp8: return pt::launch_quant_probe<pt::kFp8>(*net, feats, n, out, stream);
-    case pt::kFp8Raw: return pt::launch_quant_probe<pt::kFp8Raw>(*net, feats, n, out, stream);
+    case pt::kFp8: return pt::launch_quant_probe_wg<pt::kFp8>(*wg, feats, rows, n, out, stream);
+    case pt::kFp8Raw:
+      return pt::launch_quant_probe_wg<pt::kFp8Raw>(*wg, feats, rows, n, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,9 +10,10 @@ baked env mode call it).  Both live in ``csrc/nif.cu`` and run the
 ``wgmma_operands`` (``wg_struct``): a ``NifModel``'s bf16 chain, or a
 ``QuantNifModel``'s int8 chain (K5, ``_quant_mlp_core``: s8 slices under
 the 64-byte swizzle, with its multipliers from ``wgmma_scales``).  K3
-runs the same chains (ops/megastep.py), K8 too (probes/quant.py); the
-bf16 ``mma.sync`` chain of ``nif_dev.cuh`` (``kernel_operands``,
-``net_struct``) serves the probe K6 alone.
+runs the same chains (ops/megastep.py), the probes K6 (probes/overlap.py)
+and K8 (probes/quant.py) too; the bf16 ``mma.sync`` chain of
+``nif_dev.cuh`` (``kernel_operands``, ``net_struct``) serves the loop
+probe K7 alone.
 Each wrapper launches its kernel for CUDA tensors and runs its ``*_plain``
 version for CPU tensors; a shape the ``wgmma`` chain cannot take raises
 (``wgmma_plan``), and the launchers take a ``NifWg`` only (``wg_arg``).
@@ -46,7 +47,7 @@ def _cached(model: NifModel, attr: str, tensors, build):
 
 
 def kernel_operands(model: NifModel) -> list[tuple[torch.Tensor, torch.Tensor, int, int]]:
-    """bf16 ``mma.sync`` chain (the probe K6), per layer (packed weights, f32
+    """bf16 ``mma.sync`` chain (the probe K7), per layer (packed weights, f32
     bias, k_trunk, k_pad): (round8(out), k_pad) bf16 rows, one per output -
     the trunk inputs zero-padded to k_trunk = round(trunk, 16), then (skip
     layer) the Fourier-feature inputs zero-padded to 16 on their own - the
@@ -237,9 +238,10 @@ def wgmma_scales(model: QuantNifModel) -> tuple[list[torch.Tensor], torch.Tensor
 def wg_net(plan: dict, operands, embed_dim: int, log_flag: bool, max_v: float, mean,
            scales=None) -> _lib.NifWg:
     """A NifWg of ``plan`` over ``operands`` [(slices, bias)] - and for the
-    8-bit chain (``plan["elem"] == 1``) ``scales``: the per-layer
-    multipliers, the skip multipliers and the per-layer quant steps - with
-    the decode's constants.  The tensors must outlive the launches."""
+    narrow chains (the 8-bit ones, ``plan["elem"] == 1``, and K8's fp8 on
+    the bf16 tile) ``scales``: the per-layer multipliers, the skip
+    multipliers and the per-layer quant steps - with the decode's
+    constants.  The tensors must outlive the launches."""
     net = _lib.NifWg()
     net.num_layers = len(plan["layers"])
     net.embed_dim = embed_dim
@@ -255,7 +257,7 @@ def wg_net(plan: dict, operands, embed_dim: int, log_flag: bool, max_v: float, m
     for c in range(3):
         net.mean[c] = mean[c]
     net.int8 = int(plan["elem"] == 1)
-    if net.int8:
+    if scales is not None:
         mults, mult_skip, inv_next = scales
         for i, (m, inv) in enumerate(zip(mults, inv_next)):
             net.mult[i], net.inv_next[i] = m.data_ptr(), inv
@@ -276,9 +278,9 @@ def wg_struct(model: NifModel, plan: dict | None = None) -> _lib.NifWg:
 
 
 def wg_arg(net) -> ctypes._CArgObject:
-    """The NIF kernels' chain argument: a NifWg (``wg_struct``).  A NifNet,
-    the ``mma.sync`` chains' struct that K2, K3 and K4 no longer run, or
-    anything else raises."""
+    """The ``wgmma`` kernels' chain argument (K2, K3, K4, K6, K8): a NifWg
+    (``wg_struct``).  A NifNet, the ``mma.sync`` chain's struct that only
+    K7 still runs, or anything else raises."""
     if not isinstance(net, _lib.NifWg):
         raise ValueError(f"the NIF kernels take a NifWg (the wgmma chain), not a "
                          f"{type(net).__name__}")
@@ -286,9 +288,10 @@ def wg_arg(net) -> ctypes._CArgObject:
 
 
 def net_struct(model: NifModel) -> _lib.NifNet:
-    """The ``mma.sync`` chain's view of a bf16 model (the probe K6):
-    per-layer shapes, skip flags and pointers to the packed operands (kept
-    alive by the model's cache).  The int8 chain runs on ``wgmma`` only."""
+    """The ``mma.sync`` chain's view of a bf16 model (the loop probe K7,
+    the only kernel left on that chain): per-layer shapes, skip flags and
+    pointers to the packed operands (kept alive by the model's cache).  The
+    int8 chain runs on ``wgmma`` only."""
     plan = model.layer_plan()
     if len(plan) > _lib.NIF_MAX_LAYERS:
         raise ValueError(f"NIF has {len(plan)} layers; the kernel takes at most "

@@ -49,12 +49,12 @@ ABLATIONS = {
                     bytes, full + 8 * stage);""", """          (void)bytes;
           (void)src;
           mbar_arrive(full + 8 * stage);""")],
-    "no-mma": [(H, """      wg_mma<k8, N0>(acc0, da + 2 * ks, db + 2 * ks);
+    "no-mma": [(H, """      wg_mma<Ch, N0>(acc0, da + 2 * ks, db + 2 * ks);
       if constexpr (N1 > 0)
-        wg_mma<k8, N1>(acc1, da + 2 * ks, db + 2 * ks + N0 * kWgRowBytes<k8> / 16);""",
+        wg_mma<Ch, N1>(acc1, da + 2 * ks, db + 2 * ks + N0 * kWgRowBytes<k8> / 16);""",
                 """      acc0[ks] += (typename Ch::Acc)(da + db);"""),
-               (H, """    for (int ks = 0; ks < kWgKSteps<true>; ++ks) wgmma_s8<NH>(d, da + 2 * ks, db + 2 * ks);""",
-                """    for (int ks = 0; ks < kWgKSteps<true>; ++ks) d[ks] += (int)(da + db);""")],
+               (H, """    for (int ks = 0; ks < kWgKSteps<true>; ++ks) wg_mma<Ch, NH>(d, da + 2 * ks, db + 2 * ks);""",
+                """    for (int ks = 0; ks < kWgKSteps<true>; ++ks) d[ks] += (typename Ch::Acc)(da + db);""")],
     "no-epilogue": [(H, """    return (uint32_t)min(__float2int_rn(fmaxf(y, 0.0f) * inv), 255) ^ 0x80u;""",
                      """    return __float_as_uint(y + inv) & 0xFFu;"""),
                     (H, """  PT_HD static float dense(int acc, float m, float b) {

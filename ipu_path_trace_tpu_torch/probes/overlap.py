@@ -4,10 +4,14 @@ Replaces ``scripts/overlap_probe.py`` (K6: the chain alone, the ALU chain
 alone, both interleaved in one kernel) and ``scripts/overlap_probe2.py``
 (K7: the interleaved pair in a 16-iteration loop inside the kernel, with
 in-kernel Philox draws, with twelve more live carries, and with both).
-The kernels are ``csrc/probes.cu``; each wrapper launches its kernel for
-a CUDA tensor and runs its ``*_plain`` version for a CPU tensor.  The
-scripts' sizes are kept: 270 x 4096 lanes, the seven layers of ``LAYERS``,
-30 ALU rounds in K6 and 28 in K7.
+The kernels are ``csrc/probes.cu``: K6's chain on the bf16 ``wgmma`` tile
+of ``csrc/nif_wgmma.cuh`` (the probe model's ``NifWg``, ``ops/nif.wg_struct``;
+in 'both' the ALU rounds run while each layer's last MMAs are in flight),
+K7's on the ``mma.sync`` chain of ``csrc/nif_dev.cuh`` (its ``NifNet``,
+``ops/nif.net_struct``).  Each wrapper launches its kernel for a CUDA
+tensor and runs its ``*_plain`` version for a CPU tensor.  The scripts'
+sizes are kept: 270 x 4096 lanes, the seven layers of ``LAYERS``, 30 ALU
+rounds in K6 and 28 in K7.
 
     python -m ipu_path_trace_tpu_torch.probes.overlap    # on a CUDA GPU
 
@@ -26,7 +30,7 @@ import torch
 
 from ..models.nif import NifModel, mlp_chain
 from ..ops import _lib
-from ..ops.nif import model_tensors, net_struct
+from ..ops.nif import model_tensors, net_struct, wg_arg, wg_struct
 from ..ops.trace import philox4x32_10
 from ..utils.devtime import card_line, time_per_call
 
@@ -86,8 +90,9 @@ def both_plain(model: NifModel, u: torch.Tensor, rounds: int = K6_ROUNDS) -> tor
 
 
 def loop_plain(model: NifModel, u: torch.Tensor, prng: bool, state: bool,
-               iters: int = LOOP, rounds: int = K7_ROUNDS) -> torch.Tensor:
-    """Plain version of the loop kernel (overlap_probe2.py::k_loop)."""
+               iters: int = LOOP, rounds: int = K7_ROUNDS, chain=mxu_plain) -> torch.Tensor:
+    """Plain version of the loop kernel (overlap_probe2.py::k_loop); the
+    matrix part is ``chain(model, v)``."""
     n = u.shape[0]
     lane = torch.arange(n, dtype=torch.int64, device=u.device)
     zero = torch.zeros_like(lane)
@@ -98,7 +103,7 @@ def loop_plain(model: NifModel, u: torch.Tensor, prng: bool, state: bool,
         if prng:
             bits = philox4x32_10([lane, zero + i, zero, zero], 7, 0)[0]
             v = v + (bits >> 8).to(torch.float32) * 1e-9
-        r = alu_plain(v, per_layer(rounds) * len(LAYERS)) + mxu_plain(model, v)
+        r = alu_plain(v, per_layer(rounds) * len(LAYERS)) + chain(model, v)
         if state:
             extras = [alu_round_plain(e) + r * 1e-9 for e in extras]
         acc = acc + r
@@ -106,6 +111,13 @@ def loop_plain(model: NifModel, u: torch.Tensor, prng: bool, state: bool,
 
 
 # ----------------------------------------------------------- kernels ----
+
+def chain_arg(name: str, model: NifModel):
+    """The chain argument of probe ``name``'s launcher: K6 ('mxu', 'both')
+    the model's NifWg (``wg_arg`` refuses anything else), K7 ('loop') its
+    NifNet."""
+    return ctypes.byref(net_struct(model)) if name == "loop" else wg_arg(wg_struct(model))
+
 
 def _launch(name: str, u: torch.Tensor, model: NifModel | None, *args) -> torch.Tensor:
     tensors = [u] + ([] if model is None else model_tensors(model))
@@ -118,9 +130,8 @@ def _launch(name: str, u: torch.Tensor, model: NifModel | None, *args) -> torch.
     if model is None:
         err = lib.pt_probe_alu(_lib.ptr(u), n, *args, _lib.ptr(out), _lib.stream(dev))
     else:
-        net = net_struct(model)
-        fn = getattr(lib, f"pt_probe_{name}")
-        err = fn(ctypes.byref(net), _lib.ptr(u), n, *args, _lib.ptr(out), _lib.stream(dev))
+        err = getattr(lib, f"pt_probe_{name}")(chain_arg(name, model), _lib.ptr(u), n, *args,
+                                                _lib.ptr(out), _lib.stream(dev))
     _lib.check(err, f"probe {name}")
     return out
 

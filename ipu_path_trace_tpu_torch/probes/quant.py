@@ -23,29 +23,32 @@ toward zero and saturates (PyTorch wraps); ``to_e4m3`` and ``to_int8``
 say so in code.
 
 Each variant has a plain PyTorch version (``probe_plain``) and a kernel in
-``csrc/quant_probe.cu``, templated on the variant: bf16 and the three int8
-variants on the ``wgmma`` chains of ``csrc/nif_wgmma.cuh`` (the slices of
-``ops/nif.chain_slices``), fp8_e4m3 and fp8_raw on the ``mma.sync``
-fragments of ``csrc/nif_dev.cuh`` (on sm_90 those run as f16 HMMA, not the
-card's fp8 path).  The wrapper ``quant_probe`` launches the kernel for
-CUDA operands and runs the plain version for CPU ones, and counts its
-launches per variant.  The host side (``build_operands``) is the
-script's numpy, so the operands equal ``build_call``'s byte for byte.
+``csrc/quant_probe.cu``, templated on the variant, on the ``wgmma`` chains
+of ``csrc/nif_wgmma.cuh`` (the slices of ``ops/nif.chain_slices``): bf16
+(HGMMA), the three int8 variants (s8, IGMMA), fp8_e4m3 and fp8_raw exact
+on bf16 (the e4m3 codes' bf16 values, HGMMA with f32 sums, as the plain
+version sums; ``FP8_CHAIN``).  fp8 does not run on the card's fp8 MMA
+(e4m3 ``wgmma``, QGMMA): its sums keep only part of their bits and break
+the fp8 budget (PERF.md; ``probes/fp8_qgmma.py`` measures that route).
+The wrapper ``quant_probe`` launches the kernel for CUDA operands and runs
+the plain version for CPU ones, and counts its launches per variant.  The
+host side (``build_operands``) is the script's numpy, so the operands
+equal ``build_call``'s byte for byte.
 
     python -m ipu_path_trace_tpu_torch.probes.quant [--variants ...] [--iters N]
 
 times each variant on the card and prints the script's lines
 (ms per 1,105,920-ray sample, relative error against the f32 chain,
-speedup against bf16; the fp8 lines say that they still run mma.sync),
-then one JSON line of them with the card's nvidia-smi name and power
-limit.  The script's ``docs/QUANT.json`` is not written: the JSON line
-on stdout takes its place.
+speedup against bf16; the fp8 lines name their chain, ``FP8_CHAIN``, so
+that the ratio is not read as the fp8 tensor cores'), then one JSON line
+of them with the card's nvidia-smi name and power limit.  The script's
+``docs/QUANT.json`` is not written: the JSON line on stdout takes its
+place.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import functools
 import json
@@ -68,6 +71,9 @@ NLAYERS = 7  # 6 hidden + head
 PAD = 32  # contraction padding of the narrow variants
 RAYS = -(-WIDTH * HEIGHT // BLOCK) * BLOCK  # 1,105,920
 VARIANTS = ("bf16", "int8_requant", "int8_perchan", "int8_raw", "fp8_e4m3", "fp8_raw")
+# What the fp8 variants' kernel runs (csrc/quant_probe.cu ChainK8Wide), said
+# beside their times: bf16 tensor-core arithmetic, not the fp8 rate.
+FP8_CHAIN = "exact: e4m3 values on bf16 HGMMA"
 E4M3_NAN_ABOVE = 464.0  # 448 + half its ulp: JAX's f32 -> e4m3 gives NaN past it
 
 
@@ -172,7 +178,7 @@ class ProbeOperands:
     scal: torch.Tensor | None = None
     mults: list[torch.Tensor] | None = None
     mult_f: torch.Tensor | None = None
-    # The kernel's NifWg or NifNet and the tensors it points to (_kernel_net).
+    # The kernel's NifWg and the tensors it points to (_kernel_net).
     _net: tuple | None = dataclasses.field(default=None, init=False, repr=False,
                                            compare=False)
 
@@ -350,58 +356,44 @@ def _scales(ops: ProbeOperands) -> tuple[list, torch.Tensor | None, list | None]
 
 
 def probe_plan(ops: ProbeOperands) -> dict:
-    """The wgmma chain's plan of the bf16 and int8 variants
-    (ops/nif.chain_plan): the script's layers over its 48 (bf16) or 64
-    (int8, zero padded) feature rows."""
+    """The wgmma chain's plan of a variant (ops/nif.chain_plan): the
+    script's layers over its 48 (bf16) or 64 zero-padded feature rows, in
+    2-byte operands (bf16; fp8: the e4m3 codes' bf16 values) or 1-byte ones
+    (the int8 codes)."""
     dims = [(k, out, i == SKIP) for i, (out, k) in enumerate(w.shape for w in ops.weights)]
     return chain_plan(dims, ops.feats.shape[0], 1 if ops.variant.startswith("int8") else 2,
                       what=f"the precision probe's {ops.variant} chain")
 
 
-def _kernel_net(ops: ProbeOperands):
+def _kernel_net(ops: ProbeOperands) -> _lib.NifWg:
     """The kernel's view of the operands (csrc/quant_probe.cu), built once
-    and cached on ``ops`` with the tensors it points to: for bf16 and the
-    int8 variants a NifWg of ``probe_plan`` (the weights as swizzled
-    slices, biases and (int8) multipliers padded to the rows, the decode
-    y * 1 + 0); for fp8 a NifNet with (round8(out), K) e4m3 weight rows,
-    (out,) biases and multipliers, the skip dot's multipliers and the
-    quant steps."""
+    and cached on ``ops`` with the tensors it points to: a NifWg of
+    ``probe_plan`` - the weights as swizzled slices (e4m3 codes as their
+    bf16 values), biases and (narrow variants) multipliers padded to the
+    rows, the skip dot's multipliers and the quant steps, the decode
+    y * 1 + 0."""
     if ops._net is not None:
         return ops._net[0]
     mults, mf, inv = _scales(ops)
     biases = [b.reshape(-1).float().contiguous() for b in ops.biases]
-    if not ops.variant.startswith("fp8"):
-        plan = probe_plan(ops)
-        operands = [(chain_slices(lay, w), pad_rows(b, lay["rows"]))
-                    for lay, w, b in zip(plan["layers"], ops.weights, biases)]
-        scales = None
-        if plan["elem"] == 1:
-            scales = ([pad_rows(m, lay["rows"]) for lay, m in zip(plan["layers"], mults)],
-                      pad_rows(mf, HIDDEN), inv)
-        net = wg_net(plan, operands, EMBED, False, 1.0, (0.0, 0.0, 0.0), scales)
-        ops._net = (net, (operands, scales))
-        return net
-    net = _lib.NifNet()
-    net.num_layers = len(ops.weights)
-    net.embed_dim = EMBED
-    net.max_width = HIDDEN
-    net.int8 = 1  # ray-major 8-bit activations
-    feat_rows = ops.feats.shape[0]
-    keep = [*mults, mf]
-    for i, (w, b, m) in enumerate(zip(ops.weights, biases, mults)):
-        out, k = w.shape
-        w = w.contiguous()
-        net.fan_in[i], net.fan_out[i] = k, out
-        net.skip[i] = int(i == SKIP)
-        net.k_trunk[i] = k - feat_rows if i == SKIP else k
-        net.k_pad[i] = k
-        net.w[i], net.b[i], net.mult[i] = w.data_ptr(), b.data_ptr(), m.data_ptr()
-        net.inv_next[i] = inv[i]
-        keep += [w, b]
-    net.mult_skip = mf.data_ptr()
-    net.max_v = 1.0
-    ops._net = (net, keep)
+    plan = probe_plan(ops)
+    wide = lambda w: (w.float().to(torch.bfloat16)  # noqa: E731
+                      if w.dtype == torch.float8_e4m3fn else w)
+    operands = [(chain_slices(lay, wide(w)), pad_rows(b, lay["rows"]))
+                for lay, w, b in zip(plan["layers"], ops.weights, biases)]
+    scales = None
+    if ops.variant != "bf16":
+        scales = ([pad_rows(m, lay["rows"]) for lay, m in zip(plan["layers"], mults)],
+                  pad_rows(mf, HIDDEN), inv)
+    net = wg_net(plan, operands, EMBED, False, 1.0, (0.0, 0.0, 0.0), scales)
+    ops._net = (net, (operands, scales))
     return net
+
+
+def kernel_arg(ops: ProbeOperands):
+    """The launcher's chain argument: the variant's NifWg (``wg_arg``
+    refuses anything else)."""
+    return wg_arg(_kernel_net(ops))
 
 
 def _check_operands(ops: ProbeOperands) -> None:
@@ -425,11 +417,8 @@ def quant_probe(ops: ProbeOperands) -> torch.Tensor:
         return probe_plain(ops)
     dev = _lib.require_cuda(f"quant probe {ops.variant}", ops.feats, *ops.weights, *ops.biases)
     rows, n = ops.feats.shape
-    net = _kernel_net(ops)
-    nets = ((ctypes.byref(net), None) if ops.variant.startswith("fp8")
-            else (None, wg_arg(net)))
     out = torch.empty((3 if ops.variant == "bf16" else 8, n), dtype=torch.float32, device=dev)
-    err = _lib.library().pt_quant_probe(*nets, VARIANTS.index(ops.variant),
+    err = _lib.library().pt_quant_probe(kernel_arg(ops), VARIANTS.index(ops.variant),
                                         _lib.ptr(ops.feats), rows, n, _lib.ptr(out),
                                         _lib.stream(dev))
     _lib.check(err, f"quant probe {ops.variant}")
@@ -481,9 +470,9 @@ def main(argv=None) -> dict:
             base_ms = ms
         if base_ms:
             entry["speedup_vs_bf16"] = base_ms / ms
+        if variant.startswith("fp8"):  # bf16 tensor-core arithmetic: say so beside the ratio
+            entry["chain"] = FP8_CHAIN
         results["variants"][variant] = entry
-        if variant.startswith("fp8"):  # not the card's fp8 rate: say so beside the ratio
-            entry["chain"] = "mma.sync e4m3 (runs as f16 HMMA on sm_90, not QGMMA)"
         print(f"{variant}: {ms:.3f} ms/sample  rel_err={rel:.2e}"
               + (f"  ({base_ms / ms:.2f}x bf16)" if base_ms else "")
               + (f"  [{entry['chain']}]" if "chain" in entry else ""), flush=True)

@@ -230,3 +230,26 @@ def test_chain_from_slices_matches_jax(shape):
     rel = np.abs(got - ref) / (np.abs(ref) + 1e-2 * np.abs(ref).max())
     assert np.median(rel) < 5e-3
     assert rel.max() < 8e-2
+
+
+def test_launcher_signatures_match_the_sources():
+    """Every launcher's ctypes argtypes (ops/_lib.py::library) has as many
+    entries as its extern "C" signature in csrc/ has parameters: ctypes
+    passes extra arguments as C ints, which cuts a pointer."""
+    import ast
+    import re
+    from pathlib import Path
+
+    csrc = Path(_lib.__file__).resolve().parent.parent / "csrc"
+    params = {}
+    for src in _lib.SOURCES:
+        text = (csrc / src).read_text()
+        for name, args in re.findall(r'extern "C" [\w\s*]+?\b(pt_\w+)\(([^)]*)\)', text):
+            params[name] = len([a for a in args.split(",") if a.strip()])
+    declared = {}
+    for node in ast.walk(ast.parse(Path(_lib.__file__).read_text())):
+        if (isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Attribute)
+                and node.targets[0].attr == "argtypes"):
+            declared[node.targets[0].value.attr] = len(node.value.elts)
+    assert set(declared) <= set(params) and "pt_quant_probe" in declared
+    assert {k: params[k] for k in declared} == declared

@@ -10,6 +10,16 @@ max 8e-2, floored at 1% of the peak; tests/test_nif_pallas.py), the ALU
 chain to rtol 1e-5 on all but 5e-3 of the lanes (a lane next to the
 x > 1 select may take the other branch after a last-bit difference in
 sin).
+
+K6's kernels run the bf16 wgmma tile (csrc/probes.cu on csrc/nif_wgmma.cuh)
+and need an H100; here the CPU checks what they are given - the probe
+model's NifWg plan fits a block and its swizzled slices recover the
+scripts' weights exactly - and a CPU model of the tile (bf16(u) in every
+feature row, the slices read in kernel order with f32 sums, ReLU and a
+round to bf16 between layers, row 0 of the head, plus the ALU rounds for
+'both') against the plain versions and the scripts' chains within the
+bf16 budget; and that K6's launch path takes the NifWg alone (K7 keeps
+the mma.sync chain's NifNet).
 """
 
 import ast
@@ -20,6 +30,10 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_nif_wgmma import _unswizzle
+
+from ipu_path_trace_tpu_torch.ops import _lib
+from ipu_path_trace_tpu_torch.ops import nif as nif_ops
 from ipu_path_trace_tpu_torch.ops.trace import philox4x32_10
 from ipu_path_trace_tpu_torch.probes import overlap
 
@@ -133,6 +147,83 @@ def test_loop_matches_k_loop(variant):
     prng, state = overlap.LOOP_VARIANTS[variant]
     got = overlap.overlap_loop(overlap.probe_model(), torch.from_numpy(u), variant)
     _assert_chain_close(got, _reference_loop(u, prng, state))
+
+
+def test_k6_plan_and_slices():
+    """The probe model's NifWg: the bf16 plan of its seven layers within a
+    block's 227 KB (3 ring stages), and each layer's slices un-swizzle to
+    the scripts' (out, in) weights exactly, every pad zero, biases zero."""
+    model = overlap.probe_model()
+    plan = nif_ops.wgmma_plan(model)
+    net = nif_ops.wg_struct(model)
+    assert plan["elem"] == 2 and plan["stages"] == 3 and plan["smem_bytes"] <= 232_448
+    assert (net.int8, net.num_layers, net.smem_bytes) == (0, 7, plan["smem_bytes"])
+    assert (net.max_v, *net.mean, net.log_flag) == (1.0, 0.0, 0.0, 0.0, 0)
+    assert list(net.chunks[:7]) == [5, 5, 5, 5, 5, 5, 0]
+    assert list(net.f_atoms[:7]) == [1, 0, 0, 1, 0, 0, 0]
+    for lay, (slices, bias), w in zip(plan["layers"], nif_ops.wgmma_operands(model), _weights()):
+        wt = np.asarray(w, np.float32)
+        flat = _unswizzle(slices.float().numpy())
+        fan_out, trunk, k_act = lay["fan_out"], lay["trunk"], 64 * lay["in_atoms"]
+        np.testing.assert_array_equal(flat[:fan_out, :trunk], wt[:, :trunk])
+        np.testing.assert_array_equal(flat[:fan_out, k_act:k_act + lay["fan_in"] - trunk],
+                                      wt[:, trunk:])
+        pad = np.ones_like(flat, dtype=bool)
+        pad[:fan_out, :trunk] = False
+        pad[:fan_out, k_act:k_act + lay["fan_in"] - trunk] = False
+        assert not flat[pad].any() and not bias.any() and bias.shape == (lay["rows"],)
+
+
+def _k6_tile(model, u):
+    """K6's tile from its operands: every feature row of a lane holds
+    bf16(u), the slices read in kernel order (trunk slices, then feature
+    slices) with f32 sums, ReLU and bf16 between layers; row 0 of the
+    head times 1 plus 0 (the probe's decode)."""
+    plan = nif_ops.wgmma_plan(model)
+    feats = torch.zeros((u.shape[0], 64 * plan["feat_atoms"]))
+    feats[:, :4 * model.embedding_dim] = u.to(torch.bfloat16).float()[:, None]
+    x = None
+    for lay, (slices, bias) in zip(plan["layers"], nif_ops.wgmma_operands(model)):
+        w = torch.from_numpy(_unswizzle(slices.float().numpy()))
+        inputs = ([x[:, :64 * lay["in_atoms"]]] if lay["in_atoms"] else []) + (
+            [feats] if lay["f_atoms"] else [])
+        y = torch.cat(inputs, dim=1) @ w.t() + bias
+        x = torch.relu(y).to(torch.bfloat16).float()
+    return y[:, 0] * 1.0 + 0.0
+
+
+@pytest.mark.parametrize("variant", ["mxu", "both"])
+def test_k6_tile_matches_plain_and_scripts(variant):
+    """The tile's model (plus the 28 ALU rounds for 'both') matches the
+    plain version and the script's chain (_mxu_chain; _interleaved for
+    'both') within the bf16 budget."""
+    u = _lanes(5)
+    model = overlap.probe_model()
+    got = _k6_tile(model, torch.from_numpy(u))
+    if variant == "mxu":
+        plain = overlap.mxu_plain(model, torch.from_numpy(u))
+        ref = P1["_mxu_chain"](_feats(u), _weights())[0]
+    else:
+        rounds = overlap.per_layer(overlap.K6_ROUNDS)
+        got = got + overlap.alu_plain(torch.from_numpy(u), rounds * len(overlap.LAYERS))
+        plain = overlap.both_plain(model, torch.from_numpy(u))
+        ref = P2["_interleaved"](jnp.asarray(u), _feats(u), _weights(), rounds)
+    _assert_chain_close(got, plain)
+    _assert_chain_close(got, ref)
+
+
+def test_k6_launch_path_takes_a_nifwg(monkeypatch):
+    """K6's launchers get the probe model's NifWg (the wgmma tile) and
+    refuse a NifNet; K7's keeps the mma.sync chain's NifNet."""
+    model = overlap.probe_model()
+    for name in ("mxu", "both"):
+        arg = overlap.chain_arg(name, model)
+        assert isinstance(arg._obj, _lib.NifWg) and arg._obj.int8 == 0
+    assert isinstance(overlap.chain_arg("loop", model)._obj, _lib.NifNet)
+    monkeypatch.setattr(overlap, "wg_struct", nif_ops.net_struct)
+    for name in ("mxu", "both"):
+        with pytest.raises(ValueError, match="NifWg"):
+            overlap.chain_arg(name, model)
 
 
 def test_cpu_wrappers_run_the_plain_versions():

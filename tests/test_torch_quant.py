@@ -284,7 +284,8 @@ def test_int8_megastep_matches_pallas_interpret(small):
 
 def test_net_struct_int8_layout():
     """The kernels' view of the canonical int8 net is a NifWg (the wgmma
-    chain; the mma.sync NifNet refuses an int8 model): the plan's s8
+    chain; the mma.sync NifNet, K7's bf16 chain, refuses an int8 model and
+    has no 8-bit fields): the plan's s8
     slices, the skip layer in passes of 128 outputs, the multipliers
     padded to the rows and the activation grids' quant steps."""
     weights, meta, amax = _asset_nif()
@@ -304,7 +305,9 @@ def test_net_struct_int8_layout():
     assert torch.equal(mults[6][:3], model.mults[6]) and not mults[6][3:].any()
     assert nif_ops.wgmma_operands(model)[3][0] is ops[3][0]  # cached per model
     bf16 = nif_ops.net_struct(nif.load_nif_assets("assets/urban_alley_synth_nif")[0])
-    assert bf16.int8 == 0 and list(bf16.k_pad[:7]) == [48, 320, 320, 368, 320, 320, 320]
+    # The NifNet is the bf16 mma.sync chain of K7 alone: no 8-bit fields.
+    assert not {"int8", "mult", "mult_skip", "inv_next"} & {f for f, _ in type(bf16)._fields_}
+    assert list(bf16.k_pad[:7]) == [48, 320, 320, 368, 320, 320, 320]
 
 
 @pytest.mark.parametrize("skip_layer", [2, None])
