@@ -74,14 +74,22 @@ Phases, one line each:
                 block): K1 (Philox), K2 (on that sample's escapes, bf16 and
                 int8), K3 (Philox, 8 samples, bf16 and int8), K4 (one bake
                 chunk of 10 rows of 4096, bf16 and int8) and phase 5b's
-                modes vs their plain versions, then each kernel and its
-                plain version timed (CUDA events, after warm-up), K3 with
+                modes vs their plain versions, K1 bit for bit in Philox,
+                Sobol and host-noise mode at 1104x1000 and at a ragged
+                65,317 lanes, then each kernel and its plain version timed
+                (CUDA events, after warm-up; K1 also alone, one prepared
+                launch back to back, beside its wrapper), K3 with
                 the env-skip on and off on both scenes (on the enclosed one
                 the skip must take K3 under a quarter of its time), and the
                 adaptive step against the uniform one; K3's stubs vs their
                 plain versions (as phase 5c), then timed beside them (the
                 'trace' stub less the skeleton is the chain alone, a
-                cross-check of the split's env); --device-timing's unfused
+                cross-check of the split's env); repeated K1 launches (three
+                modes) and K3 launches (bf16 Philox, env-skip, host noise;
+                int8 Sobol with budgets and statistics) under
+                torch.cuda.set_sync_debug_mode("error"), which must raise
+                for no launch (and must raise for the control, the fov
+                computed anew); --device-timing's unfused
                 split (K1 and
                 K2 standalone); the seven-product cuBLAS bf16 chain at the
                 NIF kernels' shapes (a yardstick the port never calls), and
@@ -91,13 +99,14 @@ Phases, one line each:
                 bake chunk (yardsticks the port never calls);
   8. probes   - K6/K7 (probes/overlap.py): every variant vs its plain
                 version at the scripts' 1,105,920 lanes (K6 'mxu' and 'both'
-                on the bf16 wgmma tile, K7 on the mma.sync chain), then the
+                and K7's four loops on the bf16 wgmma tile), then the
                 probe's entry point (its lines: ms per call or loop
                 iteration, the serial and the overlap prediction) with its
                 launch counters zeroed before and read after, the plain
                 versions and the library chains timed (the cuBLAS bf16
                 chain of the probe's layers, plus the eager ALU rounds for
-                'both' and the loops; yardsticks the port never calls);
+                'both' and the loops; yardsticks the port never calls), and
+                each K7 variant must beat its library chain;
   9. K8       - the precision probe (probes/quant.py): each of its six
                 variants, all on the wgmma tiles (fp8 exact on bf16: the
                 e4m3 codes' bf16 values, HGMMA with f32 sums), vs its
@@ -113,8 +122,10 @@ Phases, one line each:
                 compiled kernel counted (cuobjdump: HGMMA and no HMMA in
                 bf16 and fp8, IGMMA and no IMMA or HMMA in the int8
                 variants, and none holds QGMMA or QMMA; likewise HGMMA and
-                no HMMA in K6 'mxu' and 'both'; no mma.sync kernel of K6
-                or K8 built; no spills); then the on-class quality gate
+                no HMMA in K6 'mxu' and 'both' and K7's four loops; no
+                mma.sync kernel of K6, K7 or K8 built; no spills; no kernel
+                of the library holds HMMA, IMMA or QMMA); then the on-class
+                quality gate
                 (probes/quant_psnr.py: the 2048x4096 synthetic frame through
                 K4, bf16 and int8 PTQ) with K4's launches counted against the
                 batches, and again with the plain versions on the card: each
@@ -538,21 +549,25 @@ def sass_mma_counts(lib_path: Path) -> dict:
 
 # The wgmma kernels by their mangled template arguments: K2 and K4
 # (<kInt8>), K3 megastep_wg_kernel<kRng, kStub, kInt8>, K6's
-# probe_wg_kernel<kAlu>, K8's quant_probe_wg_kernel<variant>; and the old
-# mma.sync kernels - K3's megastep_kernel, K6's probe_mxu_kernel and
-# probe_both_kernel, K8's quant_probe_kernel - which must no longer be built.
+# probe_wg_kernel<kAlu>, K7's probe_wg_loop_kernel<kPrng, kState>, K8's
+# quant_probe_wg_kernel<variant>; and the old mma.sync kernels - K3's
+# megastep_kernel, K6's probe_mxu_kernel and probe_both_kernel, K7's
+# probe_loop_kernel, K8's quant_probe_kernel - which must no longer be built.
 WG_KERNELS = {"K2": re.compile(r"16env_shade_kernelILb([01])E"),
               "K4": re.compile(r"16nif_apply_kernelILb([01])E"),
               "K3": re.compile(r"18megastep_wg_kernelILi(\d)ELi(\d)ELb([01])EE"),
               "K6": re.compile(r"15probe_wg_kernelILb([01])EE"),
+              "K7": re.compile(r"20probe_wg_loop_kernelILb([01])ELb([01])EE"),
               "K8": re.compile(r"21quant_probe_wg_kernelILi(\d)EE")}
 OLD_K3 = re.compile(r"15megastep_kernelI")
-OLD_MMA_SYNC = re.compile(r"16probe_mxu_kernel|17probe_both_kernel|18quant_probe_kernelI")
+OLD_MMA_SYNC = re.compile(r"16probe_mxu_kernel|17probe_both_kernel|17probe_loop_kernelI"
+                          r"|18quant_probe_kernelI")
 RNG_NAMES = {0: "philox", 1: "host-noise", 2: "sobol"}
 STUB_NAMES = {0: "production", 1: "stub nif", 2: "stub trace", 3: "stub both"}
 K8_NAMES = {0: "bf16", 1: "int8_requant", 2: "int8_perchan", 3: "int8_raw", 4: "fp8_e4m3",
             5: "fp8_raw"}
 K6_NAMES = {0: "mxu", 1: "both"}
+K7_NAMES = {(0, 0): "loop", (1, 0): "loop+prng", (0, 1): "loop+state", (1, 1): "loop+both"}
 OWN_MMA = {"bf16": "HGMMA", "int8": "IGMMA"}  # each chain's wgmma
 
 
@@ -586,6 +601,8 @@ def wg_instantiations(functions, build_log: list[str]) -> dict:
                 key, mma = f"K8 {K8_NAMES[v]}", True
             elif kernel == "K6":
                 chain, key, mma = "bf16", f"K6 {K6_NAMES[int(m[1])]}", True
+            elif kernel == "K7":
+                chain, key, mma = "bf16", f"K7 {K7_NAMES[int(m[1]), int(m[2])]}", True
             else:
                 chain = "int8" if m[1] == "1" else "bf16"
                 key, mma = f"{kernel} {chain}", True
@@ -1158,8 +1175,8 @@ def main() -> None:
     kw = dict(width=MAIN_W, height=MAIN_H, max_path_length=10)
     seed = (5, 6)
     esc = trace.trace_sample(scene, settings, cols, rows, seed, **kw)
-    err["trace"] = max(k1_err, trace_check(
-        "K1 philox 1104x1000", esc,
+    err["trace"] = max(k1_err, trace_exact(
+        "K1 philox 1104x1000 sample 0", esc,
         trace.trace_sample_plain(scene, settings, cols, rows, seed, **kw)))
     for name, m in (("env_shade", model), ("env_shade_int8", q8)):
         err[name] = max(err[name], shade_check(
@@ -1187,6 +1204,20 @@ def main() -> None:
     noise8 = torch.rand((MAIN_SPS, 4 + 4 * kw["max_path_length"], cols.shape[0]),
                         generator=noise_gen, device=dev)
     noise8[:, 0:2] = torch.randn((MAIN_SPS, 2, cols.shape[0]), generator=noise_gen, device=dev)
+    # K1 bit for bit in its three modes, at the full frame and at a ragged
+    # 65,317 lanes (the persistent warps' last batches end mid-warp).
+    sob_k1 = sobol_ctx(cols, rows, MAIN_W)
+    for tag, m in (("1104x1000", cols.shape[0]), (f"ragged {RAGGED_K3}", RAGGED_K3)):
+        c, r = cols[:m].contiguous(), rows[:m].contiguous()
+        sob_m = (sob_k1[0][:m].contiguous(), sob_k1[1][:m].contiguous(), sob_k1[2])
+        for mode, key, args in (
+                ("philox", "trace", dict(seed=seed, sample_index=3)),
+                ("sobol", "trace_sobol", dict(seed=seed, sample_index=3, sobol=sob_m,
+                                              sobol_dims=SOBOL_DIMS)),
+                ("host-noise", "trace", dict(noise=noise8[0, :, :m].contiguous()))):
+            err[key] = max(err.get(key, 0.0), trace_exact(
+                f"K1 {mode} {tag}", trace.trace_sample(scene, settings, c, r, **args, **kw),
+                trace.trace_sample_plain(scene, settings, c, r, **args, **kw)))
     mode_checks("1104x1000", cols, rows, kw, settings, seed, noise8)
     del noise8
     stub_checks("1104x1000", cols, rows, kw, settings, seed)
@@ -1241,6 +1272,17 @@ def main() -> None:
           lambda: trace.trace_sample(scene, settings, cols, rows, seed, **sobol, **kw),
           lambda: trace.trace_sample_plain(scene, settings, cols, rows, seed, **sobol, **kw),
           10, 2)
+    # K1 alone: one prepared launch (ops/trace.prepare_trace) back to back,
+    # the wrapper's checks, parameters, tables and outputs paid once; K1's
+    # rows report it, and the wrapper's time (above) beside it.
+    for name, extra in (("trace", {}), ("trace_sobol", sobol)):
+        run = trace.prepare_trace(scene, settings, cols, rows, seed, **extra, **kw)
+        wrapper = times[name][0]
+        times[name + "_wrapper"] = (wrapper, None)
+        times[name] = (cuda_ms(run.launch, 50), times[name][1])
+        print(f"[timing] {name}: kernel alone {times[name][0]:.4f} ms, wrapper {wrapper:.4f} ms "
+              f"per full-frame sample ({smi})", flush=True)
+        del run
     ecols, erows = grid(MAIN_W, MAIN_H, enclosed)
     for name, m, sc, c, r, k_args, p_args in (
             ("megastep_sobol", model, scene, cols, rows, sobol, sobol),
@@ -1288,6 +1330,44 @@ def main() -> None:
     phase("device timing step vs K3", abs(step_ms - k3_ms) <= 0.1 * k3_ms,
           step_ms=f"{step_ms:.4f}", k3_ms_per_sample=f"{k3_ms:.4f}",
           ratio=f"{step_ms / k3_ms:.4f}")
+    # Repeated launches of K1 and K3 wait for nothing on the host: under the
+    # sync debug mode "error" a device-to-host sync raises.  The control,
+    # the launch parameters' fov computed anew (a read-back), must raise.
+    def sync_free(fn) -> str:
+        """'' if three launches after a warm-up sync nowhere, else the error."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                fn()
+            return ""
+        except RuntimeError as e:
+            return str(e).splitlines()[0] if str(e) else type(e).__name__
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+
+    host_noise = torch.rand((1, 4 + 4 * kw["max_path_length"], cols.shape[0]), device=dev)
+    control = sync_free(lambda: trace._tan_fov.__wrapped__(settings.fov, MAIN_W, MAIN_H, dev))
+    syncs = {name: sync_free(fn) for name, fn in (
+        ("K1 philox", lambda: trace.trace_sample(scene, settings, cols, rows, seed, **kw)),
+        ("K1 sobol", lambda: trace.trace_sample(scene, settings, cols, rows, seed, **sobol, **kw)),
+        ("K1 host-noise", lambda: trace.trace_sample(scene, settings, cols, rows,
+                                                     noise=host_noise[0], **kw)),
+        ("K3 bf16 philox", lambda: megastep.render_megastep(scene, settings, model, cols, rows,
+                                                            seed, **kw)),
+        ("K3 bf16 env-skip", lambda: megastep.render_megastep(scene, settings, model, cols, rows,
+                                                              seed, env_skip=True, **kw)),
+        ("K3 bf16 host-noise", lambda: megastep.render_megastep(scene, settings, model, cols,
+                                                                rows, noise=host_noise, **kw)),
+        ("K3 int8 sobol budgets stats", lambda: megastep.render_megastep(
+            scene, settings, q8, cols, rows, seed, budgets=eights, with_stats=True, **sobol,
+            **kw)))}
+    del host_noise
+    phase("no host sync in repeated K1 and K3 launches", bool(control)
+          and not any(syncs.values()), control_raised=control[:60],
+          synced={k: v for k, v in syncs.items() if v})
     unfused = devtime.measure_phases(
         scene, settings, StaticConfig(width=MAIN_W, height=MAIN_H, max_path_length=10,
                                       use_fused_step=False),
@@ -1435,6 +1515,12 @@ def main() -> None:
         print(f"[timing] {name}: kernel {times[name][0]:.3f} ms, plain {times[name][1]:.3f} ms, "
               f"library chain {library_ms.get(name, float('nan')):.3f} ms per call of "
               f"{overlap.LANES} lanes ({smi})", flush=True)
+    # K7 on the wgmma tile against its library chain (the cuBLAS chain and
+    # the eager ALU rounds per iteration), each variant, in this run.
+    loops = [f"overlap_{v.replace('+', '_')}" for v in overlap.LOOP_VARIANTS]
+    phase("K7 beats its library chain", all(times[k][0] < library_ms[k] for k in loops),
+          **{f"{k[8:]}_ms": f"{times[k][0]:.3f}" for k in loops},
+          **{f"{k[8:]}_library_ms": f"{library_ms[k]:.3f}" for k in loops})
 
     # 9. K8, the precision probe, and the on-class quality gate ------------
     from ipu_path_trace_tpu_torch.models import reconstruct
@@ -1489,9 +1575,10 @@ def main() -> None:
         print(f"[sass] quant_probe {key}: {counts}", flush=True)
     # Every variant on the wgmma tiles, its chain's wgmma alone (bf16 and
     # fp8 HGMMA, int8 IGMMA; no HMMA, IMMA, QMMA or QGMMA), no mma.sync
-    # kernel of K6 or K8 left in the library, no spills; likewise K6 'mxu'
-    # and 'both'.
-    for kernel, names in (("K8", quant.VARIANTS), ("K6", tuple(K6_NAMES.values()))):
+    # kernel of K6, K7 or K8 left in the library, no spills; likewise K6
+    # 'mxu' and 'both' and K7's four loops.
+    for kernel, names in (("K8", quant.VARIANTS), ("K6", tuple(K6_NAMES.values())),
+                          ("K7", tuple(K7_NAMES.values()))):
         wg = {k[3:]: v for k, v in wg_sass.items() if k.startswith(f"{kernel} ")}
         phase(f"SASS {kernel} {', '.join(names)}", functions is not None
               and sorted(wg) == sorted(names) and all(holds_its_chain(v) for v in wg.values())
@@ -1501,6 +1588,14 @@ def main() -> None:
         phase(f"ptxas {kernel} no spills", len(wg) == len(names)
               and all(v["ptxas"] and v["spill_bytes"] == 0 for v in wg.values()),
               spill_bytes={k: v["spill_bytes"] for k, v in wg.items()})
+    # No kernel of the library holds an mma.sync instruction (HMMA, IMMA,
+    # QMMA): every chain runs on wgmma.
+    mma_sync = {name: {op: c for op, c in mma_counts(part).items()
+                       if op in ("HMMA", "IMMA", "QMMA") and c}
+                for name, part in functions or []}
+    mma_sync = {name: c for name, c in mma_sync.items() if c}
+    phase("SASS library has no mma.sync", functions is not None and not mma_sync,
+          kernels=len(functions or []), with_mma_sync=mma_sync)
     # The quality gate through its entry point, then once more with the
     # plain versions in place of K4 (same batches, same frames).
     nif.nif_apply_t.launches = nif.nif_apply_t_plain.cuda_runs = 0
@@ -1600,9 +1695,13 @@ def main() -> None:
                         + (1 + kw["max_path_length"]) * PHILOX_GROUP_OPS)
     alu = overlap.LANES * ALU_ROUND_OPS
     lanes_chain = 2 * NIF_MACS * overlap.LANES
+    # K1's draws: one noise group for the camera and one per bounce, each
+    # counted at Philox's cost (in Sobol mode the first three groups cost
+    # more, so the count stays a lower bound).
+    k1_ops = trace_ops + (n + bounces / MAIN_SPS) * PHILOX_GROUP_OPS
     bounds = {
-        "trace": least_ms(n * 52, {"f32": trace_ops}),
-        "trace_sobol": least_ms(n * 60, {"f32": trace_ops}),
+        "trace": least_ms(n * 52, {"f32": k1_ops}),
+        "trace_sobol": least_ms(n * 60, {"f32": k1_ops}),
         "env_shade": least_ms(n * 36 + bf16_w, {"bf16": 2 * NIF_MACS * n}),
         "env_shade_int8": least_ms(n * 36 + int8_w, {"int8": 2 * NIF_MACS * n}),
         "megastep": least_ms(k3_bytes + bf16_w, {"bf16": chain, "f32": trace_ops}),
@@ -1705,6 +1804,7 @@ def main() -> None:
          "quant_probe": k8_res, "quant_probe_sass_mma": k8_sass, "quality_gate": quality,
          "wgmma_sass_ptxas": wg_sass,
          "quality_gate_plain": quality_plain, "quality_gate_s": gate_s,
+         "host_syncs": syncs,
          "bound_counts": {"escapes": escapes, "bounces": bounces,
                           "escapes_enclosed": escapes_enclosed,
                           "bounces_enclosed": bounces_enclosed}}, indent=1))

@@ -323,9 +323,89 @@ struct TraceResult {
   int escaped, path_len;
 };
 
+// The camera ray of one sample: AA jitter and thin lens from noise group 0.
+template <class Noise>
+PT_HD void ray_begin(const TraceParams& prm, float col, float row, const Noise& noise, V3& o,
+                     V3& d) {
+  float g[4];
+  noise.group(0, g);
+  float a1 = g[0], a2 = g[1];
+  if (!Noise::kJitterDistributed) aa_jitter(prm.aa_type, g[0], g[1], &a1, &a2);
+  const float c = col + prm.aa_scale * a1;
+  const float r = row + prm.aa_scale * a2;
+  const float w = (float)prm.width, h = (float)prm.height;
+  const float dx = ((2.0f * c - w) / w) * prm.tanfov_x;
+  const float dy = -((2.0f * r - h) / h) * prm.tanfov_y;
+  const float inv = 1.0f / sqrtf(dx * dx + dy * dy + 1.0f);
+  d = V3{dx * inv, dy * inv, -inv};
+  o = V3{0.0f, 0.0f, 0.0f};
+  if (prm.aperture > 0.0f) {  // thin lens; aperture 0 keeps the pinhole ray untouched
+    const float lr = prm.aperture * sqrtf(g[2]);
+    const float lphi = kTwoPi * g[3];
+    const float lx = lr * cosf(lphi), ly = lr * sinf(lphi);
+    const float t_f = prm.focal / fmaxf(-d.z, 1e-8f);
+    const V3 fd = {d.x * t_f - lx, d.y * t_f - ly, d.z * t_f};
+    d = fd * (1.0f / sqrtf(fmaxf(dot(fd, fd), 1e-20f)));
+    o = V3{lx, ly, 0.0f};
+  }
+}
+
+// Bounce b of a live ray (origin o, direction d, throughput tp): false if
+// the ray ends here - roulette, escape or emitter, with what it gathers in
+// res - and true if it scattered and goes on.
+template <class Noise>
+PT_HD bool ray_bounce(const TraceParams& prm, const float* sph, const float* dsc,
+                      const Noise& noise, int b, V3& o, V3& d, V3& tp, TraceResult& res) {
+  float u[4];  // rr, bsdf u1, bsdf u2, fresnel
+  noise.group(1 + b, u);
+  const bool rr_on = b >= prm.roulette_depth;
+  if (rr_on && u[0] <= prm.stop_prob) return false;  // roulette kill
+  const float rr_weight = 1.0f / (1.0f - prm.stop_prob);
+  const float rr_factor = rr_on ? rr_weight : 1.0f;
+  const Hit hit = intersect(sph, prm.num_s, dsc, prm.num_d, o, d);
+  res.path_len += 1;  // escape, emission and scatter each push once
+  if (!hit.valid) {
+    res.esc_dir = d;
+    res.esc_w = tp * rr_factor;
+    res.escaped = 1;
+    return false;
+  }
+  if (hit.emissive) {
+    res.radiance = res.radiance + cwise(tp, hit.emission) * rr_factor;
+    return false;
+  }
+  V3 scale;
+  if (hit.material == 0) {
+    float cos_theta;
+    d = sample_diffuse(hit.normal, u[1], u[2], &cos_theta);
+    scale = hit.colour * (cos_theta * kDiffuseScale * rr_factor);
+  } else if (hit.material == 1) {
+    d = reflect(d, hit.normal);
+    scale = V3{rr_factor, rr_factor, rr_factor};
+  } else {
+    bool refracted;
+    d = refract(d, hit.normal, prm.refr_index, u[3], &refracted);
+    const V3 tint = refracted ? hit.colour : V3{1.0f, 1.0f, 1.0f};
+    scale = tint * (kRefractWeight * rr_factor);
+  }
+  tp = cwise(tp, scale);
+  o = hit.point;
+  return true;
+}
+
+PT_HD TraceResult no_result() {
+  TraceResult res;
+  res.radiance = res.esc_dir = res.esc_w = V3{0.f, 0.f, 0.f};
+  res.escaped = 0;
+  res.path_len = 0;
+  return res;
+}
+
 // One sample of one ray: raygen with AA jitter and thin lens, then the
 // bounce loop until the ray escapes, hits an emitter, is absorbed by
-// roulette, or reaches max_path_length.
+// roulette, or reaches max_path_length.  (K1 runs the same two steps,
+// ray_begin and ray_bounce, with its lanes refilled between bounces:
+// trace.cu.)
 //
 // kStubBounce is the megastep's measurement stub of the bounce
 // (ops/megastep_pallas.py::_stub_bounce): raygen runs and every bounce
@@ -337,32 +417,9 @@ struct TraceResult {
 template <bool kStubBounce = false, class Noise>
 PT_HD TraceResult trace_ray(const TraceParams& prm, const float* sph, const float* dsc,
                            float col, float row, const Noise& noise) {
-  float g[4];
-  noise.group(0, g);
-  float a1 = g[0], a2 = g[1];
-  if (!Noise::kJitterDistributed) aa_jitter(prm.aa_type, g[0], g[1], &a1, &a2);
-  const float c = col + prm.aa_scale * a1;
-  const float r = row + prm.aa_scale * a2;
-  const float w = (float)prm.width, h = (float)prm.height;
-  const float dx = ((2.0f * c - w) / w) * prm.tanfov_x;
-  const float dy = -((2.0f * r - h) / h) * prm.tanfov_y;
-  const float inv = 1.0f / sqrtf(dx * dx + dy * dy + 1.0f);
-  V3 d = {dx * inv, dy * inv, -inv};
-  V3 o = {0.0f, 0.0f, 0.0f};
-  if (prm.aperture > 0.0f) {  // thin lens; aperture 0 keeps the pinhole ray untouched
-    const float lr = prm.aperture * sqrtf(g[2]);
-    const float lphi = kTwoPi * g[3];
-    const float lx = lr * cosf(lphi), ly = lr * sinf(lphi);
-    const float t_f = prm.focal / fmaxf(-d.z, 1e-8f);
-    const V3 fd = {d.x * t_f - lx, d.y * t_f - ly, d.z * t_f};
-    d = fd * (1.0f / sqrtf(fmaxf(dot(fd, fd), 1e-20f)));
-    o = V3{lx, ly, 0.0f};
-  }
-
-  TraceResult res;
-  res.radiance = res.esc_dir = res.esc_w = V3{0.f, 0.f, 0.f};
-  res.escaped = 0;
-  res.path_len = 0;
+  V3 o, d;
+  ray_begin(prm, col, row, noise, o, d);
+  TraceResult res = no_result();
   if constexpr (kStubBounce) {
     const float keep = (d.x + d.y + d.z + o.x + o.y) * 0.0f;
     for (int b = 0; b < prm.max_path_length; ++b) {
@@ -373,42 +430,8 @@ PT_HD TraceResult trace_ray(const TraceParams& prm, const float* sph, const floa
     return res;
   }
   V3 tp = {1.0f, 1.0f, 1.0f};
-  const float rr_weight = 1.0f / (1.0f - prm.stop_prob);
-  for (int b = 0; b < prm.max_path_length; ++b) {
-    float u[4];  // rr, bsdf u1, bsdf u2, fresnel
-    noise.group(1 + b, u);
-    const bool rr_on = b >= prm.roulette_depth;
-    if (rr_on && u[0] <= prm.stop_prob) break;  // roulette kill
-    const float rr_factor = rr_on ? rr_weight : 1.0f;
-    const Hit hit = intersect(sph, prm.num_s, dsc, prm.num_d, o, d);
-    res.path_len += 1;  // escape, emission and scatter each push once
-    if (!hit.valid) {
-      res.esc_dir = d;
-      res.esc_w = tp * rr_factor;
-      res.escaped = 1;
-      break;
-    }
-    if (hit.emissive) {
-      res.radiance = res.radiance + cwise(tp, hit.emission) * rr_factor;
-      break;
-    }
-    V3 scale;
-    if (hit.material == 0) {
-      float cos_theta;
-      d = sample_diffuse(hit.normal, u[1], u[2], &cos_theta);
-      scale = hit.colour * (cos_theta * kDiffuseScale * rr_factor);
-    } else if (hit.material == 1) {
-      d = reflect(d, hit.normal);
-      scale = V3{rr_factor, rr_factor, rr_factor};
-    } else {
-      bool refracted;
-      d = refract(d, hit.normal, prm.refr_index, u[3], &refracted);
-      const V3 tint = refracted ? hit.colour : V3{1.0f, 1.0f, 1.0f};
-      scale = tint * (kRefractWeight * rr_factor);
-    }
-    tp = cwise(tp, scale);
-    o = hit.point;
-  }
+  for (int b = 0; b < prm.max_path_length; ++b)
+    if (!ray_bounce(prm, sph, dsc, noise, b, o, d, tp, res)) break;
   return res;
 }
 

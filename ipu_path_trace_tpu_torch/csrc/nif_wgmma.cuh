@@ -1,5 +1,5 @@
 // The NIF chains on Hopper's warpgroup MMA, for K2 and K4 (nif.cu), K3
-// (megastep.cuh) and the probes K6 (probes.cu) and K8 (quant_probe.cu):
+// (megastep.cuh) and the probes K6 and K7 (probes.cu) and K8 (quant_probe.cu):
 // encode -> layers -> decode for tiles of kWgRays rays, the weights
 // streamed through shared memory by bulk copies.  The chains share the
 // tile, the ring and the slice sequence; a chain policy (ChainBf16,
@@ -29,20 +29,21 @@
 // A layer hook (wg_layers' hook, WgNoHook in K2, K3, K4 and K8) runs in
 // every consumer thread once per layer, after the layer's last wgmma is
 // issued and before the wait for it, so that its work overlaps the tensor
-// cores' (K6 'both' runs its ALU rounds there).
+// cores' (K6 'both' and K7 run their ALU rounds there).
 //
 // The pieces, in the order a kernel calls them: wg_block and wg_setup (the
 // plan's shared memory, the ring's barriers, the features' zero columns),
 // then the role split wg_producer_role (setmaxnreg; the producer thread
 // runs a WgProducer), then per tile wg_tile (encode from the tile's (u, v),
-// the layers, the head storing through an Io).  K2, K4, K6 and K8 walk a
-// fixed list of tiles (wg_tiles; K2, K4 and K8 through nif_wg_tiles, whose
+// the layers, the head storing through an Io).  K2, K4, K6, K7 and K8 walk
+// a fixed list of tiles (wg_tiles; K2, K4 and K8 through nif_wg_tiles, whose
 // K8 Io hands precomputed features in place of the encode; K6 puts its own
-// features and adds its ALU value after the head); K3 decides per sample
+// features and adds its ALU value after the head; K7 runs its loop's
+// iterations as passes of the chain over one tile); K3 decides per sample
 // which tiles to shade and streams them through wg_stream (megastep.cuh
 // says how).
 //
-// Why: the mma.sync chains (nif_dev.cuh) ran 64-ray tiles whose warps load
+// Why: the mma.sync chains that came first ran 64-ray tiles whose warps load
 // their B fragments from L2 with 4-byte __ldg's, so each 64-ray tile reads
 // all the weights from L2 and the warps mostly wait on it (~12% of dense
 // bf16 peak).  Here a tile is 128 rays, the weights arrive in 64-input
@@ -1285,11 +1286,11 @@ PT_HD void wg_tile(const NifWg& net, WgConsumer& c, const float* su, const float
   wg_layers<Ch>(net, c, ray0, io);
 }
 
-// The measurement stub of a tile (nif_dev.cuh::nif_chain_stub's: the
-// reference's _stub_nif_layer) in this geometry: the encode as in wg_tile,
-// then, with no copies and no MMAs, each row's first feature x (its bf16
-// value or its s8 code) -> x * 0 + 1 per layer and the decode of that 1,
-// stored through io as wg_head stores.
+// The measurement stub of a tile (the reference's _stub_nif_layer) in
+// this geometry: the encode as in wg_tile, then, with no copies and no
+// MMAs, each row's first feature x (its bf16 value or its s8 code) ->
+// x * 0 + 1 per layer and the decode of that 1, stored through io as
+// wg_head stores.
 template <class Ch, class Io>
 PT_HD void wg_tile_stub(const NifWg& net, const WgConsumer& c, const float* su, const float* sv,
                         int ray0, const Io& io) {
@@ -1313,22 +1314,26 @@ PT_HD void wg_tile_stub(const NifWg& net, const WgConsumer& c, const float* su, 
 }
 
 // The block's roles over `tiles` tiles, the block persistent over tiles
-// blockIdx.x + i * gridDim.x: the producer streams each tile's slices, and
-// every consumer thread runs tile(c, t) for each tile t (K2, K4 and K8
-// through nif_wg_tiles, K6 with its own ends).  Launch with kWgThreads
-// threads and net.smem_bytes of dynamic shared memory.
+// blockIdx.x + i * gridDim.x: the producer streams each tile's slices
+// `passes` times over, and every consumer thread runs tile(c, t) for each
+// tile t, which takes `passes` passes of the chain (K2, K4 and K8 one,
+// through nif_wg_tiles; K6 one and K7 one per loop iteration, with their
+// own ends).  Launch with kWgThreads threads and net.smem_bytes of dynamic
+// shared memory.
 template <bool kInt8, class Tile>
-__device__ __forceinline__ void wg_tiles(const NifWg& net, int tiles, Tile tile) {
+__device__ __forceinline__ void wg_tiles(const NifWg& net, int tiles, Tile tile,
+                                         int passes = 1) {
   const WgBlock b = wg_block(net);
   wg_setup(net, b);
   __syncthreads();
   if (wg_producer_role([&] {
         WgProducer prod{b.full, b.empty, b.s0 + net.smem_ring, 0, 0, 0};
         for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-          prod.chain(net, [](uint32_t bar, uint32_t parity) {
-            mbar_wait(bar, parity);
-            return true;
-          });
+          for (int i = 0; i < passes; ++i)
+            prod.chain(net, [](uint32_t bar, uint32_t parity) {
+              mbar_wait(bar, parity);
+              return true;
+            });
       }))
     return;
 

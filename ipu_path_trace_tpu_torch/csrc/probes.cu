@@ -9,34 +9,38 @@
 // thread: rounds of x = sin(x) * 1.1 + sqrt(|x| + 0.3), then
 // x > 1 ? x / 2 : x + 1/4.
 //
-// K6 runs the bf16 wgmma chain of nif_wgmma.cuh (128-ray tiles, the
+// Both run the bf16 wgmma chain of nif_wgmma.cuh (128-ray tiles, the
 // weights streamed through shared memory: the NifWg of ops/nif.py's
-// wg_struct), K7 still the mma.sync chain of nif_dev.cuh (nif_layers: 64-ray
-// tiles, bf16 mma.sync, the NifNet of ops/nif.py::net_struct):
+// wg_struct).  Each lane's scalar work runs in the consumer thread that
+// owns it: the first 64 threads of each consumer warpgroup (two whole
+// warps), thread t owning row t of its group's 64 rows.
 //
 // probe_wg_kernel<false> (K6 'mxu'): the chain alone, output row 0 (k_mxu).
 // probe_alu_kernel: `rounds` ALU rounds alone, one lane per thread (k_vpu).
 // probe_wg_kernel<true> (K6 'both'): the chain with `per_layer` ALU rounds
 //   after each layer's last wgmma is issued and before the wait for it
-//   (the layer hook), run by the 64 threads of each consumer warpgroup
-//   that own a lane, so they overlap the layer's MMAs in flight (k_both);
+//   (the layer hook), so they overlap the layer's MMAs in flight (k_both);
 //   output row 0 + the ALU value.
-// probe_loop_kernel<kPrng, kState>: `iters` iterations of the interleaved
-//   chain in the kernel (k_loop): v = u + acc 1e-6, with kPrng plus the top
-//   24 bits of a Philox4x32-10 word (key (7, 0), counter (lane, iteration,
-//   0, 0), csrc/common.cuh; four words per lane and iteration) times 1e-9,
-//   with kState twelve more carries, each one ALU round plus r 1e-9 per
-//   iteration; out = acc + the carries' sum.
+// probe_wg_loop_kernel<kPrng, kState> (K7): `iters` iterations of the
+//   interleaved pair in the kernel (k_loop), each one pass of the chain
+//   over the tile: the owning thread forms v = u + acc 1e-6 (with kPrng
+//   plus the top 24 bits of a Philox4x32-10 word, key (7, 0), counter
+//   (lane, iteration, 0, 0), csrc/common.cuh, times 1e-9), writes bf16(v)
+//   into its row's features, runs the seven layers with `per_layer` ALU
+//   rounds on v in the layer hook, reads row 0 of the head and updates acc
+//   (r = v + row 0) and, with kState, twelve more carries in registers
+//   (each one ALU round plus r 1e-9 per iteration); out = acc + the
+//   carries' sum.  The producer streams the tile's slice sequence once per
+//   iteration (wg_tiles' passes), so the weights run through the ring
+//   `iters` times per tile while the carries stay in the owning threads.
 //
 // What bounds them: the chain kernels are bound by the tensor cores'
-// multiply-adds (0.54 M per lane, as K2: 1.2 TFLOP per call at 1,105,920
-// lanes), the ALU kernel by the SFU's sin and sqrt (the f32 work is ~1%
-// of one chain).  In K6 'both' the ALU rounds run while the layer's last
+// multiply-adds (0.54 M per lane and pass, as K2: 1.2 TFLOP per pass at
+// 1,105,920 lanes, so K7's 16 iterations are 16 times K6 'mxu''s work),
+// the ALU kernel by the SFU's sin and sqrt (the f32 work is ~1% of one
+// chain).  In K6 'both' and K7 the ALU rounds run while the layer's last
 // MMAs are in flight (wgmma is asynchronous: the issuing threads go on);
-// in K7 each ALU lane runs on one thread of the tile's first two warps
-// while all eight warps share the products, so ALU and tensor work can
-// overlap across the warps of a block and across the blocks of an SM.  The
-// probes measure how much does.
+// the probes measure how much of them that hides.
 #include "nif_wgmma.cuh"
 
 namespace pt {
@@ -46,27 +50,8 @@ PT_HD float alu_round(float x) {
   return x > 1.0f ? x * 0.5f : x + 0.25f;
 }
 
-// Every feature row of lane `tid` (< kTile) <- bf16(v); K padding rows 0.
-__device__ inline void fill_features(const NifNet& net, const NifTile& t, float v) {
-  const int tid = threadIdx.x;
-  uint16_t* const feat = (uint16_t*)t.feat;
-  const int rows = 4 * net.embed_dim;
-  const uint16_t b = f32_to_bf16(v);
-  for (int r = 0; r < round16(rows); ++r) feat[r * kTileP + tid] = r < rows ? b : (uint16_t)0;
-}
-
-// The tile's ALU rounds after each layer, in the threads that own a lane.
-struct AluHook {
-  float& v;
-  int rounds;
-  __device__ void operator()(int) const {
-    if (threadIdx.x < kTile)
-      for (int k = 0; k < rounds; ++k) v = alu_round(v);
-  }
-};
-
-// K6's ALU rounds after each layer, in the consumer threads that own a
-// lane (the first 64 of each warpgroup: two whole warps).
+// K6's and K7's ALU rounds after each layer, in the consumer threads that
+// own a lane (the first 64 of each warpgroup: two whole warps).
 struct WgAluHook {
   float& v;
   int rounds;
@@ -77,8 +62,8 @@ struct WgAluHook {
   }
 };
 
-// K6's head output: row 0 of ray p into shared memory (row0[p - ray0]),
-// where the thread that owns the lane picks it up.
+// K6's and K7's head output: row 0 of ray p into shared memory
+// (row0[p - ray0]), where the thread that owns the lane picks it up.
 struct WgOverlapIo {
   int n, ray0;
   float* row0;
@@ -128,62 +113,61 @@ __global__ void probe_alu_kernel(const float* __restrict__ u, int n, int rounds,
 constexpr int kProbeExtras = 12;
 
 template <bool kPrng, bool kState>
-__global__ void __launch_bounds__(kThreads, 2) probe_loop_kernel(NifNet net, NifSmem plan,
-                                                              const float* __restrict__ u, int n,
-                                                              int per_layer, int iters,
-                                                              float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const NifTile t(smem, plan);
-  const int tid = threadIdx.x, p = blockIdx.x * kTile + tid;
-  const float u0 = tid < kTile && p < n ? u[p] : 0.0f;
-  constexpr int kExtras = kState ? kProbeExtras : 1;
-  float extras[kExtras];
+__global__ void __launch_bounds__(kWgThreads, 1) probe_wg_loop_kernel(NifWg net,
+                                                                    const float* __restrict__ u,
+                                                                    int n, int per_layer,
+                                                                    int iters,
+                                                                    float* __restrict__ out) {
+  wg_tiles<false>(
+      net, (n + kWgRays - 1) / kWgRays,
+      [&](WgConsumer& c, int tile) {
+        const int ray0 = tile * kWgRays + 64 * c.wg, p = ray0 + c.t;
+        const bool own = c.t < 64;
+        const float u0 = own && p < n ? u[p] : 0.0f;
+        constexpr int kExtras = kState ? kProbeExtras : 1;
+        float extras[kExtras];
 #pragma unroll
-  for (int k = 0; k < kExtras; ++k) extras[k] = u0 * (float)(1.0 + 0.01 * k);
-  float acc = 0.0f;
-  for (int i = 0; i < iters; ++i) {
-    float v = 0.0f;
-    if (tid < kTile) {
-      v = u0 + acc * 1e-6f;
-      if constexpr (kPrng) {
-        const U4 r = philox4x32_10(U4{(uint32_t)p, (uint32_t)i, 0u, 0u}, 7u, 0u);
-        v = v + (float)(r.x >> 8) * 1e-9f;
-      }
-      fill_features(net, t, v);
-    }
-    __syncthreads();
-    nif_layers(net, t, AluHook{v, per_layer});  // ends with a barrier
-    if (tid < kTile) {
-      const float r = v + t.out[tid];
-      if constexpr (kState) {
+        for (int k = 0; k < kExtras; ++k) extras[k] = u0 * (float)(1.0 + 0.01 * k);
+        float acc = 0.0f;
+        unsigned char* const feat = c.smem + net.smem_feat;
+        float* const row0 = (float*)(c.smem + net.smem_uv) + 64 * c.wg;
+        for (int i = 0; i < iters; ++i) {
+          float v = 0.0f;
+          if (own) {  // row t of the group's features <- bf16(v); the rows from 4E up stay 0
+            v = u0 + acc * 1e-6f;
+            if constexpr (kPrng) {
+              const U4 r = philox4x32_10(U4{(uint32_t)p, (uint32_t)i, 0u, 0u}, 7u, 0u);
+              v = v + (float)(r.x >> 8) * 1e-9f;
+            }
+            const uint16_t b = f32_to_bf16(v);
+            for (int k = 0; k < 4 * net.embed_dim; ++k)
+              *reinterpret_cast<uint16_t*>(feat + wg_offset<false>(64 * c.wg + c.t, k)) = b;
+          }
+          fence_proxy_async();
+          group_sync(c.wg);
+          wg_layers<ChainBf16>(net, c, ray0, WgOverlapIo{n, ray0, row0},
+                               WgAluHook{v, per_layer, own});
+          group_sync(c.wg);  // row 0 of the group's rays stored
+          if (own) {
+            const float r = v + row0[c.t];
+            if constexpr (kState) {
 #pragma unroll
-        for (int k = 0; k < kExtras; ++k) extras[k] = alu_round(extras[k]) + r * 1e-9f;
-      }
-      acc = acc + r;
-    }
-  }
-  float sum = extras[0];
+              for (int k = 0; k < kExtras; ++k) extras[k] = alu_round(extras[k]) + r * 1e-9f;
+            }
+            acc = acc + r;
+          }
+        }
+        float sum = extras[0];
 #pragma unroll
-  for (int k = 1; k < kExtras; ++k) sum = sum + extras[k];
-  if (tid < kTile && p < n) out[p] = acc + sum;
-}
-
-// K7's launch: one block of kThreads threads per kTile lanes.
-template <typename Kernel, typename... Args>
-int launch_probe(Kernel kernel, const NifNet& net, int n, void* stream, Args... args) {
-  const NifSmem plan = nif_smem_plan(net, 0);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)plan.total);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + kTile - 1) / kTile;
-  if (blocks == 0) return 0;
-  kernel<<<blocks, kThreads, plan.total, (cudaStream_t)stream>>>(net, plan, args...);
-  return (int)cudaGetLastError();
+        for (int k = 1; k < kExtras; ++k) sum = sum + extras[k];
+        if (own && p < n) out[p] = acc + sum;
+      },
+      iters);
 }
 
 }  // namespace pt
 
-// K6 'mxu' and 'both' take the probe model's bf16 NifWg; K7 its NifNet.
+// K6 'mxu' and 'both' and K7 take the probe model's bf16 NifWg.
 extern "C" int pt_probe_mxu(const pt::NifWg* wg, const float* u, int n, float* out,
                             void* stream) {
   if (wg == nullptr || wg->int8) return (int)cudaErrorInvalidValue;
@@ -205,17 +189,12 @@ extern "C" int pt_probe_both(const pt::NifWg* wg, const float* u, int n, int per
   return pt::launch_wg(kernel, *wg, n, stream, *wg, u, n, per_layer, out);
 }
 
-extern "C" int pt_probe_loop(const pt::NifNet* net, const float* u, int n, int per_layer,
+extern "C" int pt_probe_loop(const pt::NifWg* wg, const float* u, int n, int per_layer,
                              int iters, int prng, int state, float* out, void* stream) {
-  if (prng && state)
-    return pt::launch_probe(pt::probe_loop_kernel<true, true>, *net, n, stream, u, n,
-                            per_layer, iters, out);
-  if (prng)
-    return pt::launch_probe(pt::probe_loop_kernel<true, false>, *net, n, stream, u, n,
-                            per_layer, iters, out);
-  if (state)
-    return pt::launch_probe(pt::probe_loop_kernel<false, true>, *net, n, stream, u, n,
-                            per_layer, iters, out);
-  return pt::launch_probe(pt::probe_loop_kernel<false, false>, *net, n, stream, u, n, per_layer,
-                          iters, out);
+  if (wg == nullptr || wg->int8 || iters < 0) return (int)cudaErrorInvalidValue;
+  void (*const kernel)(pt::NifWg, const float*, int, int, int, float*) =
+      prng ? (state ? pt::probe_wg_loop_kernel<true, true> : pt::probe_wg_loop_kernel<true, false>)
+           : (state ? pt::probe_wg_loop_kernel<false, true>
+                    : pt::probe_wg_loop_kernel<false, false>);
+  return pt::launch_wg(kernel, *wg, n, stream, *wg, u, n, per_layer, iters, out);
 }

@@ -105,23 +105,6 @@ class TraceParams(ctypes.Structure):
     )
 
 
-class NifNet(ctypes.Structure):
-    """csrc/nif_dev.cuh::NifNet: the bf16 mma.sync chain of the probe K7."""
-
-    _fields_ = [
-        ("num_layers", ctypes.c_int), ("embed_dim", ctypes.c_int),
-        ("max_width", ctypes.c_int), ("log_flag", ctypes.c_int),
-        ("fan_in", ctypes.c_int * NIF_MAX_LAYERS),
-        ("fan_out", ctypes.c_int * NIF_MAX_LAYERS),
-        ("skip", ctypes.c_int * NIF_MAX_LAYERS),
-        ("k_trunk", ctypes.c_int * NIF_MAX_LAYERS),
-        ("k_pad", ctypes.c_int * NIF_MAX_LAYERS),
-        ("w", ctypes.c_void_p * NIF_MAX_LAYERS),
-        ("b", ctypes.c_void_p * NIF_MAX_LAYERS),
-        ("max_v", ctypes.c_float), ("mean", ctypes.c_float * 3),
-    ]
-
-
 class NifWg(ctypes.Structure):
     """csrc/nif_wgmma.cuh::NifWg."""
 
@@ -150,9 +133,8 @@ def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels; declares every signature."""
     lib = ctypes.CDLL(str(build()))
     lib.pt_trace.argtypes = [ctypes.POINTER(TraceParams), _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _P, _P, _P, _P, _P, _P]
-    # K2, K3, K4, K6 and K8 take a NifWg (bf16 or 8-bit by its flag; K3's plan for K3);
-    # K7 a NifNet.
+                             _P, _P, _P, _P, _P, _P, _P]
+    # K2, K3, K4, K6, K7 and K8 take a NifWg (bf16 or 8-bit by its flag; K3's plan for K3).
     wg = ctypes.POINTER(NifWg)
     lib.pt_env_shade.argtypes = [wg, _P, _P, ctypes.c_float, _I, _P, _P]
     lib.pt_nif_apply.argtypes = [wg, _P, _P, _I, _P, _P]
@@ -163,7 +145,7 @@ def library() -> ctypes.CDLL:
     lib.pt_probe_mxu.argtypes = [wg, _P, _I, _P, _P]
     lib.pt_probe_alu.argtypes = [_P, _I, _I, _P, _P]
     lib.pt_probe_both.argtypes = [wg, _P, _I, _I, _P, _P]
-    lib.pt_probe_loop.argtypes = [ctypes.POINTER(NifNet), _P, _I, _I, _I, _I, _I, _P, _P]
+    lib.pt_probe_loop.argtypes = [wg, _P, _I, _I, _I, _I, _I, _P, _P]
     lib.pt_quant_probe.argtypes = [wg, _I, _P, _I, _I, _P, _P]
     lib.pt_error_string.argtypes = [_I]
     lib.pt_error_string.restype = ctypes.c_char_p

@@ -40,7 +40,7 @@ from ..models.nif import NifModel
 from ..models.quant import QuantNifModel
 from . import _lib
 from .nif import WG_RAYS, model_tensors, nif_env_shade_plain, wg_arg, wg_struct, wgmma_plan
-from .trace import (TraceOut, check_sobol, pack_scene, sample_rows, trace_params,
+from .trace import (TraceOut, check_mode, pack_scene, sample_rows, trace_params,
                     trace_sample_plain)
 
 # Rays that share one sample budget (render/adaptive.py reads it from
@@ -212,13 +212,11 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     (ceil(P / budget_block),) int32; with host noise S must cover them) of
     every pixel: the kernel for CUDA tensors, the plain version for CPU.
     ``stub`` ('nif', 'trace' or 'both') runs a measurement stub."""
-    if (seed is None) == (noise is None):
-        raise ValueError("pass exactly one of seed= or noise=")
     stub = stub or None
     if stub is not None and stub not in STUBS:
         raise ValueError(f"unknown megastep stub {stub!r} (choices: {', '.join(STUBS)})")
     n = cols.shape[0]
-    check_sobol(sobol, sobol_dims, max_path_length, seed, n)
+    check_mode(seed, noise, sobol, sobol_dims, max_path_length, n)
     _check_budgets(budgets, budget_block, n, cols.device)
     kw = dict(width=width, height=height, max_path_length=max_path_length,
               aa_noise_type=aa_noise_type, budgets=budgets, budget_block=budget_block,
@@ -243,7 +241,7 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
                        sobol_dims=sobol_dims, width=width, height=height,
                        max_path_length=max_path_length, aa_noise_type=aa_noise_type)
     wg = wg_arg(kernel_net(model, scene))
-    sph, dsc = pack_scene(scene.to(dev))
+    sph, dsc = pack_scene(scene, dev)
     rad = torch.empty((3, n), dtype=torch.float32, device=dev)
     plen = torch.empty(n, dtype=torch.int32, device=dev)
     lum2 = torch.empty(n, dtype=torch.float32, device=dev) if with_stats else None

@@ -10,10 +10,8 @@ baked env mode call it).  Both live in ``csrc/nif.cu`` and run the
 ``wgmma_operands`` (``wg_struct``): a ``NifModel``'s bf16 chain, or a
 ``QuantNifModel``'s int8 chain (K5, ``_quant_mlp_core``: s8 slices under
 the 64-byte swizzle, with its multipliers from ``wgmma_scales``).  K3
-runs the same chains (ops/megastep.py), the probes K6 (probes/overlap.py)
-and K8 (probes/quant.py) too; the bf16 ``mma.sync`` chain of
-``nif_dev.cuh`` (``kernel_operands``, ``net_struct``) serves the loop
-probe K7 alone.
+runs the same chains (ops/megastep.py), the probes K6 and K7
+(probes/overlap.py) and K8 (probes/quant.py) too.
 Each wrapper launches its kernel for CUDA tensors and runs its ``*_plain``
 version for CPU tensors; a shape the ``wgmma`` chain cannot take raises
 (``wgmma_plan``), and the launchers take a ``NifWg`` only (``wg_arg``).
@@ -32,10 +30,6 @@ from ..models.quant import QuantNifModel, nif_apply_quant
 from . import _lib
 
 
-def _round(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
 def _cached(model: NifModel, attr: str, tensors, build):
     """``build()`` once per model, device and weight version."""
     key = (model.device, tuple((t.data_ptr(), t._version) for t in tensors))
@@ -44,32 +38,6 @@ def _cached(model: NifModel, attr: str, tensors, build):
         cached = (key, build())
         setattr(model, attr, cached)
     return cached[1]
-
-
-def kernel_operands(model: NifModel) -> list[tuple[torch.Tensor, torch.Tensor, int, int]]:
-    """bf16 ``mma.sync`` chain (the probe K7), per layer (packed weights, f32
-    bias, k_trunk, k_pad): (round8(out), k_pad) bf16 rows, one per output -
-    the trunk inputs zero-padded to k_trunk = round(trunk, 16), then (skip
-    layer) the Fourier-feature inputs zero-padded to 16 on their own - the
-    B-fragment layout of csrc/nif_dev.cuh::nif_layers.  Zero padding leaves
-    every dot product unchanged.  Cached on the model."""
-    def build():
-        feat = 4 * model.embedding_dim
-        out = []
-        for (fan_in, fan_out, skip), w, b in zip(model.layer_plan(), model.kernels,
-                                                 model.biases):
-            trunk = fan_in - feat if skip else fan_in
-            k_trunk = _round(trunk, 16)
-            k_pad = k_trunk + (_round(feat, 16) if skip else 0)
-            packed = torch.zeros((_round(fan_out, 8), k_pad), dtype=torch.bfloat16,
-                                 device=w.device)
-            packed[:fan_out, :trunk] = w[:trunk].t()
-            if skip:
-                packed[:fan_out, k_trunk:k_trunk + feat] = w[trunk:].t()
-            out.append((packed, b.float().contiguous(), k_trunk, k_pad))
-        return out
-
-    return _cached(model, "_kernel_operands", model.kernels, build)
 
 
 # The wgmma chain's fixed shapes (csrc/nif_wgmma.cuh).
@@ -278,43 +246,12 @@ def wg_struct(model: NifModel, plan: dict | None = None) -> _lib.NifWg:
 
 
 def wg_arg(net) -> ctypes._CArgObject:
-    """The ``wgmma`` kernels' chain argument (K2, K3, K4, K6, K8): a NifWg
-    (``wg_struct``).  A NifNet, the ``mma.sync`` chain's struct that only
-    K7 still runs, or anything else raises."""
+    """The ``wgmma`` kernels' chain argument (K2, K3, K4, K6, K7, K8): a
+    NifWg (``wg_struct``); anything else raises."""
     if not isinstance(net, _lib.NifWg):
         raise ValueError(f"the NIF kernels take a NifWg (the wgmma chain), not a "
                          f"{type(net).__name__}")
     return ctypes.byref(net)
-
-
-def net_struct(model: NifModel) -> _lib.NifNet:
-    """The ``mma.sync`` chain's view of a bf16 model (the loop probe K7,
-    the only kernel left on that chain): per-layer shapes, skip flags and
-    pointers to the packed operands (kept alive by the model's cache).  The
-    int8 chain runs on ``wgmma`` only."""
-    plan = model.layer_plan()
-    if len(plan) > _lib.NIF_MAX_LAYERS:
-        raise ValueError(f"NIF has {len(plan)} layers; the kernel takes at most "
-                         f"{_lib.NIF_MAX_LAYERS}")
-    if isinstance(model, QuantNifModel):
-        raise ValueError("the int8 chain runs on wgmma only (wg_struct); the mma.sync chain "
-                         "takes bf16 weights")
-    if model.dtype != torch.bfloat16:
-        raise ValueError(f"the mma.sync chain runs bf16 weights; model is {model.dtype}")
-    net = _lib.NifNet()
-    net.num_layers = len(plan)
-    net.embed_dim = model.embedding_dim
-    net.max_width = max([1] + [fo for _, fo, _ in plan[:-1]])
-    net.log_flag = int(model.log_tone_map)
-    for i, ((fan_in, fan_out, skip), (w, b, k_trunk, k_pad)) in enumerate(
-            zip(plan, kernel_operands(model))):
-        net.fan_in[i], net.fan_out[i], net.skip[i] = fan_in, fan_out, int(skip)
-        net.k_trunk[i], net.k_pad[i] = k_trunk, k_pad
-        net.w[i], net.b[i] = w.data_ptr(), b.data_ptr()
-    net.max_v = model.max
-    for c in range(3):
-        net.mean[c] = model.mean[c]
-    return net
 
 
 def model_tensors(model: NifModel) -> list[torch.Tensor]:

@@ -20,6 +20,7 @@ that is how the plain version serves the hardware modes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -41,11 +42,34 @@ class TraceOut(NamedTuple):
     path_len: torch.Tensor  # int32
 
 
-def pack_scene(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
-    """Flat f32 tables: 12 floats per sphere (cx cy cz r | rgb colour |
-    rgb emission | emissive material), 15 per disc (nx ny nz cx cy cz r |
-    ...), and a 1-float dummy for an empty class, never read: the kernel
-    loops over the counts."""
+# pack_scene's cache: (device, the scene's tensors' keys) -> (scene, tables).
+_TABLES: dict = {}
+_TABLES_MAX = 8
+
+
+def pack_scene(scene: Scene, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat f32 tables on ``device`` (default: the scene's): 12 floats per
+    sphere (cx cy cz r | rgb colour | rgb emission | emissive material), 15
+    per disc (nx ny nz cx cy cz r | ...), and a 1-float dummy for an empty
+    class, never read: the kernel loops over the counts.
+
+    Cached per scene and device (``_TABLES``), so a repeated launch copies
+    nothing to the card and launches no kernel for them.  A scene is known
+    by its tensors' devices, data pointers, versions, shapes and types; an
+    entry holds the scene, so no other scene's tensors can take over its
+    pointers while it lives, and an in-place edit bumps a version."""
+    dev = scene.sphere_center.device if device is None else torch.device(device)
+    key = (dev, tuple((t.device, t.data_ptr(), t._version, tuple(t.shape), t.dtype)
+                      for t in scene))
+    hit = _TABLES.get(key)
+    if hit is None:
+        if len(_TABLES) >= _TABLES_MAX:
+            _TABLES.pop(next(iter(_TABLES)))
+        hit = _TABLES[key] = (scene, _pack(scene.to(dev)))
+    return hit[1]
+
+
+def _pack(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
     ns, nd = scene.num_spheres, scene.num_discs
     f = torch.float32
     sph = torch.cat([
@@ -62,7 +86,14 @@ def pack_scene(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
 
 def tan_fov(fov: float, width: int, height: int, device) -> tuple[float, float]:
     """f32 tan(fov/2) and tan((h/w) fov/2), computed on ``device`` exactly
-    as pixel_to_ray computes them there."""
+    as pixel_to_ray computes them there: once per (fov, width, height,
+    device), then read from the cache (``_tan_fov``), so a repeated launch
+    waits for no read-back from the card."""
+    return _tan_fov(float(fov), int(width), int(height), torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _tan_fov(fov: float, width: int, height: int, device: torch.device) -> tuple[float, float]:
     half = torch.tensor(fov, dtype=torch.float32, device=device) * 0.5
     ratio = (torch.tensor(float(height), device=device)
              / torch.tensor(float(width), device=device))
@@ -86,6 +117,13 @@ def trace_params(scene: Scene, settings, *, width: int, height: int,
         aa_type=_AA_TYPES[aa_noise_type], num_s=scene.num_spheres,
         num_d=scene.num_discs, sobol_dims=sobol_dims if sobol is not None else 0,
         seed0=s0, seed1=s1, sobol_key=0 if sobol is None else int(sobol[2]) & _MASK32, pad0=0)
+
+
+def check_mode(seed, noise, sobol, sobol_dims: int, max_path_length: int, n: int) -> None:
+    """Exactly one of ``seed`` and ``noise``, and check_sobol's rules."""
+    if (seed is None) == (noise is None):
+        raise ValueError("pass exactly one of seed= or noise=")
+    check_sobol(sobol, sobol_dims, max_path_length, seed, n)
 
 
 def check_sobol(sobol, sobol_dims: int, max_path_length: int, seed, n: int) -> None:
@@ -202,6 +240,61 @@ def trace_sample_plain(scene: Scene, settings, cols, rows, seed=None, *,
 trace_sample_plain.cuda_runs = 0
 
 
+class TraceLaunch:
+    """One K1 launch with its operands prepared (``prepare_trace``):
+    ``launch()`` runs the kernel into the outputs, ``out()`` returns them.
+    trace_sample prepares one per call; timing the kernel alone launches one
+    back to back."""
+
+    def __init__(self, args: tuple, outputs: tuple, keep: tuple):
+        # keep: the tensors and structs behind the pointers in args.
+        self.args, self._outputs, self._keep = args, outputs, keep
+
+    def launch(self) -> None:
+        _lib.check(_lib.library().pt_trace(*self.args), "trace")
+        trace_sample.launches += 1
+
+    def out(self) -> TraceOut:
+        rad, escd, escw, escm, plen = self._outputs
+        return TraceOut(Vec3.unstack(rad), Vec3.unstack(escd), Vec3.unstack(escw),
+                        escm != 0, plen)
+
+
+def prepare_trace(scene: Scene, settings, cols, rows, seed=None, *, noise=None,
+                  sample_index: int = 0, width: int, height: int, max_path_length: int,
+                  aa_noise_type: str = "normal", sobol=None,
+                  sobol_dims: int = 0) -> TraceLaunch:
+    """K1's operands for CUDA tensors (trace_sample's arguments): checked,
+    the launch parameters and the scene's tables from their caches (no
+    device round trip on a repeated launch), the outputs allocated."""
+    n = cols.shape[0]
+    check_mode(seed, noise, sobol, sobol_dims, max_path_length, n)
+    operands = [cols, rows] + ([] if noise is None else [noise]) + (
+        [] if sobol is None else list(sobol[:2]))
+    dev = _lib.require_cuda("trace", *operands)
+    if cols.dtype != torch.float32 or rows.dtype != torch.float32 or rows.shape != (n,):
+        raise ValueError("trace: cols/rows must be (P,) float32")
+    if noise is not None and (noise.dtype != torch.float32
+                              or noise.shape != (4 + 4 * max_path_length, n)):
+        raise ValueError(f"trace: noise must be ({4 + 4 * max_path_length}, {n}) float32")
+    prm = trace_params(scene, settings, seed=seed, device=dev, sobol=sobol,
+                       sobol_dims=sobol_dims, width=width, height=height,
+                       max_path_length=max_path_length, aa_noise_type=aa_noise_type)
+    sph, dsc = pack_scene(scene, dev)
+    rad = torch.empty((3, n), dtype=torch.float32, device=dev)
+    escd = torch.empty_like(rad)
+    escw = torch.empty_like(rad)
+    escm = torch.empty(n, dtype=torch.int32, device=dev)
+    plen = torch.empty(n, dtype=torch.int32, device=dev)
+    next_ray = torch.empty(1, dtype=torch.int32, device=dev)  # the kernel's batch counter
+    pid, base = (None, None) if sobol is None else sobol[:2]
+    args = (ctypes.byref(prm), _lib.ptr(sph), _lib.ptr(dsc), _lib.ptr(cols), _lib.ptr(rows),
+            _lib.ptr(noise), _lib.ptr(pid), _lib.ptr(base), sample_index, n, _lib.ptr(next_ray),
+            _lib.ptr(rad), _lib.ptr(escd), _lib.ptr(escw), _lib.ptr(escm), _lib.ptr(plen),
+            _lib.stream(dev))
+    return TraceLaunch(args, (rad, escd, escw, escm, plen), (prm, sph, dsc, next_ray))
+
+
 def trace_sample(scene: Scene, settings, cols, rows, seed=None, *, noise=None,
                  sample_index: int = 0, width: int, height: int,
                  max_path_length: int, aa_noise_type: str = "normal", sobol=None,
@@ -216,41 +309,15 @@ def trace_sample(scene: Scene, settings, cols, rows, seed=None, *, noise=None,
     mode only) draws the first ``sobol_dims`` rows from the Owen-Sobol
     sequence at index base + sample_index.
     """
-    if (seed is None) == (noise is None):
-        raise ValueError("pass exactly one of seed= or noise=")
-    n = cols.shape[0]
-    check_sobol(sobol, sobol_dims, max_path_length, seed, n)
-    kw = dict(width=width, height=height, max_path_length=max_path_length,
-              aa_noise_type=aa_noise_type)
+    kw = dict(noise=noise, sample_index=sample_index, width=width, height=height,
+              max_path_length=max_path_length, aa_noise_type=aa_noise_type, sobol=sobol,
+              sobol_dims=sobol_dims)
     if cols.device.type == "cpu":
-        return trace_sample_plain(scene, settings, cols, rows, seed, noise=noise,
-                                  sample_index=sample_index, sobol=sobol,
-                                  sobol_dims=sobol_dims, **kw)
-    operands = [cols, rows] + ([] if noise is None else [noise]) + (
-        [] if sobol is None else list(sobol[:2]))
-    dev = _lib.require_cuda("trace", *operands)
-    if cols.dtype != torch.float32 or rows.dtype != torch.float32 or rows.shape != (n,):
-        raise ValueError("trace: cols/rows must be (P,) float32")
-    if noise is not None and (noise.dtype != torch.float32
-                              or noise.shape != (4 + 4 * max_path_length, n)):
-        raise ValueError(f"trace: noise must be ({4 + 4 * max_path_length}, {n}) float32")
-    prm = trace_params(scene, settings, seed=seed, device=dev, sobol=sobol,
-                       sobol_dims=sobol_dims, **kw)
-    sph, dsc = pack_scene(scene.to(dev))
-    rad = torch.empty((3, n), dtype=torch.float32, device=dev)
-    escd = torch.empty_like(rad)
-    escw = torch.empty_like(rad)
-    escm = torch.empty(n, dtype=torch.int32, device=dev)
-    plen = torch.empty(n, dtype=torch.int32, device=dev)
-    pid, base = (None, None) if sobol is None else sobol[:2]
-    err = _lib.library().pt_trace(
-        ctypes.byref(prm), _lib.ptr(sph), _lib.ptr(dsc), _lib.ptr(cols), _lib.ptr(rows),
-        _lib.ptr(noise), _lib.ptr(pid), _lib.ptr(base), sample_index, n, _lib.ptr(rad),
-        _lib.ptr(escd), _lib.ptr(escw), _lib.ptr(escm), _lib.ptr(plen), _lib.stream(dev))
-    _lib.check(err, "trace")
-    trace_sample.launches += 1
-    return TraceOut(Vec3.unstack(rad), Vec3.unstack(escd), Vec3.unstack(escw),
-                    escm != 0, plen)
+        check_mode(seed, noise, sobol, sobol_dims, max_path_length, cols.shape[0])
+        return trace_sample_plain(scene, settings, cols, rows, seed, **kw)
+    run = prepare_trace(scene, settings, cols, rows, seed, **kw)
+    run.launch()
+    return run.out()
 
 
 trace_sample.launches = 0

@@ -4,12 +4,13 @@ Replaces ``scripts/overlap_probe.py`` (K6: the chain alone, the ALU chain
 alone, both interleaved in one kernel) and ``scripts/overlap_probe2.py``
 (K7: the interleaved pair in a 16-iteration loop inside the kernel, with
 in-kernel Philox draws, with twelve more live carries, and with both).
-The kernels are ``csrc/probes.cu``: K6's chain on the bf16 ``wgmma`` tile
-of ``csrc/nif_wgmma.cuh`` (the probe model's ``NifWg``, ``ops/nif.wg_struct``;
-in 'both' the ALU rounds run while each layer's last MMAs are in flight),
-K7's on the ``mma.sync`` chain of ``csrc/nif_dev.cuh`` (its ``NifNet``,
-``ops/nif.net_struct``).  Each wrapper launches its kernel for a CUDA
-tensor and runs its ``*_plain`` version for a CPU tensor.  The scripts'
+The kernels are ``csrc/probes.cu``: K6's and K7's chains on the bf16
+``wgmma`` tile of ``csrc/nif_wgmma.cuh`` (the probe model's ``NifWg``,
+``ops/nif.wg_struct``; in 'both' and in K7's loop the ALU rounds run while
+each layer's last MMAs are in flight; K7 runs each iteration as one pass
+of the chain over its tile, the carries in the threads that own the
+lanes).  Each wrapper launches its kernel for a CUDA tensor and runs its
+``*_plain`` version for a CPU tensor.  The scripts'
 sizes are kept: 270 x 4096 lanes, the seven layers of ``LAYERS``, 30 ALU
 rounds in K6 and 28 in K7.
 
@@ -30,7 +31,7 @@ import torch
 
 from ..models.nif import NifModel, mlp_chain
 from ..ops import _lib
-from ..ops.nif import model_tensors, net_struct, wg_arg, wg_struct
+from ..ops.nif import model_tensors, wg_arg, wg_struct
 from ..ops.trace import philox4x32_10
 from ..utils.devtime import card_line, time_per_call
 
@@ -112,11 +113,10 @@ def loop_plain(model: NifModel, u: torch.Tensor, prng: bool, state: bool,
 
 # ----------------------------------------------------------- kernels ----
 
-def chain_arg(name: str, model: NifModel):
-    """The chain argument of probe ``name``'s launcher: K6 ('mxu', 'both')
-    the model's NifWg (``wg_arg`` refuses anything else), K7 ('loop') its
-    NifNet."""
-    return ctypes.byref(net_struct(model)) if name == "loop" else wg_arg(wg_struct(model))
+def chain_arg(model: NifModel):
+    """The chain argument of the chain probes' launchers (K6 'mxu' and
+    'both', K7): the model's NifWg (``wg_arg`` refuses anything else)."""
+    return wg_arg(wg_struct(model))
 
 
 def _launch(name: str, u: torch.Tensor, model: NifModel | None, *args) -> torch.Tensor:
@@ -130,7 +130,7 @@ def _launch(name: str, u: torch.Tensor, model: NifModel | None, *args) -> torch.
     if model is None:
         err = lib.pt_probe_alu(_lib.ptr(u), n, *args, _lib.ptr(out), _lib.stream(dev))
     else:
-        err = getattr(lib, f"pt_probe_{name}")(chain_arg(name, model), _lib.ptr(u), n, *args,
+        err = getattr(lib, f"pt_probe_{name}")(chain_arg(model), _lib.ptr(u), n, *args,
                                                 _lib.ptr(out), _lib.stream(dev))
     _lib.check(err, f"probe {name}")
     return out

@@ -21,8 +21,8 @@ arithmetic their tiles do:
     reference encodes by the double-angle recurrence);
   * K8's int8 slices, read the same way with the script's epilogue, equal
     probes/quant.probe_plain bit for bit;
-  * the launchers' argument is a NifWg for an int8 model, and a NifNet is
-    refused;
+  * the launchers' argument is a NifWg for an int8 model, and any other
+    struct is refused;
   * chip_smoke.py's torch._int_mm chain (the int8 rows' library yardstick)
     equals the plain chain bit for bit;
   * probes/chain_ablation.py refuses a source edit that no longer
@@ -308,8 +308,7 @@ def test_k8_int8_tile_matches_probe_plain(variant):
 def test_launchers_take_an_int8_nifwg_and_refuse_a_nifnet():
     """K2/K4 and K3 hand an int8 model a NifWg with its flag, passes,
     multipliers and quant steps; the launchers' argument (ops/nif.wg_arg)
-    refuses a NifNet and anything else; the mma.sync NifNet refuses an
-    int8 model."""
+    refuses any other struct and anything else."""
     model = _model("int8-asset")
     for wg in (nif_ops.wg_struct(model), megastep.kernel_net(model, default_scene())):
         assert nif_ops.wg_arg(wg)._obj is wg and wg.int8 == 1
@@ -318,11 +317,8 @@ def test_launchers_take_an_int8_nifwg_and_refuse_a_nifnet():
         assert [wg.mult[i] for i in range(7)] == [m.data_ptr() for m in mults]
         assert wg.mult_skip == mult_skip.data_ptr()
         np.testing.assert_array_equal(np.float32(list(wg.inv_next[:7])), model.inv_next.numpy())
-    bf16 = nif.load_nif_assets(str(ASSETS / "urban_alley_synth_nif"))[0]
     with pytest.raises(ValueError, match="NifWg"):
-        nif_ops.wg_arg(nif_ops.net_struct(bf16))
-    with pytest.raises(ValueError, match="wgmma"):
-        nif_ops.net_struct(model)
+        nif_ops.wg_arg(_lib.TraceParams())
     with pytest.raises(ValueError, match="NifWg"):
         nif_ops.wg_arg(None)
 

@@ -14,7 +14,7 @@ the kernel is given and what its geometry computes:
   * the budget contract: a budget block is whole CUDA blocks, and a CUDA
     block two 128-ray wgmma tiles;
   * the chain selector: a bf16 model's NifWg and an int8 model's NifWg,
-    each with K3's plan; a NifNet (the mma.sync chains' struct) is refused;
+    each with K3's plan; any other struct is refused;
   * the env-skip tile: 128 rays for both chains, as the app's auto probe
     logs it;
   * the kernel's arithmetic from its operands - per 256-ray block its
@@ -141,7 +141,7 @@ def test_budget_and_tile_contract():
 def test_kernel_nets_pick_the_chain(asset):
     """A bf16 model and its int8 quantization each get a NifWg carrying
     K3's plan (not K2's) for their chain; the launcher's argument refuses
-    a NifNet (the mma.sync chains' struct) and anything else."""
+    anything but a NifWg."""
     model = _load(asset)
     _, meta, weights = nif.load_nif_assets(str(ASSETS / asset))
     q8 = quantize_nif(weights, meta)
@@ -155,7 +155,7 @@ def test_kernel_nets_pick_the_chain(asset):
         assert [wg.w[i] for i in range(wg.num_layers)] == [
             w.data_ptr() for w, _ in nif_ops.wgmma_operands(m)]
         assert nif_ops.wg_arg(wg)._obj is wg
-    for bad in (nif_ops.net_struct(model), None, (None, wg)):
+    for bad in (_lib.TraceParams(), None, (None, wg)):
         with pytest.raises(ValueError, match="NifWg"):
             nif_ops.wg_arg(bad)
 

@@ -207,38 +207,45 @@ def test_env_shade_zero_for_non_escaped():
 
 
 def test_net_struct_layout():
-    """The kernel's view of the canonical net: shapes, skip, K padding."""
+    """The kernels' view of the canonical net (a NifWg, the wgmma chain's):
+    shapes, skip layer, K-slices and the cached operands' pointers."""
     model, _, _ = nif.load_nif_assets("assets/urban_alley_synth_nif")
-    net = nif_ops.net_struct(model)
-    assert (net.num_layers, net.embed_dim, net.max_width, net.log_flag) == (7, 12, 320, 1)
-    assert list(net.fan_in[:7]) == [48, 320, 320, 368, 320, 320, 320]
-    assert list(net.skip[:7]) == [0, 0, 0, 1, 0, 0, 0]
-    assert list(net.k_trunk[:7]) == [48, 320, 320, 320, 320, 320, 320]
-    assert list(net.k_pad[:7]) == [48, 320, 320, 368, 320, 320, 320]
-    packed, bias, _, _ = nif_ops.kernel_operands(model)[3]
-    assert net.w[3] == packed.data_ptr() and net.b[3] == bias.data_ptr()
-    assert nif_ops.kernel_operands(model)[3][0] is packed  # cached per model
+    net = nif_ops.wg_struct(model)
+    assert (net.num_layers, net.embed_dim, net.log_flag, net.int8) == (7, 12, 1, 0)
+    assert list(net.chunks[:7]) == [5, 5, 5, 5, 5, 5, 0]
+    assert list(net.in_atoms[:7]) == [0, 5, 5, 5, 5, 5, 5]
+    assert list(net.f_atoms[:7]) == [1, 0, 0, 1, 0, 0, 0]
+    assert list(net.slice_bytes[:7]) == [40_960] * 6 + [1_024]
+    slices, bias = nif_ops.wgmma_operands(model)[3]
+    assert net.w[3] == slices.data_ptr() and net.b[3] == bias.data_ptr()
+    assert nif_ops.wgmma_operands(model)[3][0] is slices  # cached per model
     with pytest.raises(ValueError, match="bf16"):
-        nif_ops.net_struct(nif.load_nif_assets("assets/urban_alley_synth_nif",
-                                               torch.float32)[0])
+        nif_ops.wg_struct(nif.load_nif_assets("assets/urban_alley_synth_nif",
+                                              torch.float32)[0])
 
 
 @pytest.mark.parametrize("asset", ASSETS)
 def test_packed_operands_keep_every_dot_product(asset):
-    """Zero-padded (out, in) packing: padded inputs times the packed rows
-    equal the layer's products, skip layer included."""
+    """Zero-padded K-slices (the wgmma chain's operands): padded inputs -
+    the trunk in the activation slices, the Fourier features in the feature
+    slices - times the un-swizzled rows equal the layer's products, skip
+    layer included, and the padded outputs give zero."""
+    from test_torch_nif_wgmma import _unswizzle
+
     model, _, _ = nif.load_nif_assets(asset)
-    feat = 4 * model.embedding_dim
     rng = np.random.default_rng(13)
-    for (fan_in, fan_out, skip), w, b, (packed, bias, k_trunk, k_pad) in zip(
-            model.layer_plan(), model.kernels, model.biases, nif_ops.kernel_operands(model)):
-        assert packed.shape == (-(-fan_out // 8) * 8, k_pad) and k_trunk % 16 == 0
+    for lay, w, b, (slices, bias) in zip(nif_ops.wgmma_plan(model)["layers"], model.kernels,
+                                         model.biases, nif_ops.wgmma_operands(model)):
+        flat = torch.from_numpy(_unswizzle(slices.float().numpy()))
+        fan_in, fan_out, trunk = lay["fan_in"], lay["fan_out"], lay["trunk"]
+        k_act = 64 * lay["in_atoms"]
+        assert flat.shape == (lay["rows"], k_act + 64 * lay["f_atoms"])
         x = torch.from_numpy(rng.normal(size=(5, fan_in)).astype(np.float32))
-        trunk = fan_in - feat if skip else fan_in
-        x_pad = torch.zeros(5, k_pad)
+        x_pad = torch.zeros(5, flat.shape[1])
         x_pad[:, :trunk] = x[:, :trunk]
-        x_pad[:, k_trunk:k_trunk + fan_in - trunk] = x[:, trunk:]
-        got = x_pad @ packed.float().t()
+        x_pad[:, k_act:k_act + fan_in - trunk] = x[:, trunk:]
+        got = x_pad @ flat.t()
         torch.testing.assert_close(got[:, :fan_out], x @ w.float(), rtol=1e-5, atol=1e-5)
         assert torch.all(got[:, fan_out:] == 0)
-        assert bias.dtype == torch.float32 and torch.equal(bias, b.float())
+        assert bias.dtype == torch.float32 and torch.equal(bias[:fan_out], b.float())
+        assert not bias[fan_out:].any()

@@ -154,14 +154,14 @@ def test_unsupported_shapes_raise(widths, embed, head, match):
 
 def test_kernel_nets_pick_the_chain():
     """K2/K4 get a NifWg for a bf16 model and for an int8 one (its int8
-    flag set), never a NifNet (the mma.sync chains' struct, which the
-    launchers' argument refuses); an f32 model raises."""
+    flag set); the launchers' argument refuses any other struct; an f32
+    model raises."""
     model, meta, weights = nif.load_nif_assets("assets/urban_alley_synth_nif")
     for m, int8 in ((model, 0), (quantize_nif(weights, meta), 1)):
         wg = nif_ops.wg_arg(nif_ops.wg_struct(m))
         assert isinstance(wg._obj, _lib.NifWg) and wg._obj.int8 == int8
     with pytest.raises(ValueError, match="NifWg"):
-        nif_ops.wg_arg(nif_ops.net_struct(model))
+        nif_ops.wg_arg(_lib.TraceParams())
     with pytest.raises(ValueError, match="bf16"):
         nif_ops.wg_struct(nif.load_nif_assets("assets/urban_alley_synth_nif",
                                               torch.float32)[0])
@@ -235,21 +235,29 @@ def test_chain_from_slices_matches_jax(shape):
 def test_launcher_signatures_match_the_sources():
     """Every launcher's ctypes argtypes (ops/_lib.py::library) has as many
     entries as its extern "C" signature in csrc/ has parameters: ctypes
-    passes extra arguments as C ints, which cuts a pointer."""
+    passes extra arguments as C ints, which cuts a pointer.  Where a
+    launcher takes a NifWg (K2, K3, K4, K6, K7 - pt_probe_loop - and K8),
+    its argtypes declare the NifWg pointer, and nowhere else."""
     import ast
     import re
     from pathlib import Path
 
     csrc = Path(_lib.__file__).resolve().parent.parent / "csrc"
-    params = {}
+    params, takes_wg = {}, set()
     for src in _lib.SOURCES:
         text = (csrc / src).read_text()
         for name, args in re.findall(r'extern "C" [\w\s*]+?\b(pt_\w+)\(([^)]*)\)', text):
             params[name] = len([a for a in args.split(",") if a.strip()])
-    declared = {}
+            takes_wg |= {(name, i) for i, a in enumerate(args.split(",")) if "NifWg" in a}
+    declared, declared_wg = {}, set()
     for node in ast.walk(ast.parse(Path(_lib.__file__).read_text())):
         if (isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Attribute)
                 and node.targets[0].attr == "argtypes"):
-            declared[node.targets[0].value.attr] = len(node.value.elts)
-    assert set(declared) <= set(params) and "pt_quant_probe" in declared
+            name = node.targets[0].value.attr
+            declared[name] = len(node.value.elts)
+            declared_wg |= {(name, i) for i, e in enumerate(node.value.elts)
+                            if ast.unparse(e) == "wg"}
+    assert set(declared) <= set(params) and {"pt_quant_probe", "pt_probe_loop"} <= set(declared)
     assert {k: params[k] for k in declared} == declared
+    assert ("pt_probe_loop", 0) in takes_wg and len(takes_wg) == 8
+    assert declared_wg == takes_wg

@@ -11,15 +11,16 @@ chain to rtol 1e-5 on all but 5e-3 of the lanes (a lane next to the
 x > 1 select may take the other branch after a last-bit difference in
 sin).
 
-K6's kernels run the bf16 wgmma tile (csrc/probes.cu on csrc/nif_wgmma.cuh)
-and need an H100; here the CPU checks what they are given - the probe
-model's NifWg plan fits a block and its swizzled slices recover the
-scripts' weights exactly - and a CPU model of the tile (bf16(u) in every
-feature row, the slices read in kernel order with f32 sums, ReLU and a
-round to bf16 between layers, row 0 of the head, plus the ALU rounds for
-'both') against the plain versions and the scripts' chains within the
-bf16 budget; and that K6's launch path takes the NifWg alone (K7 keeps
-the mma.sync chain's NifNet).
+K6's and K7's kernels run the bf16 wgmma tile (csrc/probes.cu on
+csrc/nif_wgmma.cuh) and need an H100; here the CPU checks what they are
+given - the probe model's NifWg plan fits a block and its swizzled slices
+recover the scripts' weights exactly - and a CPU model of the tile (bf16(u)
+in every feature row, the slices read in kernel order with f32 sums, ReLU
+and a round to bf16 between layers, row 0 of the head, plus the ALU rounds
+for 'both') against the plain versions and the scripts' chains within the
+bf16 budget; the same tile iterated as K7's loop (one pass of the chain
+per iteration, the carries updated in the kernel's order) for its four
+variants; and that every chain probe's launch path takes the NifWg alone.
 """
 
 import ast
@@ -212,18 +213,58 @@ def test_k6_tile_matches_plain_and_scripts(variant):
     _assert_chain_close(got, ref)
 
 
-def test_k6_launch_path_takes_a_nifwg(monkeypatch):
-    """K6's launchers get the probe model's NifWg (the wgmma tile) and
-    refuse a NifNet; K7's keeps the mma.sync chain's NifNet."""
+def _k7_tile(model, u, prng, state):
+    """K7's tile: LOOP passes of K6's tile, the owning thread's carries in
+    the kernel's order - v = u + acc 1e-6 (+ the Philox term), the chain
+    over bf16(v), r = v after its ALU rounds + row 0, then each carry one
+    ALU round plus r 1e-9, acc + r; out = acc + (carry 0 + carry 1 + ...)."""
+    n = u.shape[0]
+    lane = torch.arange(n, dtype=torch.int64)
+    zero = torch.zeros_like(lane)
+    rounds = overlap.per_layer(overlap.K7_ROUNDS) * len(overlap.LAYERS)
+    extras = [u * np.float32(1.0 + 0.01 * k) for k in range(overlap.EXTRAS if state else 1)]
+    acc = torch.zeros_like(u)
+    for i in range(overlap.LOOP):
+        v = u + acc * np.float32(1e-6)
+        if prng:
+            bits = philox4x32_10([lane, zero + i, zero, zero], 7, 0)[0]
+            v = v + (bits >> 8).to(torch.float32) * np.float32(1e-9)
+        r = overlap.alu_plain(v, rounds) + _k6_tile(model, v)
+        if state:
+            extras = [overlap.alu_round_plain(e) + r * np.float32(1e-9) for e in extras]
+        acc = acc + r
+    total = extras[0]
+    for e in extras[1:]:
+        total = total + e
+    return acc + total
+
+
+@pytest.mark.parametrize("variant", list(overlap.LOOP_VARIANTS))
+def test_k7_tile_matches_plain_and_script(variant):
+    """K7's loop on the tile's model matches the plain version (loop_plain)
+    and the script's k_loop body within the bf16 budget, for each of the
+    four variants."""
+    u = _lanes(9)
+    prng, state = overlap.LOOP_VARIANTS[variant]
     model = overlap.probe_model()
-    for name in ("mxu", "both"):
-        arg = overlap.chain_arg(name, model)
-        assert isinstance(arg._obj, _lib.NifWg) and arg._obj.int8 == 0
-    assert isinstance(overlap.chain_arg("loop", model)._obj, _lib.NifNet)
-    monkeypatch.setattr(overlap, "wg_struct", nif_ops.net_struct)
-    for name in ("mxu", "both"):
-        with pytest.raises(ValueError, match="NifWg"):
-            overlap.chain_arg(name, model)
+    got = _k7_tile(model, torch.from_numpy(u), prng, state)
+    _assert_chain_close(got, overlap.loop_plain(model, torch.from_numpy(u), prng, state))
+    _assert_chain_close(got, _reference_loop(u, prng, state))
+
+
+def test_k6_launch_path_takes_a_nifwg(monkeypatch):
+    """The chain probes' launchers - K6 'mxu' and 'both' and K7's 'loop' -
+    get the probe model's NifWg (the wgmma tile) and refuse anything else;
+    each C launcher takes the NifWg as its first argument."""
+    model = overlap.probe_model()
+    arg = overlap.chain_arg(model)
+    assert isinstance(arg._obj, _lib.NifWg) and arg._obj.int8 == 0
+    src = (Path(_lib.__file__).resolve().parent.parent / "csrc" / "probes.cu").read_text()
+    for name in ("mxu", "both", "loop"):
+        assert f'extern "C" int pt_probe_{name}(const pt::NifWg* wg,' in src
+    monkeypatch.setattr(overlap, "wg_struct", lambda m: _lib.TraceParams())
+    with pytest.raises(ValueError, match="NifWg"):
+        overlap.chain_arg(model)
 
 
 def test_cpu_wrappers_run_the_plain_versions():

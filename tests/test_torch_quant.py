@@ -284,14 +284,11 @@ def test_int8_megastep_matches_pallas_interpret(small):
 
 def test_net_struct_int8_layout():
     """The kernels' view of the canonical int8 net is a NifWg (the wgmma
-    chain; the mma.sync NifNet, K7's bf16 chain, refuses an int8 model and
-    has no 8-bit fields): the plan's s8
-    slices, the skip layer in passes of 128 outputs, the multipliers
-    padded to the rows and the activation grids' quant steps."""
+    chain): the plan's s8 slices, the skip layer in passes of 128 outputs,
+    the multipliers padded to the rows and the activation grids' quant
+    steps."""
     weights, meta, amax = _asset_nif()
     model = quant.quantize_nif(weights, meta, amax=amax)
-    with pytest.raises(ValueError, match="wgmma"):
-        nif_ops.net_struct(model)
     net = nif_ops.wg_struct(model)
     assert (net.int8, net.num_layers, net.embed_dim, net.stages) == (1, 7, 12, 4)
     assert list(net.passes[:7]) == [1, 1, 1, 3, 1, 1, 1]
@@ -304,10 +301,6 @@ def test_net_struct_int8_layout():
     assert torch.equal(mult_skip[:320], model.mult_skip) and mult_skip.shape == (320,)
     assert torch.equal(mults[6][:3], model.mults[6]) and not mults[6][3:].any()
     assert nif_ops.wgmma_operands(model)[3][0] is ops[3][0]  # cached per model
-    bf16 = nif_ops.net_struct(nif.load_nif_assets("assets/urban_alley_synth_nif")[0])
-    # The NifNet is the bf16 mma.sync chain of K7 alone: no 8-bit fields.
-    assert not {"int8", "mult", "mult_skip", "inv_next"} & {f for f, _ in type(bf16)._fields_}
-    assert list(bf16.k_pad[:7]) == [48, 320, 320, 368, 320, 320, 320]
 
 
 @pytest.mark.parametrize("skip_layer", [2, None])

@@ -29,7 +29,7 @@ script's ``BLOCK`` set to 256, both restored after each run.  Evidence:
   128 outputs, the script's epilogue) equals the plain version bit for bit
   and build_call within the fp8 budget above (the QGMMA routes' narrower
   tensor-core sums are not modelled: they are measured on the card); the
-  launch path refuses a NifNet; and the cuBLAS fp8 chain of
+  launch path refuses any other struct; and the cuBLAS fp8 chain of
   probes/fp8_qgmma.py computes the plain version's function.
 """
 
@@ -349,12 +349,12 @@ def test_k8_fp8_tile_matches_probe_plain(variant, route):
 
 def test_launch_path_refuses_a_nifnet():
     """The launcher's chain argument is the variant's NifWg, fp8 included
-    (the mma.sync NifNet of the old fp8 kernel is gone); a NifNet raises,
-    and a QGMMA route exists for the fp8 variants alone."""
+    (the mma.sync chain of the old fp8 kernel is gone); any other struct
+    raises, and a QGMMA route exists for the fp8 variants alone."""
     for variant in quant.VARIANTS:
         assert isinstance(quant.kernel_arg(_operands(variant))._obj, _lib.NifWg)
     ops = _operands("fp8_e4m3")
-    ops._net = (_lib.NifNet(), None)
+    ops._net = (_lib.TraceParams(), None)
     with pytest.raises(ValueError, match="NifWg"):
         quant.kernel_arg(ops)
     for variant, route in (("int8_raw", "qgmma"), ("fp8_raw", "exact")):

@@ -174,3 +174,148 @@ def test_trace_params_fov_matches_reference():
     assert prm.tanfov_y == pytest.approx(
         float(np.tan(np.float32(1000 / 1104) * half)), rel=1e-7)
     assert (prm.aa_type, prm.num_s, prm.num_d, prm.seed0, prm.seed1) == (2, 5, 1, 1, 5)
+
+
+# ------------------------------------------------- K1's launcher and body ----
+
+def test_repeated_launch_parameters_build_no_tensor(monkeypatch):
+    """A second trace_params / pack_scene call with the same arguments reads
+    its caches: no tensor is built (so nothing is copied to or read back
+    from a card), and the cached values equal the uncached ones bit for
+    bit."""
+    scene, settings = default_scene(), RenderSettings.make(fov_degrees=61.0)
+    kw = dict(width=W + 3, height=H, max_path_length=L, aa_noise_type="normal", seed=(3, 4),
+              device="cpu")
+    first = trace.trace_params(scene, settings, **kw)
+    sph, dsc = trace.pack_scene(scene, "cpu")
+    built = []
+    for name in ("tensor", "cat", "zeros"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _real=real, _name=name, **k: (
+            built.append(_name), _real(*a, **k))[1])
+    again = trace.trace_params(scene, settings, **kw)
+    sph2, dsc2 = trace.pack_scene(scene, "cpu")
+    monkeypatch.undo()
+    assert built == []
+    assert sph2 is sph and dsc2 is dsc
+    assert bytes(again) == bytes(first)
+    uncached = trace._tan_fov.__wrapped__(settings.fov, W + 3, H, torch.device("cpu"))
+    assert np.float32(uncached[0]) == np.float32(again.tanfov_x)
+    assert np.float32(uncached[1]) == np.float32(again.tanfov_y)
+    ref_sph, ref_dsc = trace._pack(scene)
+    assert torch.equal(sph, ref_sph) and torch.equal(dsc, ref_dsc)
+
+
+def test_pack_scene_cache_follows_the_scene():
+    """Another scene, or the same scene edited in place, is packed anew."""
+    scene = default_scene()
+    sph, _ = trace.pack_scene(scene)
+    other = default_scene()
+    assert trace.pack_scene(other)[0] is not sph
+    assert torch.equal(trace.pack_scene(other)[0], sph)
+    scene.sphere_radius.mul_(2.0)
+    grown, _ = trace.pack_scene(scene)
+    assert grown is not sph and torch.equal(grown.reshape(-1, 12)[:, 3],
+                                            scene.sphere_radius)
+
+
+def _refill_order(n, steps, warps, refill_lanes=8, lanes=32, seed=0):
+    """csrc/trace.cu's refill loop on the host: ``warps`` persistent warps
+    (their iterations interleaved in a random order) take batches of
+    ``lanes`` indices from one counter; a lane's ray runs steps[p]
+    iterations, and a warp refills its idle lanes, in lane order, once
+    ``refill_lanes`` of them (or all) are idle, from its batch's rest and
+    then a fresh batch.  Returns each refill's started indices."""
+    rng = np.random.default_rng(seed)
+    counter = 0
+    state = [dict(next=0, end=0, drained=False, p=[-1] * lanes, left=[0] * lanes)
+             for _ in range(warps)]
+    live = list(range(warps))
+    starts = []
+    while live:
+        k = live[rng.integers(len(live))]
+        w = state[k]
+        idle = [lane for lane in range(lanes) if w["p"][lane] < 0]
+        if (len(idle) >= refill_lanes or len(idle) == lanes) and not w["drained"]:
+            need, have = len(idle), w["end"] - w["next"]
+            fresh = 0
+            if have < need:
+                fresh, counter = counter, counter + lanes
+            started = []
+            for rank, lane in enumerate(idle):
+                q = w["next"] + rank if rank < have else fresh + rank - have
+                if q < n:
+                    w["p"][lane], w["left"][lane] = q, steps[q]
+                    started.append(q)
+            starts.append(started)
+            if have < need:
+                w["drained"] = fresh >= n
+                w["end"] = min(fresh + lanes, n)
+                w["next"] = min(fresh + need - have, w["end"])
+            else:
+                w["next"] += need
+        if all(p < 0 for p in w["p"]):
+            live.remove(k)
+            continue
+        for lane in range(lanes):
+            if w["p"][lane] >= 0:
+                w["left"][lane] -= 1
+                if w["left"][lane] == 0:
+                    w["p"][lane] = -1
+    return starts
+
+
+@pytest.mark.parametrize("mode", ["host-noise", "philox"])
+def test_lane_refill_model_is_bit_for_bit(mode):
+    """K1's lane refill on the CPU: the rays traced in the order and groups
+    in which the kernel's refill loop starts them (a ragged n, shuffled
+    warps), each with the noise of its own index, and scattered back by
+    index, equal the plain trace of the whole batch bit for bit; every
+    index is started exactly once."""
+    cols, rows, noise = _setup(5)
+    n = cols.shape[0] - 7  # ragged: the last batch ends mid-warp
+    cols, rows = torch.from_numpy(cols[:n].copy()), torch.from_numpy(rows[:n].copy())
+    settings = RenderSettings.make(samples_per_step=1)
+    kw = dict(width=W, height=H, max_path_length=L)
+    if mode == "philox":
+        ref = trace.trace_sample(default_scene(), settings, cols, rows, (8, 9), sample_index=4,
+                                 **kw)
+        rows_all = trace.philox_noise((8, 9), 4, n, L, "normal", "cpu")
+    else:
+        rows_all = torch.from_numpy(noise[:, :n].copy())
+        ref = trace.trace_sample(default_scene(), settings, cols, rows, noise=rows_all, **kw)
+    starts = _refill_order(n, np.maximum(ref.path_len.numpy(), 1), warps=3, seed=1)
+    order = np.concatenate([s for s in starts if s])
+    assert sorted(order.tolist()) == list(range(n))
+    assert len(starts) > n // 32  # lanes were refilled, not only whole batches
+    got = [torch.zeros(3, n), torch.zeros(3, n), torch.zeros(3, n),
+           torch.zeros(n, dtype=torch.bool), torch.zeros(n, dtype=torch.int32)]
+    for started in starts:
+        if not started:
+            continue
+        idx = torch.tensor(started)
+        part = trace.trace_sample(default_scene(), settings, cols[idx], rows[idx],
+                                  noise=rows_all[:, idx].contiguous(), **kw)
+        for out, x in zip(got, part):
+            out[..., idx] = x.stack() if hasattr(x, "stack") else x
+    for out, x in zip(got, ref):
+        assert torch.equal(out, x.stack() if hasattr(x, "stack") else x)
+
+
+def test_trace_ablation_edits_apply():
+    """probes/trace_ablation.py rebuilds K1 from edited copies of
+    csrc/trace.cu: every variant's edits apply to the kernel as it is, and
+    an edit whose text is gone raises."""
+    from ipu_path_trace_tpu_torch.ops import _lib
+    from ipu_path_trace_tpu_torch.probes import trace_ablation
+
+    src = (_lib.CSRC / "trace.cu").read_text()
+    for name, edits in trace_ablation.VARIANTS.items():
+        out = trace_ablation.edited(name, src, edits)
+        assert (out == src) == (not edits)
+    one = trace_ablation.edited("one-ray-per-thread", src,
+                                trace_ablation.VARIANTS["one-ray-per-thread"])
+    assert "atomicAdd(next_ray" not in one and "trace_ray(prm, sph, dsc" in one
+    with pytest.raises(RuntimeError, match="no longer applies"):
+        trace_ablation.edited("one-ray-per-thread", one,
+                              trace_ablation.VARIANTS["one-ray-per-thread"])
