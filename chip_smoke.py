@@ -55,13 +55,25 @@ Phases, one line each:
                 --sampler sobol fused and unfused; --env-skip on (the open
                 default scene); --scene <enclosed> (--env-skip auto must
                 resolve on; on the default scene off); and the int8 asset
-                with --device-film --adaptive --sampler sobol.  Every
+                with --device-film --adaptive --sampler sobol; and
+                --enable-load-balancing (the reference's shuffle and
+                per-step re-deal) fused.  Every
                 kernel's launch counter is set to 0 just before each run and
                 read just after (a fused run's auto env-skip probe launches
-                K1 twice); the app's log (each step's, save's and bake's
-                seconds) goes to stdout.  The device-film frames must equal
-                the host film's, and fused and unfused frames agree in mean
+                K1 twice), and so is each call counter of the native host
+                runtime and of its plain versions; the app's log (each
+                step's, save's, wait's and bake's seconds) goes to stdout.
+                The device-film frames must equal
+                the host film's, and fused and unfused frames, and the load
+                balancer's and the main fused one, agree in mean
                 luminance within 5 standard errors;
+  6a. host    - the host pipeline: a serial loop (render_step, the fetch and
+                the plain film, step after step) writes the main fused
+                run's EXR byte for byte; a timer thread sends SIGTERM once
+                step 1 of 2 is logged and the CLI exits 0 with the image and
+                the checkpoint of step 1 on disk; --resume from it writes the
+                uninterrupted run's EXR byte for byte (K3 launched once in
+                each half), for the host film and --device-film --adaptive;
   6b. timing  - one more CLI run at 1104x1000 with --device-timing
                 --profile-dir --metrics-file: the env / trace / overhead split
                 as the app logs it (positive, summing to the step to the
@@ -70,6 +82,13 @@ Phases, one line each:
                 kernel events found there by name and the device's busy
                 share of the render window; after phase 7 the split's step
                 must be within 10% of K3's own time per sample;
+  6c. canonical - one CLI run at 1104x1000, 1200 spp in four steps of 300
+                saving every step, with --profile-dir and --metrics-file:
+                wall, loop, step, save and wait-for-host seconds and the
+                device's busy share (the host task's spans are in the trace);
+                then every CLI run of phases 6-6c must have taken the native
+                host runtime (its film, tone map and clear; the re-deal with
+                --enable-load-balancing only) and no plain version;
   7. full frame - at the main path's shapes (1104x1000, a ragged last
                 block): K1 (Philox), K2 (on that sample's escapes, bf16 and
                 int8), K3 (Philox, 8 samples, bf16 and int8), K4 (one bake
@@ -180,10 +199,13 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -195,6 +217,7 @@ ASSET = "assets/urban_alley_synth_nif"
 INT8_ASSET = "assets/urban_alley_synth_nif_int8"  # the canonical 6x320 after QAT
 MIXED_ASSET = "assets/nif_m128-128-80-128-128-128"  # per-layer widths, skip at 80 + 48
 MAIN_W, MAIN_H, MAIN_SPP, MAIN_SPS = 1104, 1000, 16, 8
+CANON_SPP, CANON_SPS = 1200, 300  # the reference's canonical 300-spp step, four of them
 FLIP_FRACTION = 5e-3
 TRACE_RTOL, TRACE_ATOL = 1e-4, 3e-5
 NIF_MEDIAN, NIF_MAX = 5e-3, 8e-2
@@ -296,6 +319,78 @@ class LogLines(logging.Handler):
         return [float(ln.split(" in ", 1)[1].split()[0]) for ln in self.lines
                 if ln.startswith(prefix)]
 
+    def waits(self) -> list[float]:
+        """Each step's seconds waiting for the host task."""
+        return [float(ln.split("wait for host ", 1)[1].split(";")[0]) for ln in self.lines
+                if ln.startswith("Completed render step")]
+
+
+class StopAfter(logging.Handler):
+    """Once the app logs that step ``step`` completed, a timer thread sends
+    this process SIGTERM, as a scheduler would; the handler waits for the
+    timer, so the signal lands before the loop starts the next step."""
+
+    def __init__(self, step: int):
+        super().__init__()
+        self.prefix = f"Completed render step {step}/"
+        self.sent = False
+
+    def emit(self, record):
+        if not self.sent and record.getMessage().startswith(self.prefix):
+            self.sent = True
+            timer = threading.Timer(0.0, os.kill, (os.getpid(), signal.SIGTERM))
+            timer.start()
+            timer.join()
+
+
+def host_entry_points() -> dict:
+    """The host runtime's native entry points and their plain versions."""
+    from ipu_path_trace_tpu_torch.film import film
+    from ipu_path_trace_tpu_torch.runtime import native, worklist
+
+    return {**{f.__name__: f for f in native.ENTRY_POINTS},
+            **{f.__name__: f for f in (film.accumulate_plain, film.tone_map_plain,
+                                       worklist.deal_order, worklist.clear_and_sum_plain)}}
+
+
+def zero_host_calls() -> None:
+    for f in host_entry_points().values():
+        f.calls = 0
+
+
+def host_calls() -> dict:
+    return {k: f.calls for k, f in host_entry_points().items()}
+
+
+def load_checkpoint_step(path: Path) -> int:
+    with np.load(path) as z:
+        return int(json.loads(z["meta"].tobytes())["step"])
+
+
+def serial_loop(cfg) -> None:
+    """The host film without the host task, as the loop was before it:
+    render_step, the fetch and the plain film one step after another,
+    then the save, on the app's worklist, settings and step seeds."""
+    from ipu_path_trace_tpu_torch.core.records import from_device_batch, to_device_batch
+    from ipu_path_trace_tpu_torch.film.film import Film
+    from ipu_path_trace_tpu_torch.film.imageio import save_images
+    from ipu_path_trace_tpu_torch.render.wavefront import render_step
+    from ipu_path_trace_tpu_torch.runtime.app import PathTracerApp, step_seed
+
+    app = PathTracerApp(cfg)
+    app.init()
+    app.build()
+    settings, static = app.settings(), app.static_config()
+    work = to_device_batch(app.worklist, app.device)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    film = Film(cfg.width, cfg.height, native=False)
+    steps = app.total_spp // cfg.samples_per_step
+    for step in range(1, steps + 1):
+        out = render_step(app.scene, settings, static, work, step_seed(gen), app.env,
+                          sobol_base=(step - 1) * cfg.samples_per_step)
+        film.accumulate(from_device_batch(out))
+    save_images(cfg.outfile, film.hdr_at_step(steps), film.ldr(steps, cfg.exposure, cfg.gamma))
+
 
 def phase(name: str, ok: bool, **info) -> None:
     fields = " ".join(f"{k}={v}" for k, v in info.items())
@@ -361,37 +456,6 @@ def least_ms(nbytes: float, ops: dict[str, float]) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def profile_report(trace_json: Path) -> dict:
-    """Device kernel events of a torch.profiler Chrome trace by name, and
-    the device's busy share of the render window: from the first
-    tpu_path_tracer/ipu_render span to the end of the last app span."""
-    events = json.loads(trace_json.read_text())["traceEvents"]
-    spans = [e for e in events if str(e.get("name", "")).startswith("tpu_path_tracer/")
-             and "dur" in e]
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    by_name: dict[str, list[float]] = {}
-    for e in kernels:
-        acc = by_name.setdefault(e["name"], [0, 0.0])
-        acc[0] += 1
-        acc[1] += float(e["dur"])
-    renders = [e for e in spans if e["name"] == "tpu_path_tracer/ipu_render"]
-    if not renders or not kernels:
-        return {"span_names": sorted({e["name"] for e in spans}), "kernel_events": 0,
-                "kernels_by_name": {}, "busy_share": None}
-    lo = min(float(e["ts"]) for e in renders)
-    hi = max(float(e["ts"]) + float(e["dur"]) for e in spans)
-    busy, end = 0.0, lo
-    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels):
-        a, b = max(a, end), min(b, hi)
-        if b > a:
-            busy += b - a
-            end = b
-    return {"span_names": sorted({e["name"] for e in spans}), "kernel_events": len(kernels),
-            "kernels_by_name": {k: {"count": c, "us": round(t, 1)} for k, (c, t) in
-                                sorted(by_name.items(), key=lambda kv: -kv[1][1])},
-            "window_ms": (hi - lo) / 1e3, "busy_share": busy / (hi - lo)}
 
 
 def cublas_chain(model, feats: torch.Tensor) -> torch.Tensor:
@@ -745,6 +809,7 @@ def main() -> None:
     from ipu_path_trace_tpu_torch.models.nif import load_nif_assets
     from ipu_path_trace_tpu_torch.models.quant import quantize_nif
     from ipu_path_trace_tpu_torch.ops import _lib, megastep, nif, trace
+    from ipu_path_trace_tpu_torch.probes.host_pipeline import profile_report
     from ipu_path_trace_tpu_torch.render.adaptive import (adaptive_caps, adaptive_render_step,
                                                           compute_budgets)
     from ipu_path_trace_tpu_torch.render.params import RenderSettings, StaticConfig
@@ -1045,8 +1110,11 @@ def main() -> None:
         ("enclosed scene", ASSET, ["--scene", str(enclosed_json)], True, fused_want, "on"),
         ("int8 device film adaptive sobol", INT8_ASSET, int8_flags + adaptive + sobol_flags,
          True, fused_want, "off"),
+        # The reference's shuffle and per-step re-deal (host task), fused.
+        ("load balancing", ASSET, ["--enable-load-balancing"], True, fused_want, "off"),
     ]
-    lum, launches, frames, wall, step_s, save_s = {}, {}, {}, {}, {}, {}
+    lum, launches, frames, wall, step_s, save_s, wait_s = {}, {}, {}, {}, {}, {}, {}
+    routes = {}  # each CLI run's native and plain host-runtime calls
     # The app's per-step, per-save and bake seconds, on stdout (cli.main's
     # own logging set-up then keeps this handler).
     logging.basicConfig(stream=sys.stdout, level=logging.INFO,
@@ -1063,11 +1131,13 @@ def main() -> None:
             f.launches = 0
         for f in plains:
             f.cuda_runs = 0
+        zero_host_calls()
         torch.cuda.synchronize()
         t0 = time.monotonic()
         rc = cli.main(argv, use_fused_step=fused)
         torch.cuda.synchronize()
         secs = time.monotonic() - t0
+        routes[name] = host_calls()
         got = [f.launches for f in counters]
         plain_cuda = [f.cuda_runs for f in plains]
         launches[name] = dict(zip(("trace", "env_shade", "megastep", "nif_apply"), got))
@@ -1077,6 +1147,7 @@ def main() -> None:
         wall[name] = secs
         step_s[name] = app_log.seconds("Completed render step")
         save_s[name] = app_log.seconds("Saved images")
+        wait_s[name] = app_log.waits()
         skip = app_log.env_skip_auto()
         phase(name, rc == 0 and got == want and not any(plain_cuda) and skip == want_skip
               and bool(np.isfinite(hdr).all()) and hdr.shape == (MAIN_H, MAIN_W, 3),
@@ -1092,6 +1163,9 @@ def main() -> None:
                  ("sobol fused", "sobol unfused")):
         g, bound = gap(a, b)
         phase(f"{a} vs unfused", g <= bound, luminance_gap=f"{g:.3e}", bound_5se=f"{bound:.3e}")
+    g, bound = gap("load balancing", "main fused")
+    phase("load balancing vs main fused", g <= bound, luminance_gap=f"{g:.3e}",
+          bound_5se=f"{bound:.3e}")
     # Same seeds, same samples: the film rebuilt from the device's running
     # sums is the host film's step-wise sum, up to the order of f32 adds.
     for name in ("device film", "device film save-interval 2"):
@@ -1107,9 +1181,57 @@ def main() -> None:
               f"gap {g:.3e} ({g / lum[b][0]:.2%}), 5 SE {bound:.3e} (information only)",
               flush=True)
     for name in ("main fused", "device film", "device film save-interval 2",
-                 "device film adaptive"):
+                 "device film adaptive", "load balancing"):
         print(f"[timing] film: {name}: wall {wall[name]:.3f} s, steps {step_s[name]} s, "
-              f"saves {save_s[name]} s", flush=True)
+              f"saves {save_s[name]} s, waits for the host task {wait_s[name]} s ({smi})",
+              flush=True)
+
+    # 6a. the host pipeline: the serial loop, SIGTERM, resume ---------------
+    main_argv = ["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(MAIN_SPP),
+                 "--samples-per-step", str(MAIN_SPS), "--assets", str(ROOT / ASSET)]
+    serial_png = out_dir / "serial_loop.png"
+    serial_loop(cli.parse_config(main_argv + ["-o", str(serial_png)]))
+    same = (serial_png.with_suffix(".exr").read_bytes()
+            == (out_dir / "main_fused.exr").read_bytes())
+    phase("pipelined host film = serial loop", same, exr_bytes_equal=same)
+    for name, asset, flags, full in (
+            ("resume host film", ASSET, [], "main fused"),
+            ("resume device film adaptive", ASSET, adaptive, "device film adaptive")):
+        ck = out_dir / f"{name.replace(' ', '_')}.npz"
+        ck.unlink(missing_ok=True)
+        halves = []
+        for half, extra in (("a", ["--checkpoint", str(ck)]), ("b", ["--resume", str(ck)])):
+            png = out_dir / f"{name.replace(' ', '_')}_{half}.png"
+            stopper = StopAfter(1) if half == "a" else None
+            argv = main_argv[:-1] + [str(ROOT / asset), "-o", str(png), *flags, *extra]
+            app_log.lines.clear()
+            for f in counters:
+                f.launches = 0
+            zero_host_calls()
+            if stopper:
+                logging.getLogger().addHandler(stopper)
+            try:
+                rc = cli.main(argv)
+            finally:
+                if stopper:
+                    logging.getLogger().removeHandler(stopper)
+            routes[f"{name} {half}"] = host_calls()
+            halves.append(dict(rc=rc, png=png, megastep=megastep.render_megastep.launches,
+                               lines=list(app_log.lines)))
+        a, b = halves
+        step = load_checkpoint_step(ck) if ck.exists() else None
+        if name == "resume host film":
+            text = "\n".join(a["lines"])
+            phase("SIGTERM mid-render", a["rc"] == 0 and "Received signal 15" in text
+                  and "Stop requested (signal); exiting after step 1" in text and step == 1
+                  and a["png"].exists() and a["png"].with_suffix(".exr").exists(),
+                  rc=a["rc"], checkpoint_step=step, megastep_launches=a["megastep"])
+        same = (b["png"].with_suffix(".exr").read_bytes()
+                == (out_dir / f"{full.replace(' ', '_')}.exr").read_bytes())
+        phase(f"{name} bitwise", a["rc"] == 0 and b["rc"] == 0 and same
+              and a["megastep"] == 1 and b["megastep"] == 1,
+              stopped_after=step, exr_bytes_equal=same, megastep_launches=[a["megastep"],
+                                                                           b["megastep"]])
 
     # 6b. --device-timing, --profile-dir and --metrics-file -----------------
     from ipu_path_trace_tpu_torch.utils import devtime
@@ -1121,6 +1243,7 @@ def main() -> None:
     for f in counters:
         f.launches = 0
     megastep.render_megastep.stub_launches = dict.fromkeys(megastep.STUBS, 0)
+    zero_host_calls()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     rc = cli.main(["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(MAIN_SPP),
@@ -1129,6 +1252,7 @@ def main() -> None:
                    "--profile-dir", str(prof_dir), "--metrics-file", str(metrics_file)])
     torch.cuda.synchronize()
     secs = time.monotonic() - t0
+    routes["device timing"] = host_calls()
     splits = app_log.phase_splits()
     got = [f.launches for f in counters]
     stub_got = dict(megastep.render_megastep.stub_launches)
@@ -1166,6 +1290,60 @@ def main() -> None:
     else:
         print("[profile] the trace holds no device kernel events (CUPTI gave none): the busy "
               "share is not measured", flush=True)
+
+    # 6c. the canonical 300-spp step: 1200 spp in 4 steps, saving each -----
+    prof_dir, metrics_file = out_dir / "profile_300", out_dir / "metrics_300.jsonl"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    metrics_file.unlink(missing_ok=True)
+    app_log.lines.clear()
+    for f in counters:
+        f.launches = 0
+    zero_host_calls()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rc = cli.main(["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(CANON_SPP),
+                   "--samples-per-step", str(CANON_SPS), "--save-interval", "1",
+                   "--assets", str(ROOT / ASSET), "-o", str(out_dir / "canonical.png"),
+                   "--profile-dir", str(prof_dir), "--metrics-file", str(metrics_file)])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    routes["canonical 300 spp"] = host_calls()
+    canon_steps = CANON_SPP // CANON_SPS
+    got = [f.launches for f in counters]
+    lines = [json.loads(ln) for ln in metrics_file.read_text().splitlines()]
+    canon_prof = profile_report(prof_dir / "trace.json")
+    canonical = {"wall_s": secs, "render_s": lines[-1].get("elapsed_seconds") if lines else None,
+                 "step_s": app_log.seconds("Completed render step"),
+                 "save_s": app_log.seconds("Saved images"), "wait_s": app_log.waits(),
+                 "busy_share": canon_prof["busy_share"], "window_ms": canon_prof.get("window_ms"),
+                 "spans": canon_prof["span_names"]}
+    print(f"[timing] canonical {CANON_SPP} spp in {canon_steps} steps of {CANON_SPS}, saving "
+          f"each ({smi}): wall {secs:.3f} s, render loop {canonical['render_s']} s, steps "
+          f"{canonical['step_s']} s, saves {canonical['save_s']} s, waits for the host task "
+          f"{canonical['wait_s']} s, device busy share {canonical['busy_share']} of the "
+          f"{canonical['window_ms']} ms render window", flush=True)
+    spans_ok = all(f"tpu_path_tracer/{n}" in canon_prof["span_names"] for n in (
+        "ipu_render", "wait_for_host", "accumulate_framebuffers", "clear_accumulators",
+        "save_images"))
+    phase("canonical 300-spp run", rc == 0 and got == [probe, 0, canon_steps, 0]
+          and len(lines) == canon_steps + 1 and spans_ok and canon_prof["busy_share"] is not None,
+          launches_trace_shade_megastep_apply=got, host_thread_spans=spans_ok)
+
+    # Every CLI run above took the native host runtime and no plain version.
+    bad = {}
+    for name, calls in routes.items():
+        film_calls = calls["accumulate"] + calls["accumulate_soa"]
+        lb = name == "load balancing"
+        ok = (film_calls > 0 and calls["tonemap"] > 0 and not any(
+            calls[k] for k in ("accumulate_plain", "tone_map_plain", "deal_order",
+                               "clear_and_sum_plain"))
+              and (calls["load_balance"] > 0) == lb)
+        if "device film" not in name:
+            ok = ok and calls["clear_and_sum_pathlengths"] > 0
+        if not ok:
+            bad[name] = calls
+    phase("native host route in every CLI run", not bad, runs=len(routes), wrong=bad,
+          load_balancing=routes["load balancing"])
 
     # 7. checks and timing at the main path's shapes ------------------------
     # 1,104,000 lanes end in a partial block, so the kernels' tail masks run
@@ -1796,7 +1974,8 @@ def main() -> None:
     (out_dir / "report.json").write_text(json.dumps(
         {**report, "nvidia_smi": smi, "build_seconds": build_s, "ptxas": ptxas,
          "main_launches": launches, "main_luminance": lum, "main_wall_s": wall,
-         "main_step_s": step_s, "main_save_s": save_s, "env_skip_on_off_ms": guard,
+         "main_step_s": step_s, "main_save_s": save_s, "main_wait_s": wait_s,
+         "host_calls": routes, "canonical_300": canonical, "env_skip_on_off_ms": guard,
          "adaptive_vs_uniform_step_ms": times["adaptive_step"], "device_timing": split,
          "device_timing_unfused": unfused, "profile": prof, "probe_ms": probe_ms,
          "times_ms": times, "bounds_ms": bounds, "max_abs_err": err,

@@ -1,26 +1,46 @@
 """The headless progressive render loop.
 
-Counterpart of the headless paths of ``ipu_path_trace_tpu/runtime/app.py``:
-build the (coherent) worklist, resolve ``--env-skip``, then per step run
-``render_step`` (or ``adaptive_render_step``) on the device.  With the
-host film (the default) every step's records are fetched and accumulated
-into the host ``Film``; with ``--device-film`` the worklist keeps its
-running sums on the device and is fetched only at ``save_interval`` and
-at the last step, when the film is rebuilt from it.  PNG + EXR are
-written at every ``save_interval`` and at the last step.
+Counterpart of the headless paths of ``ipu_path_trace_tpu/runtime/app.py``
+(``PathTracerApp.execute`` without the UI, denoise and debug-view
+branches): build the worklist (coherent, raster, or the load balancer's
+shuffle), resolve ``--env-skip``, then per step run ``render_step`` (or
+``adaptive_render_step``) on the device while a host task
+(runtime/async_task.py) post-processes the step before.
+
+With the host film (the default) each step renders the worklist's active
+buffer and fetches its records into it; the main thread then waits for
+the host task, swaps the double buffer and hands the inactive buffer to
+a new task, which accumulates it into the film (the native host runtime,
+runtime/native.py), re-deals it under ``--enable-load-balancing`` from
+step 2, clears it (summing its path lengths for Rays/sec, which so lags
+one step), and at save steps writes the checkpoint and the images.  With
+``--device-film`` the worklist keeps its running sums on the device; at
+save steps the main thread fetches it and the task rebuilds the film,
+checkpoints and saves.  Every launch and every fetch stays on the main
+thread; the task touches host arrays only, and its native calls release
+the interpreter lock.
+
+A resume (``--resume``, ``--auto-resume``; runtime/checkpoint.py)
+restores the state and replays the step-seed draws of the steps done.
+On a stop request (the first SIGTERM or SIGINT, runtime/cli.py) the loop
+ends after its step and the exit path runs: a dirty device film is
+fetched, a checkpoint is written between intervals, and whatever the
+outfile lacks is saved.
 
 Observability, as the reference's: named spans on a ``TraceChannel``
-(utils/tracing.py) around each phase, debug-level tensor info of the
-scene and the env, ``--device-timing`` (utils/devtime.py) before the
-loop, ``--profile-dir`` (a ``torch.profiler`` trace of the render loop,
-written as ``trace.json`` in Chrome's format), ``--metrics-file`` (one
-JSON line per step and a summary) and, on CUDA, one device-memory line
-after the first step.
+(utils/tracing.py) around each phase, on both threads, debug-level
+tensor info of the scene and the env, ``--device-timing``
+(utils/devtime.py) before the loop, ``--profile-dir`` (a
+``torch.profiler`` trace of the render loop, both threads, written as
+``trace.json`` in Chrome's format), ``--metrics-file`` (one JSON line per
+step and a summary) and, on CUDA, one device-memory line after the first
+step.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -44,8 +64,11 @@ from ..render.wavefront import dead_block_fraction, render_step
 from ..utils.devtime import log_phase_split, measure_phases
 from ..utils.introspect import log_tensor_info
 from ..utils.tracing import TraceChannel
+from . import native
+from .async_task import AsyncTask
+from .checkpoint import LAYOUT_KEYS, load_checkpoint, render_fingerprint, save_checkpoint
 from .config import Config
-from .worklist import coherent_order, create_tracing_jobs
+from .worklist import LoadBalancer, coherent_order, create_tracing_jobs
 
 log = logging.getLogger(__name__)
 
@@ -111,10 +134,17 @@ class PathTracerApp:
             self.scene = default_scene(self.device)
         self.env = None
         self.film: Film | None = None
-        self.worklist: np.ndarray | None = None
+        self.balancer: LoadBalancer | None = None
+        self.worklist: np.ndarray | None = None  # the initial layout
         self.total_spp = 0
         self.env_skip = config.env_skip == "on"
         self.trace = TraceChannel("tpu_path_tracer")
+        self.stop_requested = False  # set by the CLI's signal handler
+        # The loop's state shared with the host task; the main thread reads
+        # it only after waiting for the task.
+        self._disk_norm = 0  # the film's normalisation not yet on disk (0: none)
+        self._ckpt_step = 0  # the last step checkpointed
+        self._rays = 0  # the last cleared buffer's path-length sum
 
     def init(self) -> None:
         cfg = self.cfg
@@ -141,11 +171,22 @@ class PathTracerApp:
 
     def build(self) -> None:
         cfg = self.cfg
+        native.library()  # builds the host runtime; a failure raises here, before the render
         with self.trace.span("create_path_tracing_jobs"):
             worklist = create_tracing_jobs(cfg.width, cfg.height)
-            if cfg.layout == "coherent":
-                worklist = coherent_order(worklist, self.scene, cfg.width, cfg.height, cfg.fov)
-        self.worklist = worklist
+            self.balancer = LoadBalancer(len(worklist))
+            if cfg.enable_load_balancing:
+                if cfg.layout == "coherent":
+                    log.info("--enable-load-balancing overrides --layout with the reference's "
+                             "shuffle + per-step re-deal")
+                self.balancer.randomise_work_list(worklist)
+            else:
+                if cfg.layout == "coherent":
+                    worklist = coherent_order(worklist, self.scene, cfg.width, cfg.height,
+                                              cfg.fov)
+                self.balancer.work.inactive = worklist.copy()
+            self.balancer.work.active = self.balancer.work.inactive.copy()
+        self.worklist = self.balancer.work.active.copy()
         self.film = Film(cfg.width, cfg.height)
         if cfg.adaptive and not isinstance(self.env, NifEnv):
             raise ValueError("--adaptive requires a NIF environment (--assets <dir>); the "
@@ -207,19 +248,31 @@ class PathTracerApp:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def execute(self) -> Film:
-        """Render ``total_spp / samples_per_step`` steps into the film."""
+    def execute(self, max_steps: int | None = None) -> Film:
+        """Render ``total_spp / samples_per_step`` steps (at most
+        ``max_steps``) into the film, resuming where asked."""
         cfg = self.cfg
         steps = self.total_spp // cfg.samples_per_step
+        if max_steps is not None:
+            steps = min(steps, max_steps)
         gen = torch.Generator().manual_seed(cfg.seed)  # per-step kernel seed words
+        done, work, lum2 = self._resume()
+        for _ in range(done):  # the seeds of the steps already rendered
+            step_seed(gen)
         if cfg.device_timing:
             self._device_timing()
         start = time.monotonic()
         log.info("Render started on %s (%s film)", self.device,
                  "device" if cfg.device_film else "host")
-        run = self._device_film_steps if cfg.device_film else self._host_film_steps
+        host = AsyncTask()
         with self._profiler() if cfg.profile_dir else contextlib.nullcontext() as prof:
-            run(steps, gen)
+            try:
+                if cfg.device_film:
+                    self._device_film_steps(done + 1, steps, gen, host, work, lum2)
+                else:
+                    self._host_film_steps(done + 1, steps, gen, host)
+            finally:
+                host.wait_for_completion()  # no task outlives the loop, on any exit
         elapsed = time.monotonic() - start
         if prof is not None:
             self._write_profile(prof)
@@ -229,6 +282,55 @@ class PathTracerApp:
                             "total_spp": int(self.total_spp),
                             "samples_per_sec": round(rate, 1), "chips": 1})
         return self.film
+
+    def _resume(self) -> tuple[int, WorkBatch | None, torch.Tensor | None]:
+        """--resume / --auto-resume: restore the checkpoint's state.
+        Returns (steps done, the device film's worklist, its lum2)."""
+        cfg = self.cfg
+        path = cfg.resume
+        if not path and cfg.auto_resume:
+            if os.path.exists(cfg.checkpoint):
+                path = cfg.checkpoint
+            else:
+                log.info("--auto-resume: no checkpoint at '%s'; starting afresh", cfg.checkpoint)
+        if not path:
+            return 0, None, None
+        done, mode, saved = load_checkpoint(path, cfg)
+        if mode != ("soa" if cfg.device_film else "hdr"):
+            raise ValueError(f"checkpoint mode '{mode}' does not match this run")
+        layouts = saved.pop("layouts")
+        work = lum2 = None
+        if cfg.device_film:
+            lum2_saved = saved.pop("lum2", None)
+            if set(saved) != set(WorkBatch._fields):
+                raise ValueError(f"checkpoint '{path}' holds {sorted(saved)}, not a worklist")
+            work = WorkBatch(*(torch.from_numpy(saved[k]).to(self.device)
+                               for k in WorkBatch._fields))
+            if cfg.adaptive:
+                if lum2_saved is None:
+                    raise ValueError("checkpoint has no adaptive lum2 state; it was written "
+                                     "without --adaptive")
+                lum2 = torch.from_numpy(lum2_saved).to(self.device)
+        else:
+            if saved["hdr"].shape != self.film.hdr.shape:
+                raise ValueError(f"checkpoint film {saved['hdr'].shape} != {self.film.hdr.shape}")
+            self.film.hdr[...] = saved["hdr"]
+            self._disk_norm = done  # not on disk in this run yet
+            if cfg.enable_load_balancing:
+                # Both buffers' layouts, accumulators zeroed (they were
+                # saved after the clear).
+                if set(layouts) != set(LAYOUT_KEYS):
+                    raise ValueError("checkpoint has no load-balancer layouts; it was written "
+                                     "without --enable-load-balancing")
+                for name in ("active", "inactive"):
+                    buf = getattr(self.balancer.work, name)
+                    if len(layouts[f"{name}_u"]) != len(buf):
+                        raise ValueError(f"checkpoint worklist size {len(layouts[f'{name}_u'])} "
+                                         f"!= {len(buf)}")
+                    buf[...] = 0
+                    buf["u"], buf["v"] = layouts[f"{name}_u"], layouts[f"{name}_v"]
+        log.info("Resumed from '%s': %d steps already rendered", path, done)
+        return done, work, lum2
 
     def _device_timing(self) -> None:
         """--device-timing: the per-sample phase split at the render's
@@ -245,13 +347,18 @@ class PathTracerApp:
 
     def _profiler(self) -> torch.profiler.profile:
         """--profile-dir: the render loop under torch.profiler, the card's
-        kernels included on CUDA."""
+        kernels included on CUDA, and the host task's spans beside the main
+        thread's (without profile_all_threads the profiler records the
+        thread that started it only)."""
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         os.makedirs(self.cfg.profile_dir, exist_ok=True)
         log.info("Profiler trace -> '%s'", self.cfg.profile_dir)
-        return torch.profiler.profile(activities=acts)
+        from torch._C._profiler import _ExperimentalConfig
+
+        return torch.profiler.profile(
+            activities=acts, experimental_config=_ExperimentalConfig(profile_all_threads=True))
 
     def _write_profile(self, prof: torch.profiler.profile) -> None:
         path = os.path.join(self.cfg.profile_dir, "trace.json")
@@ -278,61 +385,144 @@ class PathTracerApp:
                  "limit %.0f MiB (%.0f MiB free)", torch.cuda.memory_allocated(self.device) / mib,
                  torch.cuda.max_memory_allocated(self.device) / mib, total / mib, free / mib)
 
-    def _after_step(self, step: int, steps: int, secs: float, **extra) -> None:
+    def _after_step(self, step: int, first: int, steps: int, secs: float, **extra) -> None:
         cfg = self.cfg
         rate = cfg.width * cfg.height * cfg.samples_per_step / secs
         self._emit_metrics({"step": step, "steps": steps, "seconds": round(secs, 4),
                             "samples_per_sec": round(rate, 1), **extra,
                             "spp_per_step": cfg.samples_per_step})
-        if step == 1:
+        if step == first:
             self._log_device_memory()
 
-    def _save(self, step: int, norm: int, since: float) -> None:
+    def _stop(self, done: int) -> bool:
+        if self.stop_requested:
+            log.info("Stop requested (signal); exiting after step %d", done)
+        return self.stop_requested
+
+    def _write_checkpoint(self, step: int, fingerprint: dict, **state) -> None:
+        """--checkpoint at ``step`` (once per step), with the load
+        balancer's two layouts on the host film."""
         cfg = self.cfg
+        if not cfg.checkpoint or step <= self._ckpt_step:
+            return
+        layouts = None
+        if cfg.enable_load_balancing:
+            work = self.balancer.work
+            layouts = {"active_u": work.active["u"].copy(), "active_v": work.active["v"].copy(),
+                       "inactive_u": work.inactive["u"].copy(),
+                       "inactive_v": work.inactive["v"].copy()}
+        with self.trace.span("checkpoint"):
+            save_checkpoint(cfg.checkpoint, cfg, step, layouts=layouts, fingerprint=fingerprint,
+                            **state)
+        self._ckpt_step = step
+
+    def _save(self, norm: int, step: int, at_exit: bool = False) -> None:
+        cfg = self.cfg
+        t0 = time.monotonic()
         with self.trace.span("save_images"):
+            self._disk_norm = 0
             save_images(cfg.outfile, self.film.hdr_at_step(norm),
                         self.film.ldr(norm, cfg.exposure, cfg.gamma))
-        log.info("Saved images at step %d in %.3f seconds", step, time.monotonic() - since)
+        log.info("Saved images at %s in %.3f seconds", f"exit (step {step})" if at_exit
+                 else f"step {step}", time.monotonic() - t0)
 
-    def _host_film_steps(self, steps: int, gen: torch.Generator) -> None:
-        """Each step renders into zeroed accumulators and the host film
-        adds its records (the reference's host pipeline)."""
+    def _finish(self, done: int, **state) -> None:
+        """The exit path, once the last task is done: checkpoint between
+        intervals and save what the outfile lacks."""
+        self._write_checkpoint(done, render_fingerprint(self.cfg), **state)
+        if self._disk_norm:
+            self._save(self._disk_norm, done, at_exit=True)
+
+    def _host_film_steps(self, first: int, steps: int, gen: torch.Generator,
+                         host: AsyncTask) -> None:
+        """Each step renders the active buffer into zeroed accumulators
+        and fetches its records into it; the host task takes them after
+        the swap (module docstring)."""
         cfg = self.cfg
         settings, static = self.settings(), self.static_config()
-        work = to_device_batch(self.worklist, self.device)
-        for step in range(1, steps + 1):
+        work = self.balancer.work
+        work_dev = None  # uploaded once, or every step under load balancing
+        done = first - 1
+        for step in range(first, steps + 1):
+            if self._stop(done):
+                break
             t0 = time.monotonic()
             with self.trace.span("ipu_render"):
+                if work_dev is None or cfg.enable_load_balancing:
+                    work_dev = to_device_batch(work.active, self.device)
                 # The counts restart at 0 every step, so the Sobol sampler
                 # is told how many samples each lane already has.
-                out = render_step(self.scene, settings, static, work, step_seed(gen), self.env,
-                                  sobol_base=(step - 1) * cfg.samples_per_step)
-                records = from_device_batch(out)  # the fetch waits for the device
+                out = render_step(self.scene, settings, static, work_dev, step_seed(gen),
+                                  self.env, sobol_base=(step - 1) * cfg.samples_per_step)
+                work.active = from_device_batch(out)  # the fetch waits for the device
             t1 = time.monotonic()
-            with self.trace.span("accumulate_framebuffers"):
-                self.film.accumulate(records)
+            with self.trace.span("wait_for_host"):
+                host.wait_for_completion()
             t2 = time.monotonic()
-            rate = cfg.width * cfg.height * cfg.samples_per_step / (t2 - t0)
-            log.info("Completed render step %d/%d in %.3f seconds (render+fetch %.3f, "
-                     "film %.3f; Samples/sec %.3g)", step, steps, t2 - t0, t1 - t0,
-                     t2 - t1, rate)
-            rays = int(records["pathLength"].sum(dtype=np.int64))
-            self._after_step(step, steps, t2 - t0, rays_per_sec=round(rays / (t2 - t0), 1))
-            if step % cfg.save_interval == 0 or step == steps:
-                self._save(step, step, t2)
+            work.swap()
+            rays = self._rays  # the step before's, as the reference's Rays/sec
+            host.run(functools.partial(self._host_processing, step, steps,
+                                       render_fingerprint(cfg)))
+            secs = time.monotonic() - t0
+            rate = cfg.width * cfg.height * cfg.samples_per_step / secs
+            log.info("Completed render step %d/%d in %.3f seconds (render+fetch %.3f, wait for "
+                     "host %.3f; Samples/sec %.3g) (Rays/sec %.3g)", step, steps, secs, t1 - t0,
+                     t2 - t1, rate, rays / secs)
+            self._after_step(step, first, steps, secs, rays_per_sec=round(rays / secs, 1))
+            done = step
+        with self.trace.span("wait_for_host"):
+            host.wait_for_completion()
+        self._finish(done, hdr=self.film.hdr)
 
-    def _device_film_steps(self, steps: int, gen: torch.Generator) -> None:
+    def _host_processing(self, step: int, steps: int, fingerprint: dict) -> None:
+        """The host task of a host-film step, on the inactive buffer."""
+        cfg = self.cfg
+        with self.trace.span("accumulate_framebuffers"):
+            self.film.accumulate(self.balancer.work.inactive)
+        self._disk_norm = step
+        if cfg.enable_load_balancing and step > 1:
+            with self.trace.span("run_load_balancing"):
+                self.balancer.allocate_work_by_path_length()
+        with self.trace.span("clear_accumulators"):
+            self._rays = self.balancer.clear_inactive_accumulators()
+        if step % cfg.save_interval == 0 or step == steps:
+            self._write_checkpoint(step, fingerprint, hdr=self.film.hdr)
+            self._save(step, step)
+
+    def _fetch(self, work: WorkBatch, lum2: torch.Tensor | None) -> dict[str, np.ndarray]:
+        """The device film's sums on the host (int32 counts: no u16 wire
+        record on this path), with the adaptive second moments."""
+        soa = {k: t.cpu().numpy() for k, t in zip(WorkBatch._fields, work)}
+        if lum2 is not None:
+            soa["lum2"] = lum2.cpu().numpy()
+        return soa
+
+    def _rebuild_film(self, soa: dict[str, np.ndarray]) -> None:
+        """The running sums' rgb / sampleCount is each pixel's mean, so
+        the rebuilt film saves at normalisation 1."""
+        self.film.reset()
+        self.film.accumulate_soa(soa["u"], soa["v"], soa["r"], soa["g"], soa["b"],
+                                 soa["sample_count"])
+        self._disk_norm = 1
+
+    def _device_film_steps(self, first: int, steps: int, gen: torch.Generator, host: AsyncTask,
+                           work: WorkBatch | None, lum2: torch.Tensor | None) -> None:
         """The worklist (and, adaptive, the second moments) stay on the
-        device; a fetch rebuilds the film from the running sums, whose
-        rgb / sampleCount is each pixel's mean, so the film saves at
-        normalisation 1."""
+        device; at save steps the main thread fetches them and the host
+        task rebuilds the film, checkpoints and saves."""
         cfg = self.cfg
         settings, static = self.settings(), self.static_config()
-        work = to_device_batch(self.worklist, self.device)
-        lum2 = (torch.zeros(work.u.shape[0], dtype=torch.float32, device=self.device)
-                if cfg.adaptive else None)
-        for step in range(1, steps + 1):
+        dirty = work is not None  # a resumed film is not on disk in this run
+        if work is None:
+            work = to_device_batch(self.worklist, self.device)
+        if cfg.adaptive and lum2 is None:
+            lum2 = torch.zeros(work.u.shape[0], dtype=torch.float32, device=self.device)
+        done = first - 1
+        for step in range(first, steps + 1):
+            if self._stop(done):
+                break
             t0 = time.monotonic()
+            save = step % cfg.save_interval == 0 or step == steps
             with self.trace.span("ipu_render"):
                 if cfg.adaptive:
                     work, lum2 = adaptive_render_step(self.scene, settings, static, work, lum2,
@@ -340,22 +530,41 @@ class PathTracerApp:
                 else:
                     work = render_step(self.scene, settings, static, work, step_seed(gen),
                                        self.env)
-                self._sync()  # the step's seconds are the device's, not the enqueue's
+                if save:
+                    soa = self._fetch(work, lum2)  # the fetch waits for the device
+                else:
+                    self._sync()  # the step's seconds are the device's, not the enqueue's
             t1 = time.monotonic()
-            save = step % cfg.save_interval == 0 or step == steps
-            if save:  # int32 counts: no u16 wire record on this path
-                with self.trace.span("accumulate_framebuffers"):
-                    host = WorkBatch(*(t.cpu().numpy() for t in work))
-                    self.film.reset()
-                    self.film.accumulate_soa(host.u, host.v, host.r, host.g, host.b,
-                                             host.sample_count)
+            with self.trace.span("wait_for_host"):
+                host.wait_for_completion()
             t2 = time.monotonic()
-            rate = cfg.width * cfg.height * cfg.samples_per_step / (t2 - t0)
-            log.info("Completed render step %d/%d in %.3f seconds (render %.3f, fetch+film "
-                     "%.3f; Samples/sec %.3g)", step, steps, t2 - t0, t1 - t0, t2 - t1, rate)
-            self._after_step(step, steps, t2 - t0)
             if save:
-                self._save(step, 1, t2)
+                host.run(functools.partial(self._device_film_processing, step, soa,
+                                           render_fingerprint(cfg)))
+            dirty = not save
+            secs = time.monotonic() - t0
+            rate = cfg.width * cfg.height * cfg.samples_per_step / secs
+            log.info("Completed render step %d/%d in %.3f seconds (render%s %.3f, wait for host "
+                     "%.3f; Samples/sec %.3g)", step, steps, secs, "+fetch" if save else "",
+                     t1 - t0, t2 - t1, rate)
+            self._after_step(step, first, steps, secs)
+            done = step
+        with self.trace.span("wait_for_host"):
+            host.wait_for_completion()
+        state = {}
+        if dirty:  # samples newer than the film: fetch them for the exit path
+            with self.trace.span("final_fetch"):
+                state["soa"] = self._fetch(work, lum2)
+                self._rebuild_film(state["soa"])
+        self._finish(done, **state)
+
+    def _device_film_processing(self, step: int, soa: dict[str, np.ndarray],
+                                fingerprint: dict) -> None:
+        """The host task of a device-film save step."""
+        with self.trace.span("accumulate_framebuffers"):
+            self._rebuild_film(soa)
+        self._write_checkpoint(step, fingerprint, soa=soa)
+        self._save(1, step)
 
 
 def step_seed(gen: torch.Generator) -> tuple[int, int]:

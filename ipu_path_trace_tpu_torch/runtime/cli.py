@@ -10,8 +10,10 @@ port it instead of being silently ignored.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
+import signal
 import sys
 
 from ..utils.logging import handler as log_handler
@@ -28,7 +30,6 @@ _UNPORTED = [
     (("--defer-attach",), dict(action="store_true"), "queue 1 item 20"),
     (("--interactive-samples",), dict(type=int, default=8), "queue 1 item 17 (ui)"),
     (("--codelet-path",), dict(default="./"), "queue 1 item 20"),
-    (("--enable-load-balancing",), dict(action="store_true"), "queue 1 item 20"),
     (("--partials-type",), dict(default="half", choices=["half", "float"]),
      "queue 1 item 20 (f32 NIF chain in the kernels)"),
     (("--available-memory-proportion",), dict(type=float, default=0.6), "queue 1 item 20"),
@@ -37,9 +38,6 @@ _UNPORTED = [
      "queue 1 item 20 (the port always runs its kernels)"),
     (("--mesh-shape",), dict(default=""), "queue 1 item 15 (multi-GPU)"),
     (("--cache-dir",), dict(default=""), "queue 1 item 19"),
-    (("--checkpoint",), dict(default=""), "queue 1 item 12"),
-    (("--resume",), dict(default=""), "queue 1 item 12"),
-    (("--auto-resume",), dict(action="store_true"), "queue 1 item 12"),
     (("--rng-impl",), dict(default="auto", choices=[
         "auto", "threefry2x32", "rbg", "unsafe_rbg"]),
      "queue 1 item 20 (the port's kernels use Philox)"),
@@ -111,6 +109,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSON scene description (spheres/discs with colour, emission, "
                         "material); default: the reference's built-in scene. See "
                         "core/scenefile.py for the schema.")
+    p.add_argument("--enable-load-balancing", action="store_true", default=False,
+                   help="Run the dynamic load balancing algorithm for path tracing (the "
+                        "reference's shuffled worklist, re-dealt by path length every step; "
+                        "overrides --layout).")
+    p.add_argument("--checkpoint", default="",
+                   help="Write the render's progressive state (.npz) at every save-interval "
+                        "and at exit, so an interrupted render can be continued with "
+                        "--resume (with --enable-load-balancing the re-deal layouts are "
+                        "saved too, keeping resume bit for bit).")
+    p.add_argument("--resume", default="",
+                   help="Continue a render from a --checkpoint file; the result is bit for "
+                        "bit the uninterrupted render's (the config must match the "
+                        "checkpoint's fingerprint).")
+    p.add_argument("--auto-resume", action="store_true", default=False,
+                   help="With --checkpoint: resume from the checkpoint when it exists, "
+                        "start afresh when it does not.")
     p.add_argument("--device-film", action="store_true", default=False,
                    help="Keep the worklist device-resident between steps and download "
                         "results only at save-interval boundaries (the host film "
@@ -189,8 +203,37 @@ def main(argv=None, *, use_fused_step: bool | None = None) -> int:
     app = PathTracerApp(cfg)
     app.init()
     app.build()
-    app.execute()
+    with graceful_stop(app):
+        app.execute()
     return 0
+
+
+@contextlib.contextmanager
+def graceful_stop(app):
+    """The first SIGTERM or SIGINT sets ``app.stop_requested``: the loop
+    finishes its step and takes the exit path (the final fetch, the
+    checkpoint, the save).  The handler then restores the previous ones,
+    so a second signal acts as it would have without it."""
+    log = logging.getLogger(__name__)
+    prev = {}
+
+    def handler(signum, frame):
+        log.info("Received signal %d; finishing the current step and saving "
+                 "(send it again to stop at once)", signum)
+        app.stop_requested = True
+        for s, h in prev.items():
+            signal.signal(s, h)
+
+    for s in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev[s] = signal.signal(s, handler)
+        except ValueError:  # not the main thread: no handler
+            pass
+    try:
+        yield
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
 
 
 if __name__ == "__main__":

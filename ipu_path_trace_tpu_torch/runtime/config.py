@@ -34,6 +34,10 @@ class Config:
     aperture: float = 0.0
     focal_distance: float = 1.0
     layout: str = "coherent"  # coherent | raster
+    # The reference's dynamic load balancing: the seed-142 shuffle of the
+    # worklist (in place of --layout) and a re-deal of each step's records
+    # by path length (runtime/worklist.py LoadBalancer).  Host film only.
+    enable_load_balancing: bool = False
     # Dead-block env-skip: the megastep skips the NIF chain for sub-tiles
     # whose escape weights are all zero (exact).  "auto" measures the
     # fraction of such sub-tiles with a two-sample probe over the real
@@ -55,6 +59,13 @@ class Config:
     # save-interval and at the last step; the film is rebuilt from the
     # running sums (int32 counts, so no u16 wire limit).
     device_film: bool = False
+    # Checkpoint/resume (runtime/checkpoint.py): --checkpoint writes the
+    # progressive state (.npz) at every save and at exit; --resume
+    # continues from one bit for bit; --auto-resume resumes from
+    # --checkpoint when that file exists and starts afresh when it does not.
+    checkpoint: str = ""
+    resume: str = ""
+    auto_resume: bool = False
     # Adaptive per-block sampling (render/adaptive.py): Neyman allocation
     # of each step's samples across budget blocks by luminance variance.
     # Needs --device-film and the fused NIF megastep.
@@ -90,6 +101,14 @@ class Config:
         if self.samples_per_step > 0xFFFF and not self.device_film:
             raise ValueError("samples-per-step > 65535 needs --device-film (the u16 "
                              "wire sampleCount would clip)")
+        if self.device_film and self.enable_load_balancing:
+            raise ValueError("--device-film is incompatible with --enable-load-balancing "
+                             "(load balancing needs per-step path lengths on the host)")
+        if self.auto_resume and not self.checkpoint:
+            raise ValueError("--auto-resume needs --checkpoint (the file it resumes from "
+                             "and keeps writing)")
+        if self.auto_resume and self.resume:
+            raise ValueError("use either --resume or --auto-resume, not both")
         if self.save_interval < 1:
             raise ValueError("save-interval must be >= 1")
         if self.layout not in ("coherent", "raster"):

@@ -1,11 +1,16 @@
-"""Worklist construction and the coherent record order.
+"""Worklists: construction, the coherent order, the double buffer and
+the load balancer.
 
-Counterpart of the main-path parts of
-``ipu_path_trace_tpu/runtime/worklist.py``: the padded whole-image
-worklist and ``coherent_order``, which sorts records by the primary-hit
-class of their jitter-free central ray so that neighbouring rays (one
-kernel block, one warp) tend to end their paths together.  The load
-balancer is not ported (ROADMAP queue 1 item 20).
+Counterpart of ``ipu_path_trace_tpu/runtime/worklist.py``: the padded
+whole-image worklist; ``coherent_order``, which sorts records by the
+primary-hit class of their jitter-free central ray so that neighbouring
+rays (one kernel block, one warp) tend to end their paths together; the
+double-buffered ``WorkList`` (the card renders into the active buffer
+while the host task works on the inactive one); and the reference's
+``LoadBalancer`` (``--enable-load-balancing``): the seed-142 shuffle and
+the per-step re-deal of (shortest, longest) path pairs to each virtual
+tile.  The re-deal and the clear run in the native host runtime
+(runtime/native.py); their NumPy versions below are the plain versions.
 """
 
 from __future__ import annotations
@@ -17,9 +22,10 @@ import torch
 
 from ..core.camera import pixel_to_ray
 from ..core.geometry import intersect_scene
-from ..core.records import DUMMY_COORD, make_worklist
+from ..core.records import DUMMY_COORD, TRACE_RECORD_DTYPE, make_worklist
 from ..core.scene import Material, Scene
 from ..core.vecmath import Vec3
+from . import native
 
 VIRTUAL_TILES = 1472  # the reference's tiles per chip
 VIRTUAL_WORKERS = 6
@@ -69,3 +75,90 @@ def coherent_order(worklist: np.ndarray, scene: Scene, width: int, height: int,
     """Records stably sorted by primary-hit class (raster order breaks ties)."""
     key = primary_hit_class(scene, worklist["u"], worklist["v"], width, height, fov_degrees)
     return worklist[np.lexsort((np.arange(len(worklist)), key))]
+
+
+def deal_order(path_length: np.ndarray, num_tiles: int) -> np.ndarray:
+    """Plain version of the native re-deal (csrc/pt_host.cpp
+    pt_load_balance), as the order it puts the records in: sort stably by
+    path length; pair j = (sorted[j], sorted[n-1-j]) goes to tile j % t
+    in round j // t; tiles flatten tile-major with their pairs in round
+    order, and an odd middle record ends tile 0's run."""
+    deal_order.calls += 1
+    order = np.argsort(path_length, kind="stable")
+    n = len(order)
+    t = max(num_tiles, 1)
+    m = n // 2
+    j = np.arange(m, dtype=np.int64)
+    by_tile = np.argsort(j % t, kind="stable")  # tile-major, round order
+    idx = np.stack([by_tile, n - 1 - by_tile], axis=1).reshape(-1)
+    if n % 2:
+        idx = np.insert(idx, 2 * ((m + t - 1) // t), m)
+    return order[idx]
+
+
+deal_order.calls = 0
+
+
+def clear_and_sum_plain(records: np.ndarray) -> int:
+    """Plain version of the native clear: zero the accumulators in place
+    and return the path-length sum."""
+    clear_and_sum_plain.calls += 1
+    total = int(records["pathLength"].sum(dtype=np.int64))
+    for field in ("r", "g", "b", "sampleCount", "pathLength"):
+        records[field] = 0
+    return total
+
+
+clear_and_sum_plain.calls = 0
+
+
+class WorkList:
+    """Double-buffered record list: the card renders into ``active``
+    while the host task accumulates ``inactive``."""
+
+    def __init__(self, size: int):
+        self.active = np.zeros(size, TRACE_RECORD_DTYPE)
+        self.inactive = np.zeros(size, TRACE_RECORD_DTYPE)
+
+    def swap(self) -> None:
+        self.active, self.inactive = self.inactive, self.active
+        if self.active.size == 0:
+            raise RuntimeError("The new active worklist is empty.")
+
+
+class LoadBalancer:
+    """Work scheduling state: the double buffer and the virtual tiles the
+    re-deal deals to.  ``native=False`` runs the plain versions."""
+
+    def __init__(self, work_item_count: int, num_tiles: int = VIRTUAL_TILES,
+                 native: bool = True):
+        self.work = WorkList(work_item_count)
+        self.num_tiles = num_tiles
+        self.native = native
+
+    def randomise_work_list(self, worklist: np.ndarray, seed: int = 142) -> None:
+        """Shuffle with the reference's fixed seed and install the result
+        as the inactive list."""
+        shuffled = worklist.copy()
+        np.random.default_rng(seed).shuffle(shuffled)
+        self.work.inactive = shuffled
+
+    def allocate_work_by_path_length(self) -> None:
+        """Re-deal the inactive list: (shortest, longest) path pairs to
+        each virtual tile in turn."""
+        records = self.work.inactive
+        if self.native:
+            native.load_balance(records, self.num_tiles)
+        else:
+            self.work.inactive = records[deal_order(records["pathLength"], self.num_tiles)]
+
+    def clear_inactive_accumulators(self) -> int:
+        """Zero the inactive list's accumulators; returns its path-length
+        sum (the Rays/sec statistic)."""
+        if self.native:
+            return native.clear_and_sum_pathlengths(self.work.inactive)
+        return clear_and_sum_plain(self.work.inactive)
+
+    def clear_active_accumulators(self) -> None:
+        for field in ("r", "g", "b", "sampleCount", "pathLength"):
+            self.work.active[field] = 0

@@ -58,6 +58,7 @@ QUICK_FILES = {
     "test_torch_probes.py",
     "test_torch_quantprobe.py",
     "test_torch_reconstruct.py",
+    "test_torch_runtime.py",
 }
 
 # Files deliberately absent from the quick tier (each needs a reason —
@@ -131,6 +132,9 @@ QUICK_TESTS = {
     ("test_qmc.py", "test_2d_stratification_aa_dims"),
     ("test_qmc.py", "test_pixel_and_key_decorrelation"),
     ("test_qmc.py", "test_sobol_dims_used_clamps"),
+    # the port's checkpoint/resume (minus its renders)
+    ("test_torch_checkpoint.py", "test_fingerprint_mismatch_is_refused"),
+    ("test_torch_checkpoint.py", "test_corrupt_checkpoint_is_refused"),
     # checkpoint/resume
     ("test_checkpoint.py", "test_checkpoint_validation"),
     ("test_checkpoint.py", "test_resume_rejects_mismatched_config"),

@@ -115,7 +115,7 @@ def test_cli_cpu_render(tmp_path, monkeypatch, fused):
 
     def spy(batch):
         records = original(batch)
-        fetched.append(records)
+        fetched.append(records.copy())  # the host task clears the buffer after the film
         return records
 
     monkeypatch.setattr(app_mod, "from_device_batch", spy)
@@ -151,7 +151,7 @@ def test_cli_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--checkpoint", "x.npz"], ["--resume", "x.npz"], ["--debug-view", "normal"],
+    ["--partials-type", "float"], ["--rng-impl", "rbg"], ["--debug-view", "normal"],
     ["--denoise"], ["--ipus", "2"], ["--mesh-shape", "2x1"], ["--ui-port", "5000"]])
 def test_cli_unported_flags_name_their_roadmap_item(tmp_path, flag):
     argv = ["-o", str(tmp_path / "x.png"), "--assets", "constant:1,1,1",
@@ -213,6 +213,9 @@ def _render(tmp_path, name, *flags, spp=4):
     ["--adaptive", "--device-film", "--adaptive-max-factor", "0.5"],
     ["--adaptive", "--device-film"],  # samples-per-step 2 < --adaptive-min 8
     ["--samples-per-step", "70000"],  # the u16 wire count needs --device-film
+    ["--enable-load-balancing", "--device-film"],  # re-deals need host path lengths
+    ["--auto-resume"],  # needs --checkpoint
+    ["--auto-resume", "--checkpoint", "a.npz", "--resume", "a.npz"],
 ])
 def test_cli_validation_mirrors_reference(tmp_path, flags, capsys):
     bad = tmp_path / "bad.json"
