@@ -89,6 +89,26 @@ Phases, one line each:
                 then every CLI run of phases 6-6c must have taken the native
                 host runtime (its film, tone map and clear; the re-deal with
                 --enable-load-balancing only) and no plain version;
+  6d. ui      - the interactive path: the CLI with --ui-port (a free port)
+                --denoise at 1104x1000, 8 spp a step, driven by the port's
+                client in this process, four times (host film and
+                --device-film, each in bf16 and with --nif-precision int8):
+                >= 3 previews, an exposure change (the progress keeps
+                rising: no restart), a fov change, a load_nif of
+                assets/urban_alley_synth_nif_int8 (the int8 runs launch K3
+                on its QAT grids after it) and interactive_samples 16 (each
+                restarts: the progress returns to step 1), stop, exit 0;
+                each run's launches (K1 twice for the env-skip probe, K3,
+                K4 for the guides), native film, tone map and JPEG calls
+                and no plain call; the codec make_encoder picks; then the
+                guides' sky albedo from K4 against the plain version (the
+                bf16 tail rule), the on-card denoised preview against
+                denoise_hdr and the native tone map of the fetched film
+                (<= 1 code value), the device preview, denoised preview,
+                denoise, cold guides and native JPEG times, and a --denoise
+                save and every --debug-view mode through the CLI at
+                1104x1000 (the debug EXRs equal debug_view of the guides);
+                the UI's step seconds beside the headless main run's;
   7. full frame - at the main path's shapes (1104x1000, a ragged last
                 block): K1 (Philox), K2 (on that sample's escapes, bf16 and
                 int8), K3 (Philox, 8 samples, bf16 and int8), K4 (one bake
@@ -203,6 +223,8 @@ import os
 import re
 import shutil
 import signal
+import socket
+import statistics
 import subprocess
 import sys
 import threading
@@ -217,6 +239,7 @@ ASSET = "assets/urban_alley_synth_nif"
 INT8_ASSET = "assets/urban_alley_synth_nif_int8"  # the canonical 6x320 after QAT
 MIXED_ASSET = "assets/nif_m128-128-80-128-128-128"  # per-layer widths, skip at 80 + 48
 MAIN_W, MAIN_H, MAIN_SPP, MAIN_SPS = 1104, 1000, 16, 8
+UI_SPP = 100_000  # phase 6d: more steps than the client's session takes
 CANON_SPP, CANON_SPS = 1200, 300  # the reference's canonical 300-spp step, four of them
 FLIP_FRACTION = 5e-3
 TRACE_RTOL, TRACE_ATOL = 1e-4, 3e-5
@@ -791,6 +814,270 @@ def frame_luminance(exr_path: Path) -> tuple[float, float, np.ndarray]:
     return float(lum.mean()), math.sqrt(var / lum.size), hdr
 
 
+def free_port() -> int:
+    """A TCP port the kernel just handed out (closed again for the CLI)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def connect_client(port: int, cli_thread: threading.Thread, timeout: float = 300.0):
+    """The port's UI client, once the CLI (building, then binding) listens."""
+    from ipu_path_trace_tpu_torch.ui import InterfaceClient
+
+    t0 = time.monotonic()
+    while True:
+        try:
+            return InterfaceClient("127.0.0.1", port)
+        except OSError:
+            if not cli_thread.is_alive() or time.monotonic() - t0 > timeout:
+                raise
+            time.sleep(0.2)
+
+
+def wait_for(pred, timeout: float = 120.0) -> bool:
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if pred():
+            return True
+        time.sleep(0.02)
+    return False
+
+
+class SnapshotOn(logging.Handler):
+    """Records the K3 launch count when the app logs a message with this
+    prefix (the int8 asset's QAT grids loaded by a UI hot swap)."""
+
+    def __init__(self, prefix: str):
+        super().__init__()
+        self.prefix = prefix
+        self.at: int | None = None
+
+    def emit(self, record):
+        from ipu_path_trace_tpu_torch.ops import megastep
+
+        if self.at is None and record.getMessage().startswith(self.prefix):
+            self.at = megastep.render_megastep.launches
+
+
+def ui_run(name: str, flags: list[str], out_dir: Path, app_log, counters, plains) -> dict:
+    """One CLI run with --ui-port --denoise at the main path's size, driven
+    by the port's client in this process: previews, an exposure change (no
+    restart), a fov change (the progress restarts), load_nif of the int8
+    asset, interactive_samples 16, stop."""
+    from ipu_path_trace_tpu_torch.runtime import cli
+    from ipu_path_trace_tpu_torch.ui import jpeg
+    from ipu_path_trace_tpu_torch.ui.packetcomms import unpack_f32
+
+    port = free_port()
+    png = out_dir / f"{name.replace(' ', '_')}.png"
+    argv = ["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(UI_SPP), "--samples-per-step",
+            str(MAIN_SPS), "--assets", str(ROOT / ASSET), "-o", str(png), "--ui-port", str(port),
+            "--denoise", *flags]
+    steps = UI_SPP // MAIN_SPS
+    app_log.lines.clear()
+    for f in counters:
+        f.launches = 0
+    for f in plains:
+        f.cuda_runs = 0
+    zero_host_calls()
+    jpeg.encode_scan_plain.calls = 0
+    snap = SnapshotOn("int8 NIF: using QAT activation grids")
+    logging.getLogger().addHandler(snap)
+    result = {"rc": None}
+
+    def run():
+        try:
+            result["rc"] = cli.main(argv)
+        except Exception as e:  # noqa: BLE001 - the phase reports it and fails
+            logging.getLogger(__name__).exception("CLI run %s failed", name)
+            result["rc"] = repr(e)
+
+    t0 = time.monotonic()
+    thread = threading.Thread(target=run, name=f"cli {name}")
+    thread.start()
+    info = {}
+    client = None
+    try:
+        client = connect_client(port, thread)
+        progress: list[float] = []
+        client._rx.subscribe("progress", lambda b: progress.append(unpack_f32(b)))
+        first = float(np.float32(1.0 / steps))  # step 1's progress as the wire's f32
+        info["previews"] = wait_for(lambda: client.preview_count >= 3)
+        mark = len(progress)
+        client.set_exposure(0.5)
+        wait_for(lambda: len(progress) >= mark + 4)
+        after = progress[mark:mark + 4]
+        info["exposure_no_restart"] = len(after) == 4 and all(
+            b > a for a, b in zip(after, after[1:]))
+        mark = len(progress)
+        client.set_fov(70.0)
+        info["fov_restart"] = wait_for(lambda: first in progress[mark:])
+        mark = len(progress)
+        client.load_nif(str(ROOT / INT8_ASSET))
+        info["load_nif_restart"] = wait_for(lambda: first in progress[mark:])
+        wait_for(lambda: len(progress) >= mark + 3)
+        mark = len(progress)
+        client.set_interactive_samples(16)
+        info["samples_16_restart"] = wait_for(lambda: first in progress[mark:])
+        wait_for(lambda: len(progress) >= mark + 4)
+        info["preview_count"] = client.preview_count
+        info["stream_bytes"] = len(client.preview_stream)
+        frames = client.preview_images()  # MJPEG frames decode; H.264 stays raw
+        info["decoded_frames"] = len(frames)
+        info["frames_ok"] = all(f.shape == (MAIN_H, MAIN_W, 3) for f in frames[-1:])
+        client.stop_render()
+        thread.join(300)
+    finally:
+        if client is not None:
+            client.close()
+        logging.getLogger().removeHandler(snap)
+    info["wall_s"] = time.monotonic() - t0
+    info["rc"] = result["rc"]
+    info["alive"] = thread.is_alive()
+    info["launches"] = dict(zip(("trace", "env_shade", "megastep", "nif_apply"),
+                                (f.launches for f in counters)))
+    info["plain_runs_on_cuda"] = [f.cuda_runs for f in plains]
+    info["host_calls"] = {**host_calls(), "jpeg_plain": jpeg.encode_scan_plain.calls}
+    info["int8_launches_after_swap"] = (None if snap.at is None
+                                        else info["launches"]["megastep"] - snap.at)
+    info["step_s"] = app_log.seconds("Completed render step")
+    info["png"] = png
+    return info
+
+
+def ui_components(out_dir: Path, smi: str, counters, plains) -> dict:
+    """Phase 6d's checks and times of the UI path's parts at the main
+    path's size: the guides (K4) against their plain version, the device's
+    denoised preview against denoise_hdr and the native tone map of the
+    fetched film, the preview, denoise and JPEG times, and a --denoise save
+    and every --debug-view mode through the CLI."""
+    from ipu_path_trace_tpu_torch.core.records import raster_permutation, to_device_batch
+    from ipu_path_trace_tpu_torch.film.debugview import DEBUG_VIEWS, debug_view
+    from ipu_path_trace_tpu_torch.film.denoise import (ALBEDO_FLOOR, denoise_hdr, filter_hdr,
+                                                       guides_numpy)
+    from ipu_path_trace_tpu_torch.film.film import Film
+    from ipu_path_trace_tpu_torch.film.imageio import read_exr
+    from ipu_path_trace_tpu_torch.ops import nif
+    from ipu_path_trace_tpu_torch.render.wavefront import render_step
+    from ipu_path_trace_tpu_torch.runtime import app as app_mod
+    from ipu_path_trace_tpu_torch.runtime import cli, native
+    from ipu_path_trace_tpu_torch.ui import jpeg
+
+    dev = torch.device("cuda", 0)
+    base = ["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(MAIN_SPS), "--samples-per-step",
+            str(MAIN_SPS), "--assets", str(ROOT / ASSET)]
+    cfg = cli.parse_config(base + ["-o", str(out_dir / "ui_parts.png"), "--denoise"])
+    app = app_mod.PathTracerApp(cfg)
+    app.init()
+    app.build()
+    nif.nif_apply_t.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    guides = app._guides(app.state)  # cold: what a restart under --denoise pays
+    torch.cuda.synchronize()
+    guides_ms = (time.perf_counter() - t0) * 1e3
+    k4 = nif.nif_apply_t.launches
+    sky = ~guides["hit"].reshape(-1)
+    n_sky = int(sky.sum())
+    uv = guides["escape_uv"].reshape(-1, 2)[sky]
+    ref = nif.nif_apply_t_plain(app.env.model, uv[:, 0].contiguous(), uv[:, 1].contiguous())
+    got = guides["albedo"].reshape(-1, 3)[sky]
+    rel = rel_err(got, ref.flip(0).t())
+    med, mx = float(rel.median()), float(rel.max())
+    tail = float((rel > NIF_MAX).float().mean())
+    phase("ui guides K4 vs plain", k4 == -(-n_sky // cfg.max_nif_batch_size)
+          and med < NIF_MEDIAN and tail <= NIF_TAIL_FRACTION and mx < NIF_TAIL_MAX
+          and bool(torch.isfinite(guides["albedo"]).all()),
+          k4_launches=k4, sky_pixels=n_sky, median_rel=f"{med:.2e}", max_rel=f"{mx:.2e}",
+          lanes_past_8e2=f"{tail:.2e}")
+
+    work = to_device_batch(app.worklist, dev)
+    work = render_step(app.scene, app.settings(), app.static_config(), work, (7, 8), app.env)
+    perm = torch.from_numpy(raster_permutation(app.worklist, MAIN_W, MAIN_H)
+                            .astype(np.int64)).to(dev)
+    pg = (torch.clamp_min(guides["albedo"], ALBEDO_FLOOR), guides["normal"], guides["disparity"])
+    kw = dict(width=MAIN_W, height=MAIN_H)
+    dn = dict(iterations=cfg.denoise_iters)
+
+    def preview_dn():
+        return app_mod._device_preview_denoised(work, perm, 0.0, 2.2, *pg, cfg.denoise_sigma,
+                                                cfg.denoise_clamp, **kw, **dn)
+
+    dev_ldr = preview_dn().cpu().numpy()
+    soa = app._fetch(work, None)
+    film = Film(MAIN_W, MAIN_H)
+    film.accumulate_soa(soa["u"], soa["v"], soa["r"], soa["g"], soa["b"], soa["sample_count"])
+    host_hdr = denoise_hdr(film.hdr_at_step(1), guides, iterations=cfg.denoise_iters,
+                           sigma_colour=cfg.denoise_sigma, firefly_clamp=cfg.denoise_clamp,
+                           device=dev)
+    host_ldr = native.tonemap(host_hdr, 0.0, 2.2)
+    diff = int(np.abs(dev_ldr.astype(int) - host_ldr.astype(int)).max())
+    phase("ui device denoised preview = denoise_hdr + native tone map", diff <= 1
+          and dev_ldr.shape == (MAIN_H, MAIN_W, 3) and bool(np.isfinite(host_hdr).all()),
+          max_code_diff=diff, mean_ldr=f"{dev_ldr.mean():.3f}")
+
+    hdr_t = app_mod._raster_mean(work, perm, MAIN_W, MAIN_H)
+    times = {
+        "device_preview_ms": cuda_ms(lambda: app_mod._device_preview(work, perm, 0.0, 2.2, **kw),
+                                     20),
+        "device_preview_denoised_ms": cuda_ms(preview_dn, 5),
+        "denoise_ms": cuda_ms(lambda: filter_hdr(hdr_t, *pg, sigma_colour=cfg.denoise_sigma,
+                                                 firefly_clamp_k=cfg.denoise_clamp, **dn), 5),
+        "guides_ms": guides_ms,
+    }
+    state = dict(app.state)
+    app._preview(work, perm, state)  # the loop's call: the preview and its fetch, warm
+    t0 = time.perf_counter()
+    for _ in range(5):
+        app._preview(work, perm, state)
+    times["preview_denoised_and_fetch_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    jpeg.encode(dev_ldr)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sample = jpeg.encode(dev_ldr)
+    times["jpeg_encode_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    times["jpeg_bytes"] = len(sample)
+    decoded = jpeg.decode(sample)
+    psnr = 10 * math.log10(255.0 ** 2 / max(float(np.mean(
+        (decoded.astype(float) - dev_ldr.astype(float)) ** 2)), 1e-12))
+    phase("ui native JPEG of the preview decodes", decoded.shape == dev_ldr.shape and psnr > 30.0,
+          bytes=len(sample), psnr_db=f"{psnr:.2f}")
+    print(f"[timing] ui parts at {MAIN_W}x{MAIN_H} ({smi}): " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in times.items()),
+        flush=True)
+
+    # A --denoise save and every --debug-view mode through the CLI.
+    host_guides = guides_numpy(guides)
+    saves = {}
+    for extra in (["--denoise"], *(["--debug-view", m] for m in DEBUG_VIEWS)):
+        name = "_".join(e.lstrip("-") for e in extra)
+        png = out_dir / f"save_{name}.png"
+        for f in counters:
+            f.launches = 0
+        for f in plains:
+            f.cuda_runs = 0
+        rc = cli.main(base + ["-o", str(png), *extra])
+        hdr = read_exr(str(png.with_suffix(".exr")))
+        got = [f.launches for f in counters]
+        ok = (rc == 0 and png.exists() and hdr.shape == (MAIN_H, MAIN_W, 3)
+              and bool(np.isfinite(hdr).all()) and got[2] == 1 and got[3] > 0
+              and not any(f.cuda_runs for f in plains))
+        info = {}
+        if extra[0] == "--debug-view" and extra[1] != "path-length":
+            same = np.array_equal(hdr, debug_view(extra[1], host_guides))
+            info["equals_guides_view"] = same
+            ok = ok and same
+        elif extra[0] == "--debug-view":
+            info["range"] = f"[{hdr.min():.3f}, {hdr.max():.3f}]"
+            ok = ok and hdr.min() >= 0.1 - 1e-6 and hdr.max() <= 1.0
+        phase(f"ui save {' '.join(extra)} {MAIN_W}x{MAIN_H}", ok, rc=rc,
+              launches_trace_shade_megastep_apply=got, **info)
+        saves[name] = got
+    times["saves_launches"] = saves
+    return times
+
+
 def main() -> None:
     # 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1345,6 +1632,48 @@ def main() -> None:
     phase("native host route in every CLI run", not bad, runs=len(routes), wrong=bad,
           load_balancing=routes["load balancing"])
 
+    # 6d. the interactive path: --ui-port --denoise with the port's client --
+    from ipu_path_trace_tpu_torch.ui.video import make_encoder
+
+    enc = make_encoder(MAIN_W, MAIN_H)
+    codec = enc.codec
+    enc.close()
+    mjpeg = codec.startswith("mjpeg")
+    print(f"[ui] render_preview codec make_encoder picks at {MAIN_W}x{MAIN_H}: {codec}",
+          flush=True)
+    headless_step = statistics.median(step_s["main fused"])
+    ui_runs = {}
+    for name, flags in (("ui host film", []), ("ui device film", ["--device-film"]),
+                        ("ui host film int8", int8_flags),
+                        ("ui device film int8", ["--device-film", *int8_flags])):
+        r = ui_run(name, flags, out_dir, app_log, counters, plains)
+        calls, got = r["host_calls"], r["launches"]
+        film_calls = calls["accumulate"] + calls["accumulate_soa"]
+        plain_calls = [calls[k] for k in ("accumulate_plain", "tone_map_plain", "jpeg_plain")]
+        int8_ok = (r["int8_launches_after_swap"] or 0) > 0 if "int8" in name else True
+        ok = (r["rc"] == 0 and not r["alive"] and r["previews"] and r["exposure_no_restart"]
+              and r["fov_restart"] and r["load_nif_restart"] and r["samples_16_restart"]
+              and got["megastep"] > 0 and got["nif_apply"] > 0 and got["trace"] == probe
+              and got["env_shade"] == 0 and not any(r["plain_runs_on_cuda"])
+              and film_calls > 0 and calls["tonemap"] > 0 and not any(plain_calls)
+              and (calls["jpeg_scan"] > 0) == mjpeg and (r["frames_ok"] or not mjpeg)
+              and int8_ok)
+        step = statistics.median(r["step_s"][1:]) if len(r["step_s"]) > 1 else None
+        phase(name, ok, rc=r["rc"], previews=r["preview_count"],
+              decoded_frames=r["decoded_frames"], exposure_no_restart=r["exposure_no_restart"],
+              fov_restart=r["fov_restart"], load_nif_restart=r["load_nif_restart"],
+              samples_16_restart=r["samples_16_restart"],
+              launches_trace_shade_megastep_apply=list(got.values()),
+              int8_megastep_launches_after_load_nif=r["int8_launches_after_swap"],
+              native_jpeg_calls=calls["jpeg_scan"], native_film_calls=film_calls,
+              native_tonemap_calls=calls["tonemap"], plain_calls=plain_calls,
+              wall_s=f"{r['wall_s']:.2f}")
+        print(f"[timing] {name} ({smi}): median step {step} s with the UI (8 then 16 spp), "
+              f"{headless_step:.4f} s headless (main fused, 8 spp); stream "
+              f"{r['stream_bytes']} bytes", flush=True)
+        ui_runs[name] = {k: (str(v) if isinstance(v, Path) else v) for k, v in r.items()}
+    ui_parts = ui_components(out_dir, smi, counters, plains)
+
     # 7. checks and timing at the main path's shapes ------------------------
     # 1,104,000 lanes end in a partial block, so the kernels' tail masks run
     # here.  These launches come after the counters were read above.
@@ -1508,6 +1837,14 @@ def main() -> None:
     phase("device timing step vs K3", abs(step_ms - k3_ms) <= 0.1 * k3_ms,
           step_ms=f"{step_ms:.4f}", k3_ms_per_sample=f"{k3_ms:.4f}",
           ratio=f"{step_ms / k3_ms:.4f}")
+    k3_step = MAIN_SPS * k3_ms
+    print(f"[timing] ui vs K3 ({smi}): denoised device preview "
+          f"{ui_parts['device_preview_denoised_ms']:.3f} ms, denoise "
+          f"{ui_parts['denoise_ms']:.3f} ms, device preview "
+          f"{ui_parts['device_preview_ms']:.3f} ms, "
+          f"JPEG encode {ui_parts['jpeg_encode_ms']:.3f} ms against K3's {MAIN_SPS}-spp step "
+          f"{k3_step:.3f} ms: the denoised preview takes "
+          f"{ui_parts['device_preview_denoised_ms'] / k3_step:.2f}x the step", flush=True)
     # Repeated launches of K1 and K3 wait for nothing on the host: under the
     # sync debug mode "error" a device-to-host sync raises.  The control,
     # the launch parameters' fov computed anew (a read-back), must raise.
@@ -1983,7 +2320,7 @@ def main() -> None:
          "quant_probe": k8_res, "quant_probe_sass_mma": k8_sass, "quality_gate": quality,
          "wgmma_sass_ptxas": wg_sass,
          "quality_gate_plain": quality_plain, "quality_gate_s": gate_s,
-         "host_syncs": syncs,
+         "host_syncs": syncs, "ui_codec": codec, "ui_runs": ui_runs, "ui_parts": ui_parts,
          "bound_counts": {"escapes": escapes, "bounces": bounces,
                           "escapes_enclosed": escapes_enclosed,
                           "bounces_enclosed": bounces_enclosed}}, indent=1))

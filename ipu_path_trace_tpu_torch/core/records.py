@@ -87,3 +87,28 @@ def from_device_batch(batch: WorkBatch) -> np.ndarray:
     wl["sampleCount"] = np.clip(host.sample_count, 0, 0xFFFF).astype(np.uint16)
     wl["pathLength"] = host.path_length.astype(np.uint16)
     return wl
+
+
+def raster_permutation(records: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(H*W,) int32 map: raster pixel index -> worklist record index.
+
+    The device preview gathers the worklist's running sums into raster
+    order with it.  Every real pixel must appear exactly once (the load
+    balancer permutes records and never duplicates them); a worklist that
+    drops or duplicates a pixel raises instead of mapping the missing
+    pixels to record 0.
+    """
+    if records.dtype != TRACE_RECORD_DTYPE:
+        raise TypeError(f"expected TRACE_RECORD_DTYPE records, got {records.dtype}")
+    u = records["u"].astype(np.int64)
+    v = records["v"].astype(np.int64)
+    ok = (u < width) & (v < height)
+    idx = v[ok] * width + u[ok]
+    counts = np.bincount(idx, minlength=height * width)
+    if not (counts == 1).all():
+        raise ValueError(f"worklist is not a pixel permutation for {width}x{height}: "
+                         f"{int((counts == 0).sum())} missing, "
+                         f"{int((counts > 1).sum())} duplicated")
+    perm = np.zeros(height * width, np.int64)
+    perm[idx] = np.nonzero(ok)[0]
+    return perm.astype(np.int32)

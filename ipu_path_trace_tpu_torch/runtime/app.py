@@ -1,8 +1,7 @@
-"""The headless progressive render loop.
+"""The progressive render loop, headless or under the remote UI.
 
-Counterpart of the headless paths of ``ipu_path_trace_tpu/runtime/app.py``
-(``PathTracerApp.execute`` without the UI, denoise and debug-view
-branches): build the worklist (coherent, raster, or the load balancer's
+Counterpart of ``ipu_path_trace_tpu/runtime/app.py`` without its mesh
+branches: build the worklist (coherent, raster, or the load balancer's
 shuffle), resolve ``--env-skip``, then per step run ``render_step`` (or
 ``adaptive_render_step``) on the device while a host task
 (runtime/async_task.py) post-processes the step before.
@@ -19,6 +18,27 @@ save steps the main thread fetches it and the task rebuilds the film,
 checkpoints and saves.  Every launch and every fetch stays on the main
 thread; the task touches host arrays only, and its native calls release
 the interpreter lock.
+
+With a remote UI (``execute(ui_server=...)``, ui/server.py) each step
+renders ``interactive_samples`` until SAMPLE_COUNT_REVERSION_STEP quiet
+steps pass, and sends a tone-mapped preview (with ``--denoise`` the
+denoised one) and the progress: the host film's host task tone-maps
+the film with the native tone map; the device film's main thread
+computes the preview on the card from the running sums
+(``_device_preview``, ``_device_preview_denoised``) and fetches only the
+H x W x 3 bytes.  Between steps the client's state is applied: exposure
+and gamma only change the tone map; fov, env rotation, a NIF hot swap
+and a valid ``interactive_samples`` restart the render (film, worklist,
+second moments, step counter, Sobol base and step seeds); stop ends the
+loop, detach drops the client.  Save steps stream the raw HDR to the
+client instead of writing ``-o``; the exit path writes it.
+
+``--denoise`` filters the saved images (and the previews) with the
+à-trous denoiser (film/denoise.py) on the app's device, guided by
+primary-hit buffers cached per (fov, env rotation, assets); called from
+the host task on CUDA it runs on a stream of its own, ordered after the
+guides by an event, so it does not queue behind the next render step.
+``--debug-view`` saves a diagnostic channel instead (film/debugview.py).
 
 A resume (``--resume``, ``--auto-resume``; runtime/checkpoint.py)
 restores the state and replays the step-seed draws of the steps done.
@@ -43,16 +63,21 @@ import contextlib
 import functools
 import json
 import logging
+import math
 import os
+import threading
 import time
 
 import numpy as np
 import torch
 
-from ..core.records import WorkBatch, from_device_batch, to_device_batch
+from ..core.records import WorkBatch, from_device_batch, raster_permutation, to_device_batch
 from ..core.scene import default_scene
 from ..core.scenefile import load_scene
-from ..film.film import Film
+from ..film.debugview import debug_ldr, debug_view, mean_path_length
+from ..film.denoise import (ALBEDO_FLOOR, denoise_hdr, filter_hdr, guides_numpy,
+                            primary_features)
+from ..film.film import Film, tone_map
 from ..film.imageio import load_hdr_image, save_images
 from ..models.envlight import ConstantEnv, NifEnv, TextureEnv, bake_nif_env
 from ..models.nif import analyse_nif, load_nif_assets
@@ -71,6 +96,45 @@ from .config import Config
 from .worklist import LoadBalancer, coherent_order, create_tracing_jobs
 
 log = logging.getLogger(__name__)
+
+# Steps without UI interaction before the step size reverts from
+# interactive_samples to samples_per_step (the reference's constant).
+SAMPLE_COUNT_REVERSION_STEP = 5
+
+
+def _raster_mean(work: WorkBatch, perm: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """(H, W, 3) per-pixel means rgb / sampleCount of the running sums,
+    gathered into raster order by ``perm`` (core/records.raster_permutation)."""
+    cnt = torch.clamp_min(work.sample_count, 1).to(torch.float32)
+    inv = torch.where(work.sample_count > 0, 1.0 / cnt, torch.zeros_like(cnt))
+    rgb = [(c * inv)[perm] for c in (work.r, work.g, work.b)]
+    return torch.stack(rgb, dim=-1).reshape(height, width, 3)
+
+
+def _tone_map_device(rgb: torch.Tensor, exposure: float, gamma: float) -> torch.Tensor:
+    """(x * 2^exposure)^(1/gamma) -> uint8, rounded half to even (rint)."""
+    scaled = torch.clamp_min(rgb * (2.0 ** exposure), 0.0)
+    ldr = torch.pow(scaled, 1.0 / gamma)
+    return torch.clamp(torch.round(ldr * 255.0), 0.0, 255.0).to(torch.uint8)
+
+
+def _device_preview(work: WorkBatch, perm: torch.Tensor, exposure: float, gamma: float, *,
+                   width: int, height: int) -> torch.Tensor:
+    """The device film's tone-mapped LDR preview (H, W, 3) uint8, computed
+    where the running sums live: only H x W x 3 bytes leave the card."""
+    return _tone_map_device(_raster_mean(work, perm, width, height), exposure, gamma)
+
+
+def _device_preview_denoised(work: WorkBatch, perm: torch.Tensor, exposure: float, gamma: float,
+                            albedo: torch.Tensor, normal: torch.Tensor, disparity: torch.Tensor,
+                            sigma_colour: float, clamp: float, *, width: int, height: int,
+                            iterations: int) -> torch.Tensor:
+    """_device_preview of the à-trous-filtered means (``albedo`` floored at
+    ALBEDO_FLOOR, as denoise_hdr floors it)."""
+    hdr = _raster_mean(work, perm, width, height)
+    rgb = filter_hdr(hdr, albedo, normal, disparity, iterations=iterations,
+                     sigma_colour=sigma_colour, firefly_clamp_k=clamp)
+    return _tone_map_device(rgb, exposure, gamma)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -145,6 +209,21 @@ class PathTracerApp:
         self._disk_norm = 0  # the film's normalisation not yet on disk (0: none)
         self._ckpt_step = 0  # the last step checkpointed
         self._rays = 0  # the last cleared buffer's path-length sum
+        # The live render state: the CLI's values, then the remote UI's.
+        self.state = {"exposure": config.exposure, "gamma": config.gamma, "fov": config.fov,
+                      "env_rotation": config.env_map_rotation,
+                      "interactive_samples": config.interactive_samples}
+        self.samples_per_step = config.samples_per_step  # interactive_samples under a UI
+        self.interactive = False
+        self.active_assets = config.assets  # what lights the render (a UI may swap it)
+        self._ui = None  # the attached UI server, None when headless or detached
+        # --denoise / --debug-view guides for (fov, env rotation, assets):
+        # (key, guide tensors, the event that follows their computation).
+        self._guide_cache: tuple | None = None
+        self._guide_lock = threading.Lock()
+        self._preview_guides: tuple | None = None  # the device preview's floored guides
+        self._debug_soa: tuple | None = None  # (u, v, pathLength, sampleCount) of a step
+        self._side_stream: torch.cuda.Stream | None = None  # the host task's denoise
 
     def init(self) -> None:
         cfg = self.cfg
@@ -152,7 +231,23 @@ class PathTracerApp:
         if self.total_spp != cfg.samples:
             log.info("Rounding SPP to next multiple of %d  (Rounded SPP := %d)",
                      cfg.samples_per_step, self.total_spp)
-        self.env, nif_info = parse_env_assets(cfg.assets, self.device, cfg.nif_precision)
+        self._load_env(cfg.assets)
+
+    def load_env(self, assets: str) -> bool:
+        """Swap the environment light (the UI's load_nif); False, and the
+        env unchanged, when it cannot be loaded."""
+        try:
+            self._load_env(assets)
+        except Exception as e:  # noqa: BLE001 - a bad path from the UI must not end the render
+            log.error("Could not load NIF model from '%s'. Exception: %s", assets, e,
+                      exc_info=True)
+            return False
+        return True
+
+    def _load_env(self, assets: str) -> None:
+        cfg = self.cfg
+        self.env, nif_info = parse_env_assets(assets, self.device, cfg.nif_precision)
+        self.active_assets = assets
         if nif_info is not None:
             meta, weights = nif_info
             info = analyse_nif(weights, cfg.width * cfg.height)
@@ -225,13 +320,18 @@ class PathTracerApp:
         return skip
 
     def settings(self) -> RenderSettings:
+        """The render settings of the live state: fov, env rotation and
+        samples per step (the CLI's until a UI changes them)."""
         cfg = self.cfg
         return RenderSettings.make(
-            fov_degrees=cfg.fov, aa_scale=cfg.aa_noise_scale,
-            env_rotation_degrees=cfg.env_map_rotation,
+            fov_degrees=self.state["fov"], aa_scale=cfg.aa_noise_scale,
+            env_rotation_degrees=self.state["env_rotation"],
             refractive_index=cfg.refractive_index, stop_prob=cfg.stop_prob,
-            roulette_depth=cfg.roulette_depth, samples_per_step=cfg.samples_per_step,
+            roulette_depth=cfg.roulette_depth, samples_per_step=self.samples_per_step,
             aperture=cfg.aperture, focal_distance=cfg.focal_distance, seed=cfg.seed)
+
+    def _settings_sig(self) -> tuple:
+        return self.samples_per_step, self.state["fov"], self.state["env_rotation"]
 
     def static_config(self) -> StaticConfig:
         cfg = self.cfg
@@ -248,13 +348,21 @@ class PathTracerApp:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def execute(self, max_steps: int | None = None) -> Film:
+    def execute(self, ui_server=None, max_steps: int | None = None) -> Film:
         """Render ``total_spp / samples_per_step`` steps (at most
-        ``max_steps``) into the film, resuming where asked."""
+        ``max_steps``) into the film, resuming where asked, under the
+        remote UI ``ui_server`` (ui/server.py) when given."""
         cfg = self.cfg
         steps = self.total_spp // cfg.samples_per_step
         if max_steps is not None:
             steps = min(steps, max_steps)
+        self._ui = ui_server
+        if ui_server is not None:
+            self.samples_per_step = self.state["interactive_samples"]
+            self.interactive = True
+            # The protocol's defaults must not overwrite the CLI's values
+            # on the first state change; what the client sent wins.
+            ui_server.seed_state(dict(self.state))
         gen = torch.Generator().manual_seed(cfg.seed)  # per-step kernel seed words
         done, work, lum2 = self._resume()
         for _ in range(done):  # the seeds of the steps already rendered
@@ -387,10 +495,12 @@ class PathTracerApp:
 
     def _after_step(self, step: int, first: int, steps: int, secs: float, **extra) -> None:
         cfg = self.cfg
-        rate = cfg.width * cfg.height * cfg.samples_per_step / secs
+        rate = cfg.width * cfg.height * self.samples_per_step / secs
         self._emit_metrics({"step": step, "steps": steps, "seconds": round(secs, 4),
                             "samples_per_sec": round(rate, 1), **extra,
-                            "spp_per_step": cfg.samples_per_step})
+                            "spp_per_step": self.samples_per_step})
+        if self._ui is not None:
+            self._ui.update_sample_rate(rate, extra.get("rays_per_sec", 0.0))
         if step == first:
             self._log_device_memory()
 
@@ -416,22 +526,178 @@ class PathTracerApp:
                             **state)
         self._ckpt_step = step
 
-    def _save(self, norm: int, step: int, at_exit: bool = False) -> None:
+    def _fingerprint(self) -> dict:
+        """The checkpoint fingerprint of what lights the samples now: the
+        live fov, env rotation and assets, which the UI may have changed."""
+        fp = render_fingerprint(self.cfg)
+        fp.update(fov=float(self.state["fov"]), env_map_rotation=float(self.state["env_rotation"]),
+                  assets=self.active_assets)
+        return fp
+
+    # --- guides, denoise and debug views ------------------------------------------------------
+
+    def _guides(self, state: dict) -> dict:
+        """The --denoise / --debug-view guide tensors for ``state``'s camera
+        and env, cached per (fov, env rotation, assets); the caller's
+        stream waits for their computation, wherever it ran."""
+        cfg = self.cfg
+        key = (float(state["fov"]), float(state["env_rotation"]), self.active_assets)
+        with self._guide_lock:
+            if self._guide_cache is None or self._guide_cache[0] != key:
+                with self.trace.span("denoise_guides"):
+                    guides = primary_features(self.scene, cfg.width, cfg.height,
+                                              math.radians(key[0]), env=self.env,
+                                              azimuth=math.radians(key[1]),
+                                              max_batch=cfg.max_nif_batch_size)
+                done = None
+                if self.device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record()
+                self._guide_cache = (key, guides, done)
+                self._preview_guides = None  # the device copies follow the key
+            _, guides, done = self._guide_cache
+        if done is not None:
+            torch.cuda.current_stream(self.device).wait_event(done)
+        return guides
+
+    def _stream(self):
+        """The host task's CUDA stream for the denoiser (a context manager;
+        nothing on the CPU)."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        return torch.cuda.stream(self._side_stream)
+
+    def _denoise(self, hdr: np.ndarray, state: dict) -> np.ndarray:
+        """--denoise of a step-normalised HDR image on the app's device, on
+        the side stream: the host task's filter does not wait for the render
+        step queued on the main one."""
+        cfg = self.cfg
+        with self._stream():
+            guides = self._guides(state)
+            with self.trace.span("denoise"):
+                return denoise_hdr(hdr, guides, iterations=cfg.denoise_iters,
+                                   sigma_colour=cfg.denoise_sigma,
+                                   firefly_clamp=cfg.denoise_clamp, device=self.device)
+
+    def _ldr(self, norm: int, state: dict, hdr: np.ndarray | None = None) -> np.ndarray:
+        """The film at normalisation ``norm`` (or ``hdr``), tone-mapped with
+        the state's exposure and gamma."""
+        if hdr is None:
+            return self.film.ldr(norm, state["exposure"], state["gamma"])
+        return tone_map(hdr, 1, state["exposure"], state["gamma"], self.film.native)
+
+    def _save(self, norm: int, step: int, state: dict, at_exit: bool = False) -> None:
+        """Write -o: the film at normalisation ``norm``, denoised with
+        --denoise, or the --debug-view channel in its place."""
         cfg = self.cfg
         t0 = time.monotonic()
         with self.trace.span("save_images"):
             self._disk_norm = 0
-            save_images(cfg.outfile, self.film.hdr_at_step(norm),
-                        self.film.ldr(norm, cfg.exposure, cfg.gamma))
+            if cfg.debug_view:
+                plm = None
+                if cfg.debug_view == "path-length":
+                    if self._debug_soa is None:
+                        log.warning("--debug-view path-length: no worklist fetched yet; "
+                                    "writing a zero heat map")
+                        plm = np.zeros((cfg.height, cfg.width), np.float32)
+                    else:
+                        plm = mean_path_length(*self._debug_soa, cfg.width, cfg.height)
+                with self._stream():
+                    guides = guides_numpy(self._guides(state))
+                with self.trace.span("debug_view"):
+                    img = debug_view(cfg.debug_view, guides, plm, cfg.max_path_length)
+                save_images(cfg.outfile, img, debug_ldr(img, state["gamma"]))
+            elif cfg.denoise:
+                hdr = self._denoise(self.film.hdr_at_step(norm), state)
+                save_images(cfg.outfile, hdr, self._ldr(1, state, hdr))
+            else:
+                save_images(cfg.outfile, self.film.hdr_at_step(norm), self._ldr(norm, state))
         log.info("Saved images at %s in %.3f seconds", f"exit (step {step})" if at_exit
                  else f"step {step}", time.monotonic() - t0)
 
     def _finish(self, done: int, **state) -> None:
         """The exit path, once the last task is done: checkpoint between
         intervals and save what the outfile lacks."""
-        self._write_checkpoint(done, render_fingerprint(self.cfg), **state)
+        self._write_checkpoint(done, self._fingerprint(), **state)
         if self._disk_norm:
-            self._save(self._disk_norm, done, at_exit=True)
+            self._save(self._disk_norm, done, self.state, at_exit=True)
+
+    # --- the remote UI ------------------------------------------------------------------------
+
+    def _ui_input(self, step: int, host: AsyncTask) -> str:
+        """Apply the client's state before a step: "stop", "restart" (the
+        caller resets the render; the host task is done) or "none".  After
+        SAMPLE_COUNT_REVERSION_STEP quiet steps the step size reverts to
+        samples_per_step."""
+        cfg = self.cfg
+        ui = self._ui
+        if ui is not None and ui.state_changed():
+            with self.trace.span("ui_processing"):
+                status = self._process_user_input(ui.consume_state())
+            if status == "disconnected":
+                self._ui = None
+                return "none"
+            if status == "restart":
+                host.wait_for_completion()
+                self.samples_per_step = self.state["interactive_samples"]
+            return status
+        if (step >= SAMPLE_COUNT_REVERSION_STEP and self.interactive
+                and self.samples_per_step != cfg.samples_per_step):
+            # >=: a UI event on the reversion step itself still reverts on
+            # the next quiet one.
+            self.samples_per_step = cfg.samples_per_step
+            self.interactive = ui is not None
+            log.debug("Interaction stopped reverting samples per step to: %d",
+                      self.samples_per_step)
+        return "none"
+
+    def _process_user_input(self, ui_state: dict) -> str:
+        """The client's state -> "stop", "disconnected", "restart" or
+        "none".  Wire values are untrusted: an invalid interactive_samples
+        is logged and ignored, a NIF that fails to load keeps the current
+        env, and a message that changes nothing does not restart."""
+        state = self.state
+        if ui_state.get("stop"):
+            log.info("Rendering stopped by remote UI")
+            return "stop"
+        if ui_state.get("detach"):
+            log.info("Remote UI disconnected.")
+            return "disconnected"
+        new_nif = ui_state.get("load_nif")
+        changed = False
+        if new_nif:
+            log.info("Loading NIF: %s", new_nif)
+            changed = self.load_env(new_nif)
+        for k in ("exposure", "gamma"):  # the tone map only: never a restart
+            if k in ui_state:
+                state[k] = float(ui_state[k])
+        for k in ("env_rotation", "fov"):
+            if k in ui_state:
+                if float(ui_state[k]) != float(state[k]):
+                    changed = True
+                state[k] = float(ui_state[k])
+        if "interactive_samples" in ui_state:
+            v = int(ui_state["interactive_samples"])
+            if v < 1:
+                log.warning("Ignoring invalid interactive_samples=%d from UI: must be >= 1", v)
+            elif v > 0xFFFF and not self.cfg.device_film:
+                log.warning("Ignoring invalid interactive_samples=%d from UI: > 65535 needs "
+                            "--device-film (u16 wire clip)", v)
+            else:
+                changed = changed or v != state["interactive_samples"]
+                state["interactive_samples"] = v
+        return "restart" if changed else "none"
+
+    def _live_tone(self, ui, state: dict) -> dict:
+        """``state`` with the client's current exposure and gamma, which
+        apply at once (no restart)."""
+        live = ui.get_state()
+        self.state["exposure"], self.state["gamma"] = live["exposure"], live["gamma"]
+        return {**state, "exposure": live["exposure"], "gamma": live["gamma"]}
+
+    # --- the host film ------------------------------------------------------------------------
 
     def _host_film_steps(self, first: int, steps: int, gen: torch.Generator,
                          host: AsyncTask) -> None:
@@ -439,47 +705,78 @@ class PathTracerApp:
         and fetches its records into it; the host task takes them after
         the swap (module docstring)."""
         cfg = self.cfg
-        settings, static = self.settings(), self.static_config()
+        static = self.static_config()
+        settings, sig = self.settings(), self._settings_sig()
         work = self.balancer.work
         work_dev = None  # uploaded once, or every step under load balancing
+        # The counts restart at 0 every step, so the Sobol sampler is told
+        # how many samples each lane already has.
+        sobol_base = (first - 1) * cfg.samples_per_step
         done = first - 1
-        for step in range(first, steps + 1):
+        step = first
+        while step <= steps:
             if self._stop(done):
                 break
             t0 = time.monotonic()
+            status = self._ui_input(step, host)
+            if status == "stop":
+                break
+            if status == "restart":
+                self.film.reset()
+                self.balancer.clear_active_accumulators()
+                self._disk_norm = self._ckpt_step = sobol_base = done = 0
+                gen = torch.Generator().manual_seed(cfg.seed)
+                step = 1
+            if self._settings_sig() != sig:
+                settings, sig = self.settings(), self._settings_sig()
             with self.trace.span("ipu_render"):
                 if work_dev is None or cfg.enable_load_balancing:
                     work_dev = to_device_batch(work.active, self.device)
-                # The counts restart at 0 every step, so the Sobol sampler
-                # is told how many samples each lane already has.
                 out = render_step(self.scene, settings, static, work_dev, step_seed(gen),
-                                  self.env, sobol_base=(step - 1) * cfg.samples_per_step)
+                                  self.env, sobol_base=sobol_base)
                 work.active = from_device_batch(out)  # the fetch waits for the device
+            sobol_base += self.samples_per_step
             t1 = time.monotonic()
             with self.trace.span("wait_for_host"):
                 host.wait_for_completion()
             t2 = time.monotonic()
             work.swap()
             rays = self._rays  # the step before's, as the reference's Rays/sec
-            host.run(functools.partial(self._host_processing, step, steps,
-                                       render_fingerprint(cfg)))
+            host.run(functools.partial(self._host_processing, step, steps, self._fingerprint(),
+                                       dict(self.state), self._ui))
             secs = time.monotonic() - t0
-            rate = cfg.width * cfg.height * cfg.samples_per_step / secs
+            rate = cfg.width * cfg.height * self.samples_per_step / secs
             log.info("Completed render step %d/%d in %.3f seconds (render+fetch %.3f, wait for "
                      "host %.3f; Samples/sec %.3g) (Rays/sec %.3g)", step, steps, secs, t1 - t0,
                      t2 - t1, rate, rays / secs)
             self._after_step(step, first, steps, secs, rays_per_sec=round(rays / secs, 1))
             done = step
+            step += 1
         with self.trace.span("wait_for_host"):
             host.wait_for_completion()
         self._finish(done, hdr=self.film.hdr)
 
-    def _host_processing(self, step: int, steps: int, fingerprint: dict) -> None:
-        """The host task of a host-film step, on the inactive buffer."""
+    def _host_processing(self, step: int, steps: int, fingerprint: dict, state: dict,
+                         ui) -> None:
+        """The host task of a host-film step, on the inactive buffer: the
+        film, the UI's preview and progress, the re-deal, the clear, and
+        at save steps the checkpoint and the images (streamed to a UI)."""
         cfg = self.cfg
+        inactive = self.balancer.work.inactive
         with self.trace.span("accumulate_framebuffers"):
-            self.film.accumulate(self.balancer.work.inactive)
+            self.film.accumulate(inactive)
+        if cfg.debug_view == "path-length":  # copies: the clear below zeroes them
+            self._debug_soa = tuple(inactive[k].copy() for k in ("u", "v", "pathLength",
+                                                                 "sampleCount"))
         self._disk_norm = step
+        if ui is not None:
+            state = self._live_tone(ui, state)
+            with self.trace.span("tone_map"):
+                hdr = self._denoise(self.film.hdr_at_step(step), state) if cfg.denoise else None
+                ldr = self._ldr(step, state, hdr)
+            with self.trace.span("ui_encode"):
+                ui.send_preview_image(ldr)
+            ui.update_progress(step, steps)
         if cfg.enable_load_balancing and step > 1:
             with self.trace.span("run_load_balancing"):
                 self.balancer.allocate_work_by_path_length()
@@ -487,7 +784,12 @@ class PathTracerApp:
             self._rays = self.balancer.clear_inactive_accumulators()
         if step % cfg.save_interval == 0 or step == steps:
             self._write_checkpoint(step, fingerprint, hdr=self.film.hdr)
-            self._save(step, step)
+            if ui is not None:
+                ui.start_sending_raw_image(self.film.hdr_at_step(step))
+            else:
+                self._save(step, step, state)
+
+    # --- the device film ----------------------------------------------------------------------
 
     def _fetch(self, work: WorkBatch, lum2: torch.Tensor | None) -> dict[str, np.ndarray]:
         """The device film's sums on the host (int32 counts: no u16 wire
@@ -503,25 +805,62 @@ class PathTracerApp:
         self.film.reset()
         self.film.accumulate_soa(soa["u"], soa["v"], soa["r"], soa["g"], soa["b"],
                                  soa["sample_count"])
+        self._debug_soa = (soa["u"], soa["v"], soa["path_length"], soa["sample_count"])
         self._disk_norm = 1
+
+    def _preview(self, work: WorkBatch, perm: torch.Tensor, state: dict) -> np.ndarray:
+        """The device film's LDR preview, computed on the render's device
+        (denoised with --denoise); only its H x W x 3 bytes are fetched."""
+        cfg = self.cfg
+        kw = dict(width=cfg.width, height=cfg.height)
+        if not cfg.denoise:
+            ldr = _device_preview(work, perm, state["exposure"], state["gamma"], **kw)
+            return ldr.cpu().numpy()
+        guides = self._guides(state)
+        if self._preview_guides is None:
+            self._preview_guides = (torch.clamp_min(guides["albedo"], ALBEDO_FLOOR),
+                                    guides["normal"], guides["disparity"])
+        return _device_preview_denoised(work, perm, state["exposure"], state["gamma"],
+                                        *self._preview_guides, cfg.denoise_sigma,
+                                        cfg.denoise_clamp, iterations=cfg.denoise_iters,
+                                        **kw).cpu().numpy()
 
     def _device_film_steps(self, first: int, steps: int, gen: torch.Generator, host: AsyncTask,
                            work: WorkBatch | None, lum2: torch.Tensor | None) -> None:
         """The worklist (and, adaptive, the second moments) stay on the
         device; at save steps the main thread fetches them and the host
-        task rebuilds the film, checkpoints and saves."""
+        task rebuilds the film, checkpoints and saves (streams to a UI).
+        Under a UI the main thread sends a preview computed on the device
+        every step."""
         cfg = self.cfg
-        settings, static = self.settings(), self.static_config()
+        static = self.static_config()
+        settings, sig = self.settings(), self._settings_sig()
         dirty = work is not None  # a resumed film is not on disk in this run
         if work is None:
             work = to_device_batch(self.worklist, self.device)
         if cfg.adaptive and lum2 is None:
             lum2 = torch.zeros(work.u.shape[0], dtype=torch.float32, device=self.device)
+        perm = None  # the raster gather of the previews
         done = first - 1
-        for step in range(first, steps + 1):
+        step = first
+        while step <= steps:
             if self._stop(done):
                 break
             t0 = time.monotonic()
+            status = self._ui_input(step, host)
+            if status == "stop":
+                break
+            if status == "restart":
+                self.film.reset()
+                work = to_device_batch(self.worklist, self.device)
+                if cfg.adaptive:
+                    lum2 = torch.zeros_like(lum2)
+                self._disk_norm = self._ckpt_step = done = 0
+                dirty = False
+                gen = torch.Generator().manual_seed(cfg.seed)
+                step = 1
+            if self._settings_sig() != sig:
+                settings, sig = self.settings(), self._settings_sig()
             save = step % cfg.save_interval == 0 or step == steps
             with self.trace.span("ipu_render"):
                 if cfg.adaptive:
@@ -538,17 +877,29 @@ class PathTracerApp:
             with self.trace.span("wait_for_host"):
                 host.wait_for_completion()
             t2 = time.monotonic()
+            ui = self._ui
+            if ui is not None:
+                if perm is None:
+                    perm = torch.from_numpy(raster_permutation(
+                        self.worklist, cfg.width, cfg.height).astype(np.int64)).to(self.device)
+                tone = self._live_tone(ui, self.state)
+                with self.trace.span("ui_preview"):
+                    ldr = self._preview(work, perm, tone)
+                with self.trace.span("ui_encode"):
+                    ui.send_preview_image(ldr)
+                ui.update_progress(step, steps)
             if save:
                 host.run(functools.partial(self._device_film_processing, step, soa,
-                                           render_fingerprint(cfg)))
+                                           self._fingerprint(), dict(self.state), ui))
             dirty = not save
             secs = time.monotonic() - t0
-            rate = cfg.width * cfg.height * cfg.samples_per_step / secs
+            rate = cfg.width * cfg.height * self.samples_per_step / secs
             log.info("Completed render step %d/%d in %.3f seconds (render%s %.3f, wait for host "
                      "%.3f; Samples/sec %.3g)", step, steps, secs, "+fetch" if save else "",
                      t1 - t0, t2 - t1, rate)
             self._after_step(step, first, steps, secs)
             done = step
+            step += 1
         with self.trace.span("wait_for_host"):
             host.wait_for_completion()
         state = {}
@@ -556,15 +907,20 @@ class PathTracerApp:
             with self.trace.span("final_fetch"):
                 state["soa"] = self._fetch(work, lum2)
                 self._rebuild_film(state["soa"])
+            if self._ui is not None:
+                self._ui.start_sending_raw_image(self.film.hdr_at_step(1))
         self._finish(done, **state)
 
     def _device_film_processing(self, step: int, soa: dict[str, np.ndarray],
-                                fingerprint: dict) -> None:
+                                fingerprint: dict, state: dict, ui) -> None:
         """The host task of a device-film save step."""
         with self.trace.span("accumulate_framebuffers"):
             self._rebuild_film(soa)
         self._write_checkpoint(step, fingerprint, soa=soa)
-        self._save(1, step)
+        if ui is not None:
+            ui.start_sending_raw_image(self.film.hdr_at_step(1))
+        else:
+            self._save(1, step, state)
 
 
 def step_seed(gen: torch.Generator) -> tuple[int, int]:

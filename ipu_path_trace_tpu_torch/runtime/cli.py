@@ -28,12 +28,10 @@ _UNPORTED = [
     (("--load-exe",), dict(default=""), "queue 1 item 19"),
     (("--compile-only",), dict(action="store_true"), "queue 1 item 19"),
     (("--defer-attach",), dict(action="store_true"), "queue 1 item 20"),
-    (("--interactive-samples",), dict(type=int, default=8), "queue 1 item 17 (ui)"),
     (("--codelet-path",), dict(default="./"), "queue 1 item 20"),
     (("--partials-type",), dict(default="half", choices=["half", "float"]),
      "queue 1 item 20 (f32 NIF chain in the kernels)"),
     (("--available-memory-proportion",), dict(type=float, default=0.6), "queue 1 item 20"),
-    (("--ui-port",), dict(type=int, default=0), "queue 1 item 17 (ui)"),
     (("--use-pallas",), dict(action=argparse.BooleanOptionalAction, default=True),
      "queue 1 item 20 (the port always runs its kernels)"),
     (("--mesh-shape",), dict(default=""), "queue 1 item 15 (multi-GPU)"),
@@ -41,11 +39,6 @@ _UNPORTED = [
     (("--rng-impl",), dict(default="auto", choices=[
         "auto", "threefry2x32", "rbg", "unsafe_rbg"]),
      "queue 1 item 20 (the port's kernels use Philox)"),
-    (("--denoise",), dict(action="store_true"), "queue 1 item 13"),
-    (("--denoise-iters",), dict(type=int, default=4), "queue 1 item 13"),
-    (("--denoise-sigma",), dict(type=float, default=1.0), "queue 1 item 13"),
-    (("--denoise-clamp",), dict(type=float, default=10.0), "queue 1 item 13"),
-    (("--debug-view",), dict(default=""), "queue 1 item 13"),
 ]
 
 
@@ -67,6 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--height", "-H", type=int, default=256, help="Output image height.")
     p.add_argument("--samples", "-s", type=int, default=512, help="Total samples per pixel.")
     p.add_argument("--samples-per-step", type=int, default=512, help="Samples per step.")
+    p.add_argument("--interactive-samples", type=int, default=8,
+                   help="Samples per step while the remote UI interacts (reverts to "
+                        "--samples-per-step after a few quiet steps).")
     p.add_argument("--refractive-index", "-n", type=float, default=1.5)
     p.add_argument("--roulette-depth", type=int, default=3,
                    help="Number of bounces before rays are randomly stopped.")
@@ -163,6 +159,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-file", default="",
                    help="Append one JSON line per completed render step (step, seconds, "
                         "samples_per_sec, spp) plus a final summary.")
+    p.add_argument("--ui-port", type=int, default=0,
+                   help="Serve the remote user interface on this TCP port: the render waits "
+                        "for one client (ui/client.py), streams it previews and progress, "
+                        "and takes its exposure, gamma, fov, env rotation, NIF and "
+                        "interactive samples. 0 renders headless.")
+    p.add_argument("--denoise", action="store_true", default=False,
+                   help="Filter the saved images and the previews with the edge-avoiding "
+                        "a-trous wavelet denoiser (primary-hit albedo/normal/depth guides, "
+                        "film/denoise.py). The accumulator stays raw.")
+    p.add_argument("--denoise-iters", type=int, default=4,
+                   help="A-trous dilation passes for --denoise (filter radius 2^n pixels).")
+    p.add_argument("--denoise-sigma", type=float, default=1.0,
+                   help="Log-luminance edge-stop sigma for --denoise: lower keeps more "
+                        "detail, higher smooths harder.")
+    p.add_argument("--denoise-clamp", type=float, default=10.0,
+                   help="Firefly suppressor for --denoise: clamp each pixel's luminance to "
+                        "k x its 3x3 neighbourhood median before filtering (0 disables).")
+    p.add_argument("--debug-view", default="",
+                   choices=["", "normal", "albedo", "depth", "path-length", "escape-uv"],
+                   help="Save a diagnostic channel instead of radiance (film/debugview.py), "
+                        "rendered through the production camera and intersector. The "
+                        "accumulator is untouched.")
     p.add_argument("--device", default="cuda",
                    help="'cuda' runs the CUDA kernels; 'cpu' their plain versions.")
     unported = p.add_argument_group("Reference options not ported yet (non-defaults raise)")
@@ -203,9 +221,34 @@ def main(argv=None, *, use_fused_step: bool | None = None) -> int:
     app = PathTracerApp(cfg)
     app.init()
     app.build()
-    with graceful_stop(app):
-        app.execute()
+    ui_server = None
+    if cfg.ui_port:
+        ui_server = start_ui_server(cfg)
+    try:
+        with graceful_stop(app):
+            app.execute(ui_server=ui_server)
+    finally:
+        if ui_server is not None:
+            ui_server.stop()
     return 0
+
+
+def start_ui_server(cfg: Config):
+    """Serve the remote UI on ``cfg.ui_port`` and block until one client
+    connects; a failed bind (the port taken) raises at once.  The
+    preview stream is set up at the render's size."""
+    from ..ui.server import InterfaceServer
+
+    log = logging.getLogger(__name__)
+    server = InterfaceServer(cfg.ui_port)
+    server.start()
+    log.info("Waiting for remote UI client to connect...")
+    if not server.wait_for_client():
+        server.stop()
+        raise RuntimeError(f"UI server failed to accept a client on port {cfg.ui_port} "
+                           "(port in use?)")
+    server.initialise_video_stream(cfg.width, cfg.height)
+    return server
 
 
 @contextlib.contextmanager

@@ -1,9 +1,9 @@
 """Application configuration of the port's headless renderer.
 
 Counterpart of ``ipu_path_trace_tpu/runtime/config.py`` for the flags
-the port has: the same names and defaults, plus ``device``.  The
-reference's other flags are listed in runtime/cli.py with the ROADMAP
-item that will port each.
+the port has: the same names, defaults and validation, plus ``device``.
+The reference's other flags are listed in runtime/cli.py with the
+ROADMAP item that will port each.
 """
 
 from __future__ import annotations
@@ -19,6 +19,9 @@ class Config:
     height: int = 256
     samples: int = 512
     samples_per_step: int = 512
+    # Samples per step while a remote UI interacts (runtime/app.py reverts
+    # to samples_per_step after SAMPLE_COUNT_REVERSION_STEP quiet steps).
+    interactive_samples: int = 8
     refractive_index: float = 1.5
     roulette_depth: int = 3
     stop_prob: float = 0.3
@@ -85,6 +88,18 @@ class Config:
     profile_dir: str = ""
     device_timing: bool = False
     metrics_file: str = ""
+    # The remote UI (ui/server.py): 0 renders headless; a port makes the
+    # CLI wait for one client, then stream previews and take its state.
+    ui_port: int = 0
+    # À-trous denoiser (film/denoise.py) on the saved images and the
+    # previews; the accumulator stays raw.
+    denoise: bool = False
+    denoise_iters: int = 4  # dilation passes (filter radius 2^n)
+    denoise_sigma: float = 1.0  # log-luminance edge-stop
+    denoise_clamp: float = 10.0  # firefly clamp: k x the 3x3 median (0 = off)
+    # A diagnostic channel saved instead of radiance (film/debugview.py):
+    # "" | normal | albedo | depth | path-length | escape-uv.
+    debug_view: str = ""
     # Where the render runs.  "cuda" launches the kernels; "cpu" runs
     # their plain versions (the port's simulator).  A CUDA request on a
     # machine without CUDA raises: nothing falls back to the CPU.
@@ -100,6 +115,9 @@ class Config:
             raise ValueError("samples and samples-per-step must be >= 1")
         if self.samples_per_step > 0xFFFF and not self.device_film:
             raise ValueError("samples-per-step > 65535 needs --device-film (the u16 "
+                             "wire sampleCount would clip)")
+        if self.interactive_samples > 0xFFFF and not self.device_film:
+            raise ValueError("interactive-samples > 65535 needs --device-film (the u16 "
                              "wire sampleCount would clip)")
         if self.device_film and self.enable_load_balancing:
             raise ValueError("--device-film is incompatible with --enable-load-balancing "
@@ -125,6 +143,17 @@ class Config:
             raise ValueError(f"unknown --sampler '{self.sampler}' (choices: prng, sobol)")
         if self.sampler == "sobol" and self.sobol_dims < 4:
             raise ValueError("--sobol-dims must be >= 4 (the camera dims)")
+        if self.denoise_iters < 1 or self.denoise_iters > 8:
+            raise ValueError("--denoise-iters must be in [1, 8] (filter radius grows as 2^n)")
+        if self.denoise_sigma <= 0.0:
+            raise ValueError("--denoise-sigma must be > 0")
+        if self.denoise_clamp < 0.0:
+            raise ValueError("--denoise-clamp must be >= 0 (0 disables)")
+        from ..film.debugview import DEBUG_VIEWS
+
+        if self.debug_view and self.debug_view not in DEBUG_VIEWS:
+            raise ValueError(f"unknown --debug-view '{self.debug_view}' (choices: "
+                             f"{', '.join(DEBUG_VIEWS)})")
         if self.adaptive:
             if not self.device_film:
                 raise ValueError("--adaptive needs --device-film (int32 per-record "
@@ -136,8 +165,10 @@ class Config:
                 raise ValueError("--adaptive-min must be >= 1")
             if self.adaptive_max_factor < 1.0:
                 raise ValueError("--adaptive-max-factor must be >= 1")
-            if self.samples_per_step < self.adaptive_min:
-                raise ValueError("samples-per-step must be >= --adaptive-min")
+            if self.samples_per_step < self.adaptive_min or (
+                    self.ui_port and self.interactive_samples < self.adaptive_min):
+                raise ValueError("samples-per-step (and interactive-samples with a UI) "
+                                 "must be >= --adaptive-min")
         if self.scene:
             from ..core.scenefile import load_scene
 

@@ -1,12 +1,15 @@
-"""ctypes bindings of the native host runtime (``csrc/pt_host.cpp``).
+"""ctypes bindings of the native host runtime (``csrc/pt_host.cpp``,
+``csrc/pt_jpeg.cpp``).
 
 Counterpart of ``ipu_path_trace_tpu/runtime/native.py``: the film's
 accumulation (records and SoA), the tone map, the fused clear and
-path-length sum, and the load balancer's re-deal, in C++ with OpenMP.
+path-length sum, and the load balancer's re-deal, in C++ with OpenMP;
+and the preview stream's JPEG scan (ui/jpeg.py), which the JAX package
+leaves to PIL.
 
-At first use g++ builds the source into ``build/host/`` at the root of the
-checkout (listed in .gitignore), named by a hash of the source, the
-compiler and its flags, so an edit rebuilds.  ``-ffp-contract=off`` keeps
+At first use g++ builds the sources into one library in ``build/host/`` at
+the root of the checkout (listed in .gitignore), named by a hash of the
+sources, the compiler and its flags, so an edit rebuilds.  ``-ffp-contract=off`` keeps
 every product and sum rounding where NumPy rounds it, so the native film
 equals its plain version (film/film.py) bit for bit.  A build or load
 failure raises with the compiler's output: nothing falls back to NumPy
@@ -34,7 +37,7 @@ import numpy as np
 from ..core.records import TRACE_RECORD_DTYPE
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCE = "pt_host.cpp"
+SOURCES = ("pt_host.cpp", "pt_jpeg.cpp")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-fopenmp", "-fPIC", "-std=c++17", "-ffp-contract=off", "-shared")
 
@@ -48,7 +51,8 @@ def build_dir() -> Path:
 
 def _digest(cxx: str) -> str:
     h = hashlib.sha256(" ".join((cxx, *CXX_FLAGS)).encode())
-    h.update((CSRC / SOURCE).read_bytes())
+    for src in SOURCES:
+        h.update((CSRC / src).read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -61,7 +65,7 @@ def build(cxx: str | None = None, out_dir: Path | None = None) -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(CSRC / SOURCE)]
+    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), *(str(CSRC / src) for src in SOURCES)]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except OSError as e:
@@ -86,6 +90,9 @@ def _library() -> ctypes.CDLL:
     lib.pt_tonemap.argtypes = [f32p, u8p, i64, ctypes.c_float, ctypes.c_float]
     lib.pt_clear_and_sum_pathlengths.argtypes = [u8p, i64]
     lib.pt_load_balance.argtypes = [u8p, i64, i64]
+    lib.pt_jpeg_scan.argtypes = [u8p, i32, i32, i32p, ctypes.POINTER(ctypes.c_uint32), u8p,
+                                 u8p, i64]
+    lib.pt_jpeg_scan.restype = i64
     for fn in (lib.pt_accumulate, lib.pt_accumulate_soa, lib.pt_tonemap, lib.pt_load_balance):
         fn.restype = None
     lib.pt_clear_and_sum_pathlengths.restype = ctypes.c_uint64
@@ -188,4 +195,32 @@ def load_balance(records: np.ndarray, num_tiles: int) -> None:
 
 load_balance.calls = 0
 
-ENTRY_POINTS = (accumulate, accumulate_soa, tonemap, clear_and_sum_pathlengths, load_balance)
+def jpeg_scan(rgb: np.ndarray, qtables: np.ndarray, codes: np.ndarray,
+              sizes: np.ndarray) -> bytes:
+    """The entropy-coded 4:2:0 scan of (H, W, 3) uint8 ``rgb`` with the
+    (2, 64) quantisers and the (4, 256) Huffman codes and lengths of
+    ui/jpeg.py, byte for byte its ``encode_scan_plain``."""
+    lib = library()
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w = rgb.shape[:2]
+    qt = np.ascontiguousarray(qtables, np.int32)
+    codes = np.ascontiguousarray(codes, np.uint32)
+    sizes = np.ascontiguousarray(sizes, np.uint8)
+    if rgb.shape != (h, w, 3) or qt.shape != (2, 64) or codes.shape != (4, 256) \
+            or sizes.shape != (4, 256):
+        raise ValueError("jpeg_scan: bad operand shapes")
+    cap = (-(-h // 16) * 16) * (-(-w // 16) * 16) * 4 + 4096
+    out = np.empty(cap, np.uint8)
+    n = lib.pt_jpeg_scan(_p(rgb, ctypes.c_uint8), w, h, _p(qt, ctypes.c_int32),
+                         _p(codes, ctypes.c_uint32), _p(sizes, ctypes.c_uint8),
+                         _p(out, ctypes.c_uint8), cap)
+    if n < 0:
+        raise RuntimeError(f"jpeg_scan: the scan of a {w}x{h} frame outgrew {cap} bytes")
+    jpeg_scan.calls += 1
+    return out[:n].tobytes()
+
+
+jpeg_scan.calls = 0
+
+ENTRY_POINTS = (accumulate, accumulate_soa, tonemap, clear_and_sum_pathlengths, load_balance,
+                jpeg_scan)

@@ -59,6 +59,7 @@ QUICK_FILES = {
     "test_torch_quantprobe.py",
     "test_torch_reconstruct.py",
     "test_torch_runtime.py",
+    "test_torch_debugview.py",
 }
 
 # Files deliberately absent from the quick tier (each needs a reason —
@@ -135,6 +136,14 @@ QUICK_TESTS = {
     # the port's checkpoint/resume (minus its renders)
     ("test_torch_checkpoint.py", "test_fingerprint_mismatch_is_refused"),
     ("test_torch_checkpoint.py", "test_corrupt_checkpoint_is_refused"),
+    # the port's denoiser and previews (minus the CLI renders)
+    ("test_torch_denoise.py", "test_denoise_hdr_matches_reference"),
+    ("test_torch_denoise.py", "test_device_previews_match_reference"),
+    # the port's UI: wire, fMP4, JPEG coder, both packages talking
+    ("test_torch_ui.py", "test_packetcomms_byte_for_byte"),
+    ("test_torch_ui.py", "test_fmp4_boxes_byte_for_byte"),
+    ("test_torch_ui.py", "test_native_jpeg_byte_for_byte"),
+    ("test_torch_ui.py", "test_cross_package_client_and_server"),
     # checkpoint/resume
     ("test_checkpoint.py", "test_checkpoint_validation"),
     ("test_checkpoint.py", "test_resume_rejects_mismatched_config"),

@@ -151,8 +151,8 @@ def test_cli_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--partials-type", "float"], ["--rng-impl", "rbg"], ["--debug-view", "normal"],
-    ["--denoise"], ["--ipus", "2"], ["--mesh-shape", "2x1"], ["--ui-port", "5000"]])
+    ["--partials-type", "float"], ["--rng-impl", "rbg"], ["--cache-dir", "c"],
+    ["--compile-only"], ["--ipus", "2"], ["--mesh-shape", "2x1"], ["--no-use-pallas"]])
 def test_cli_unported_flags_name_their_roadmap_item(tmp_path, flag):
     argv = ["-o", str(tmp_path / "x.png"), "--assets", "constant:1,1,1",
             "--device", "cpu", "-w", "4", "-H", "4", "-s", "1", "--samples-per-step", "1"]
@@ -175,15 +175,17 @@ def test_cli_defaults_match_reference():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port pulls in neither JAX nor the
-    JAX package."""
+    """Importing every module of the port pulls in neither JAX, nor the
+    JAX package, nor PIL (the GPU host has none: the port's previews use
+    its own JPEG coder)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ipu_path_trace_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
-        "       or n == 'ipu_path_trace_tpu' or n.startswith('ipu_path_trace_tpu.')]\n"
+        "       or n == 'ipu_path_trace_tpu' or n.startswith('ipu_path_trace_tpu.')\n"
+        "       or n == 'PIL' or n.startswith('PIL.')]\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith(pkg.__name__)]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
