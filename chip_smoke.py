@@ -28,6 +28,19 @@ Phases, one line each:
                 no MMA at all, and no megastep_kernel (the old mma.sync K3) is
                 built; ptxas reports no spills for any K2, K3 or K4 kernel
                 (their lines printed);
+  4d. tf32    - the f32 chain (--partials-type float) on TF32 wgmma, 3xTF32
+                (probes/tf32_chain.py): K2 on a 1104x1000 sample's escapes
+                and 65,573 numpy-seeded ones, K4 on the 1104x1000 lattice,
+                a bake chunk and 65,573 points, K3 at 1104x1000 (8 samples)
+                and at a ragged 65,317 lanes with budgets 0/1/8, the
+                statistics and the env-skip, each against its plain f32
+                version (TF32 off) by the reference's f32 rule (max of
+                |out - ref| / (|ref| + 1e-2 max|ref|) < 1.5e-2; K3 also
+                < 5e-3 flipped lanes), its median and max printed beside the
+                bf16 kernel's against the same plain f32 chain, and smaller
+                in both; K3's env-skip on the 64-ray tile changes nothing on
+                either scene; the SASS phase (4c) holds every tf32
+                instantiation (K2, K4, K3's) to HGMMA on tf32 only;
   5. K3       - megastep kernel vs its plain version, host noise, 256x256,
                 4 samples, bf16 and int8 (bit for bit);
   5b. modes   - K1 in Owen-Sobol mode (12 and 4 + 4L dims, bit for bit) and
@@ -57,7 +70,8 @@ Phases, one line each:
                 resolve on; on the default scene off); and the int8 asset
                 with --device-film --adaptive --sampler sobol; and
                 --enable-load-balancing (the reference's shuffle and
-                per-step re-deal) fused.  Every
+                per-step re-deal) fused; --partials-type float fused,
+                unfused and --nif-mode baked (the tf32 K3, K2 and K4).  Every
                 kernel's launch counter is set to 0 just before each run and
                 read just after (a fused run's auto env-skip probe launches
                 K1 twice), and so is each call counter of the native host
@@ -82,6 +96,8 @@ Phases, one line each:
                 kernel events found there by name and the device's busy
                 share of the render window; after phase 7 the split's step
                 must be within 10% of K3's own time per sample;
+  6b'. f32 timing - --device-timing with --partials-type float: the split
+                and the stubs' launches on the f32 chain;
   6c. canonical - one CLI run at 1104x1000, 1200 spp in four steps of 300
                 saving every step, with --profile-dir and --metrics-file:
                 wall, loop, step, save and wait-for-host seconds and the
@@ -89,6 +105,13 @@ Phases, one line each:
                 then every CLI run of phases 6-6c must have taken the native
                 host runtime (its film, tone map and clear; the re-deal with
                 --enable-load-balancing only) and no plain version;
+  6e. flags   - --compile-only prints the built library and renders nothing;
+                --compile-only --save-exe writes the library and its manifest
+                (digest, nvcc flags, GPU), and a fresh process with
+                --load-exe renders the main fused run's EXR byte for byte;
+                the turntable (tools/turntable.py) at 1104x1000, 8 spp, 4
+                frames: 4 distinct JPEG samples, K3 launched once a frame,
+                its seconds per frame;
   6d. ui      - the interactive path: the CLI with --ui-port (a free port)
                 --denoise at 1104x1000, 8 spp a step, driven by the port's
                 client in this process, four times (host film and
@@ -166,7 +189,8 @@ Phases, one line each:
                 of the library holds HMMA, IMMA or QMMA); then the on-class
                 quality gate
                 (probes/quant_psnr.py: the 2048x4096 synthetic frame through
-                K4, bf16 and int8 PTQ) with K4's launches counted against the
+                K4, bf16, int8 PTQ and the asset in f32 on the tf32 chain)
+                with K4's launches counted against the
                 batches, and again with the plain versions on the card: each
                 PSNR within 0.05 dB of the plain version's.  Then K2 bf16 and
                 K3 bf16 per 1104x1000 sample (wgmma) must each beat the
@@ -282,7 +306,8 @@ ENCLOSED_SCENE = {"objects": [
 # the bound of a kernel is the larger of its bytes over the memory rate
 # and its operations over the peak of their type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp8": 1979e12, "tf32": 495e12,
+                  "f32": 67e12}
 # The NIF chain's multiply-adds per ray: 48x320 + 2 x 320x320 + 368x320
 # + 2 x 320x320 + 320x3 (the canonical 6x320 net, E = 12; the probes'
 # LAYERS are the same products).
@@ -481,28 +506,14 @@ def least_ms(nbytes: float, ops: dict[str, float]) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cublas_chain(model, feats: torch.Tensor) -> torch.Tensor:
-    """The NIF's seven products as bf16 cuBLAS matmuls with relu and the
-    skip concat between them: a yardstick for the chain kernels, never
-    called by the port."""
-    x = feats
-    last = model.num_layers - 1
-    for i, w in enumerate(model.kernels):
-        if x.shape[-1] != w.shape[0]:
-            x = torch.cat([x, feats], dim=-1)
-        x = x @ w
-        if i != last:
-            x = torch.relu(x)
-    return x
-
-
 def int_mm_chain(model, feats: torch.Tensor, epilogue: bool = True):
     """The int8 NIF's seven products as torch._int_mm (int8 -> int32) with
     K5's epilogue between them (models/quant.quant_layer_t: the f32
     multipliers, bias, ReLU and requant; the skip layer's two dots), over
-    (P, 4E) int8 feature codes: the int8 analog of cublas_chain, a
-    yardstick the port never calls.  Written with few eager passes and the
-    reference's f32 order (addcmul would fuse a product into the sum):
+    (P, 4E) int8 feature codes: the int8 analog of the cuBLAS chain
+    (probes/tf32_chain.library_chain), a yardstick the port never calls.
+    Written with few eager passes and the reference's f32 order (addcmul
+    would fuse a product into the sum):
     every width padded to 16 once (zero weights, multipliers and biases)
     so no product is sliced, y = acc·m (+ accf·m_skip) + b, then the
     requant in place - clamp(y·inv, 0, 255) (ReLU included, inv > 0)
@@ -613,13 +624,15 @@ MMA_OPS = ("HGMMA", "IGMMA", "QGMMA", "HMMA", "IMMA", "QMMA")
 
 
 def mma_counts(part: str) -> dict:
-    """The MMA instructions of one kernel's SASS: wgmma (HGMMA bf16,
-    IGMMA s8, QGMMA fp8) and mma.sync (HMMA, IMMA, QMMA).  ptxas may add a
-    dummy HGMMA on RZ with no descriptor, which computes nothing (it closes
-    a wgmma group): counted apart as HGMMA_RZ, not as HGMMA."""
+    """The MMA instructions of one kernel's SASS: wgmma (HGMMA bf16 and
+    tf32, IGMMA s8, QGMMA fp8) and mma.sync (HMMA, IMMA, QMMA).  ptxas may
+    add a dummy HGMMA on RZ with no descriptor, which computes nothing (it
+    closes a wgmma group): counted apart as HGMMA_RZ, not as HGMMA.  The
+    HGMMAs on tf32 operands are also counted as HGMMA_TF32."""
     counts = {op: part.count(f" {op}.") for op in MMA_OPS}
     counts["HGMMA_RZ"] = len(re.findall(r" HGMMA\.\S+ RZ, gdesc\[URZ\], RZ", part))
     counts["HGMMA"] -= counts["HGMMA_RZ"]
+    counts["HGMMA_TF32"] = len(re.findall(r" HGMMA\.\S+\.TF32 ", part))
     return counts
 
 
@@ -635,14 +648,15 @@ def sass_mma_counts(lib_path: Path) -> dict:
 
 
 # The wgmma kernels by their mangled template arguments: K2 and K4
-# (<kInt8>), K3 megastep_wg_kernel<kRng, kStub, kInt8>, K6's
+# (<kOp>: operand bytes 1 int8, 2 bf16, 4 tf32), K3
+# megastep_wg_kernel<kRng, kStub, kOp>, K6's
 # probe_wg_kernel<kAlu>, K7's probe_wg_loop_kernel<kPrng, kState>, K8's
 # quant_probe_wg_kernel<variant>; and the old mma.sync kernels - K3's
 # megastep_kernel, K6's probe_mxu_kernel and probe_both_kernel, K7's
 # probe_loop_kernel, K8's quant_probe_kernel - which must no longer be built.
-WG_KERNELS = {"K2": re.compile(r"16env_shade_kernelILb([01])E"),
-              "K4": re.compile(r"16nif_apply_kernelILb([01])E"),
-              "K3": re.compile(r"18megastep_wg_kernelILi(\d)ELi(\d)ELb([01])EE"),
+WG_KERNELS = {"K2": re.compile(r"16env_shade_kernelILi([124])E"),
+              "K4": re.compile(r"16nif_apply_kernelILi([124])E"),
+              "K3": re.compile(r"18megastep_wg_kernelILi(\d)ELi(\d)ELi([124])EE"),
               "K6": re.compile(r"15probe_wg_kernelILb([01])EE"),
               "K7": re.compile(r"20probe_wg_loop_kernelILb([01])ELb([01])EE"),
               "K8": re.compile(r"21quant_probe_wg_kernelILi(\d)EE")}
@@ -655,7 +669,8 @@ K8_NAMES = {0: "bf16", 1: "int8_requant", 2: "int8_perchan", 3: "int8_raw", 4: "
             5: "fp8_raw"}
 K6_NAMES = {0: "mxu", 1: "both"}
 K7_NAMES = {(0, 0): "loop", (1, 0): "loop+prng", (0, 1): "loop+state", (1, 1): "loop+both"}
-OWN_MMA = {"bf16": "HGMMA", "int8": "IGMMA"}  # each chain's wgmma
+OWN_MMA = {"bf16": "HGMMA", "int8": "IGMMA", "tf32": "HGMMA"}  # each chain's wgmma
+CHAIN_OF_OP = {"1": "int8", "2": "bf16", "4": "tf32"}  # K2, K3, K4's <kOp>
 
 
 def ptxas_lines(build_log: list[str], mangled: str) -> list[str]:
@@ -679,7 +694,7 @@ def wg_instantiations(functions, build_log: list[str]) -> dict:
             if not m:
                 continue
             if kernel == "K3":
-                chain = "int8" if m[3] == "1" else "bf16"
+                chain = CHAIN_OF_OP[m[3]]
                 key = f"K3 {chain} {RNG_NAMES[int(m[1])]} {STUB_NAMES[int(m[2])]}"
                 mma = int(m[2]) in (0, 2)
             elif kernel == "K8":  # fp8 runs the bf16 tile
@@ -691,7 +706,7 @@ def wg_instantiations(functions, build_log: list[str]) -> dict:
             elif kernel == "K7":
                 chain, key, mma = "bf16", f"K7 {K7_NAMES[int(m[1]), int(m[2])]}", True
             else:
-                chain = "int8" if m[1] == "1" else "bf16"
+                chain = CHAIN_OF_OP[m[1]]
                 key, mma = f"{kernel} {chain}", True
             lines = ptxas_lines(build_log, name)
             out[key] = {"mangled": name, "chain": chain, "mma": mma, **mma_counts(part),
@@ -703,11 +718,15 @@ def wg_instantiations(functions, build_log: list[str]) -> dict:
 
 def holds_its_chain(v: dict) -> bool:
     """A wgmma kernel's SASS: its chain's wgmma and no other MMA where it
-    runs the chain (bf16 HGMMA, int8 IGMMA), no MMA at all where it does
-    not (the 'nif' and 'both' stubs)."""
+    runs the chain (bf16 HGMMA on bf16, tf32 HGMMA on tf32 and nothing
+    else, int8 IGMMA), no MMA at all where it does not (the 'nif' and
+    'both' stubs)."""
     own = OWN_MMA[v["chain"]]
     others = [op for op in MMA_OPS if op != own]
-    return all(v[op] == 0 for op in others) and (v[own] > 0 if v["mma"] else v[own] == 0)
+    tf32_ok = (v["HGMMA_TF32"] == v["HGMMA"] if v["chain"] == "tf32"
+               else v["HGMMA_TF32"] == 0)
+    return (all(v[op] == 0 for op in others) and tf32_ok
+            and (v[own] > 0 if v["mma"] else v[own] == 0))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1118,6 +1137,7 @@ def main() -> None:
 
     scene = default_scene(dev)
     model, meta, weights = load_nif_assets(str(ROOT / ASSET), torch.bfloat16, dev)
+    model32 = load_nif_assets(str(ROOT / ASSET), torch.float32, dev)[0]  # the tf32 chain
     mixed, mixed_meta, mixed_weights = load_nif_assets(str(ROOT / MIXED_ASSET), torch.bfloat16,
                                                        dev)
     q8 = parse_env_assets(str(ROOT / INT8_ASSET), dev, "int8")[0].model  # the QAT grids
@@ -1222,10 +1242,11 @@ def main() -> None:
                 f"K3 {label8}ragged {n} env-skip enclosed budgets 0/1/8+stats", on, ref, int8))
 
     def stub_checks(tag, cols, rows, kw, settings, seed):
-        """Phase 5c: K3's stubs in both chains and both hardware RNG modes."""
+        """Phase 5c: K3's stubs in the three chains and both hardware RNG
+        modes."""
         sob = sobol_ctx(cols, rows, kw["width"])
-        for m in (model, q8):
-            label8 = "int8 " if is_int8(m) else ""
+        for m in (model, q8, model32):
+            label8 = "int8 " if is_int8(m) else "tf32 " if m.dtype == torch.float32 else ""
             for rng, extra in (("philox", {}), ("sobol", dict(sobol=sob, sobol_dims=SOBOL_DIMS))):
                 for stub in megastep.STUBS:
                     got = megastep.render_megastep(scene, settings, m, cols, rows, seed, stub=stub,
@@ -1316,16 +1337,16 @@ def main() -> None:
         if "wgmma" in ln.lower():
             print(f"[ptxas] {ln.strip()}", flush=True)
     for kernel in ("K2", "K4"):
-        for chain in ("bf16", "int8"):
+        for chain in ("bf16", "int8", "tf32"):
             v = wg_sass.get(f"{kernel} {chain}")
             phase(f"SASS {kernel} {chain}", functions is not None and v is not None
                   and holds_its_chain(v), cuobjdump=functions is not None,
-                  **{op: (v or {}).get(op) for op in MMA_OPS + ("HGMMA_RZ",)})
+                  **{op: (v or {}).get(op) for op in MMA_OPS + ("HGMMA_RZ", "HGMMA_TF32")})
     built = [f"{r} production" for r in RNG_NAMES.values()] + [
         f"{r} {st}" for r in ("philox", "sobol") for st in list(STUB_NAMES.values())[1:]]
-    for chain in ("bf16", "int8"):
+    for chain in ("bf16", "int8", "tf32"):
         k3 = {k: v for k, v in wg_sass.items() if k.startswith(f"K3 {chain} ")}
-        own = "IGMMA" if chain == "int8" else "HGMMA"
+        own = OWN_MMA[chain]
         phase(f"SASS megastep {chain}", functions is not None
               and sorted(k3) == sorted(f"K3 {chain} {b}" for b in built)
               and all(holds_its_chain(v) for v in k3.values())
@@ -1334,9 +1355,25 @@ def main() -> None:
               **{k[4 + len(chain):].replace(" ", "_"): f"{v[own]}/{v['HMMA'] + v['IMMA']}"
                  for k, v in k3.items()})
     spills = {k: v["spill_bytes"] for k, v in wg_sass.items() if k[:2] in ("K2", "K3", "K4")}
-    phase("ptxas K2 K3 K4 no spills", len(spills) == 4 + 2 * len(built)
+    phase("ptxas K2 K3 K4 no spills", len(spills) == 6 + 3 * len(built)
           and all(v["ptxas"] for v in wg_sass.values()) and not any(spills.values()),
           spill_bytes=spills)
+
+    # 4d. the f32 chain on TF32 wgmma: K2, K3, K4 under --partials-type float
+    from ipu_path_trace_tpu_torch.probes import tf32_chain
+
+    t4d = time.monotonic()
+    tf32_res = tf32_chain.run(dev)
+    for c in tf32_res["checks"]:
+        phase(c["name"], c["ok"], **{k: f"{v:.3e}" if isinstance(v, float) else v
+                                     for k, v in c.items() if k not in ("name", "ok")})
+    for key, tag in (("env_shade_tf32", "K2 "), ("megastep_tf32", "K3 "),
+                     ("nif_apply_tf32", "K4 ")):
+        err[key] = max(c["max_abs_err"] for c in tf32_res["checks"]
+                       if c["name"].startswith(tag) and "max_abs_err" in c)
+    print(f"[timing] phase 4d (the tf32 chain): {time.monotonic() - t4d:.1f} s; "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in tf32_res["times_ms"].items())
+          + f" ({smi})", flush=True)
 
     # 5. K3 ------------------------------------------------------------------
     s3 = 4
@@ -1371,6 +1408,7 @@ def main() -> None:
     int8_flags = ["--nif-precision", "int8"]
     adaptive = ["--device-film", "--adaptive", "--adaptive-min", str(ADAPTIVE_MIN)]
     sobol_flags = ["--sampler", "sobol"]
+    f32_flags = ["--partials-type", "float"]
     # A fused NIF run resolves the default --env-skip auto with a probe of
     # two K1 launches; the unfused and baked runs have no skip to resolve.
     probe = 2
@@ -1399,6 +1437,12 @@ def main() -> None:
          True, fused_want, "off"),
         # The reference's shuffle and per-step re-deal (host task), fused.
         ("load balancing", ASSET, ["--enable-load-balancing"], True, fused_want, "off"),
+        # --partials-type float: the f32 chain on tf32 wgmma in K3, K2 and K4
+        # (the auto env-skip probe measures at its 64-ray tile).
+        ("f32 fused", ASSET, f32_flags, True, fused_want, "off"),
+        ("f32 unfused", ASSET, f32_flags, False, [MAIN_SPP, MAIN_SPP, 0, 0], None),
+        ("f32 baked", ASSET, f32_flags + ["--nif-mode", "baked"], True,
+         [MAIN_SPP, 0, 0, bake_chunks], None),
     ]
     lum, launches, frames, wall, step_s, save_s, wait_s = {}, {}, {}, {}, {}, {}, {}
     routes = {}  # each CLI run's native and plain host-runtime calls
@@ -1447,7 +1491,7 @@ def main() -> None:
         return abs(lum[a][0] - lum[b][0]), 5.0 * math.hypot(lum[a][1], lum[b][1])
 
     for a, b in (("main fused", "main unfused"), ("main int8 fused", "main int8 unfused"),
-                 ("sobol fused", "sobol unfused")):
+                 ("sobol fused", "sobol unfused"), ("f32 fused", "f32 unfused")):
         g, bound = gap(a, b)
         phase(f"{a} vs unfused", g <= bound, luminance_gap=f"{g:.3e}", bound_5se=f"{bound:.3e}")
     g, bound = gap("load balancing", "main fused")
@@ -1462,7 +1506,8 @@ def main() -> None:
     for a, b in (("main int8 fused", "main fused"), ("main baked", "main fused"),
                  ("main baked int8", "main int8 fused"), ("device film adaptive", "main fused"),
                  ("sobol fused", "main fused"),
-                 ("int8 device film adaptive sobol", "main int8 fused")):
+                 ("int8 device film adaptive sobol", "main int8 fused"),
+                 ("f32 fused", "main fused"), ("f32 baked", "f32 fused")):
         g, bound = gap(a, b)
         print(f"[gap] {a} vs {b}: mean luminance {lum[a][0]:.6f} vs {lum[b][0]:.6f}, "
               f"gap {g:.3e} ({g / lum[b][0]:.2%}), 5 SE {bound:.3e} (information only)",
@@ -1578,6 +1623,37 @@ def main() -> None:
         print("[profile] the trace holds no device kernel events (CUPTI gave none): the busy "
               "share is not measured", flush=True)
 
+    # 6b'. --device-timing with --partials-type float: the stubs on the
+    # f32 chain's tile (the 'nif' stub keeps the weights' type, as the
+    # reference's _stub_nif_layer).
+    app_log.lines.clear()
+    for f in counters:
+        f.launches = 0
+    megastep.render_megastep.stub_launches = dict.fromkeys(megastep.STUBS, 0)
+    for f in plains:
+        f.cuda_runs = 0
+    zero_host_calls()
+    rc = cli.main(["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(MAIN_SPP),
+                   "--samples-per-step", str(MAIN_SPS), "--assets", str(ROOT / ASSET),
+                   "-o", str(out_dir / "device_timing_f32.png"), "--device-timing", *f32_flags])
+    torch.cuda.synchronize()
+    routes["f32 device timing"] = host_calls()
+    got = [f.launches for f in counters]
+    stub_got = dict(megastep.render_megastep.stub_launches)
+    plain_cuda = [f.cuda_runs for f in plains]
+    launches["f32 device timing"] = {
+        **dict(zip(("trace", "env_shade", "megastep", "nif_apply"), got)),
+        **{f"megastep_stub_{k}": v for k, v in stub_got.items()}}
+    split32 = (app_log.phase_splits() or [{}])[-1]
+    parts = [split32.get(k, 0.0) for k in ("env_ms", "trace_ms", "overhead_ms")]
+    phase("f32 device timing", rc == 0 and got == [probe, 0, steps + timed, 0]
+          and stub_got == {"nif": timed, "trace": 0, "both": timed} and not any(plain_cuda)
+          and all(x > 0 for x in parts)
+          and abs(sum(parts) - split32.get("step_ms", 0.0)) <= 2e-3,
+          launches_trace_shade_megastep_apply=got, stub_launches=stub_got,
+          plain_runs_on_cuda=plain_cuda, **{k: f"{v:.4f}" for k, v in split32.items()
+                                             if k.endswith("_ms")})
+
     # 6c. the canonical 300-spp step: 1200 spp in 4 steps, saving each -----
     prof_dir, metrics_file = out_dir / "profile_300", out_dir / "metrics_300.jsonl"
     shutil.rmtree(prof_dir, ignore_errors=True)
@@ -1631,6 +1707,57 @@ def main() -> None:
             bad[name] = calls
     phase("native host route in every CLI run", not bad, runs=len(routes), wrong=bad,
           load_balancing=routes["load balancing"])
+
+    # 6e. --compile-only, the --save-exe / --load-exe round trip, the turntable
+    import contextlib
+    import io
+
+    main_argv = ["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(MAIN_SPP),
+                 "--samples-per-step", str(MAIN_SPS), "--assets", str(ROOT / ASSET)]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main([*main_argv, "-o", str(out_dir / "never.png"), "--compile-only"])
+    phase("--compile-only", rc == 0 and printed.getvalue().strip() == str(lib_path)
+          and not (out_dir / "never.png").exists(), rc=rc, printed=printed.getvalue().strip())
+    exe = out_dir / "exe" / "tracer"
+    shutil.rmtree(exe.parent, ignore_errors=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_save = cli.main([*main_argv, "-o", str(out_dir / "never.png"), "--compile-only",
+                            "--save-exe", str(exe)])
+    manifest = json.loads(exe.with_suffix(".json").read_text()) if rc_save == 0 else {}
+    # A fresh process loads the saved library (this one has the build loaded).
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-m", "ipu_path_trace_tpu_torch.runtime.cli",
+                          *main_argv, "-o", str(out_dir / "load_exe.png"), "--load-exe",
+                          str(exe)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    load_s = time.monotonic() - t0
+    same = res.returncode == 0 and (out_dir / "load_exe.exr").read_bytes() == (
+        out_dir / "main_fused.exr").read_bytes()
+    phase("--save-exe / --load-exe round trip", rc_save == 0 and same
+          and manifest.get("digest") == lib_path.stem.rsplit("_", 1)[1]
+          and manifest.get("gpu") == torch.cuda.get_device_name(0)
+          and exe.with_suffix(".so").read_bytes() == lib_path.read_bytes(),
+          rc=(rc_save, res.returncode), exr_equals_main_fused=same, manifest=manifest,
+          seconds=f"{load_s:.1f}", stderr_tail=res.stderr.strip().splitlines()[-1:])
+    from ipu_path_trace_tpu_torch.tools import turntable
+    from ipu_path_trace_tpu_torch.ui.video import iter_mp4_samples
+
+    for f in counters:
+        f.launches = 0
+    for f in plains:
+        f.cuda_runs = 0
+    tt_frames = 4
+    tt = turntable.render_turntable(MAIN_W, MAIN_H, MAIN_SPS, tt_frames, 8, str(ROOT / ASSET),
+                                    outfile=str(out_dir / "turntable.mp4"), codec="mjpeg")
+    samples = list(iter_mp4_samples((out_dir / "turntable.mp4").read_bytes()))
+    got = [f.launches for f in counters]
+    print(f"[timing] turntable {MAIN_W}x{MAIN_H}, {MAIN_SPS} spp, {tt_frames} frames: "
+          f"{tt['seconds_per_frame']:.3f} s per frame ({smi})", flush=True)
+    phase("turntable", len(samples) == tt_frames and all(x[:2] == b"\xff\xd8" for x in samples)
+          and len(set(samples)) == tt_frames and got == [0, 0, tt_frames, 0]
+          and not any(f.cuda_runs for f in plains), frames=len(samples),
+          launches_trace_shade_megastep_apply=got,
+          seconds_per_frame=f"{tt['seconds_per_frame']:.3f}")
 
     # 6d. the interactive path: --ui-port --denoise with the port's client --
     from ipu_path_trace_tpu_torch.ui.video import make_encoder
@@ -1915,7 +2042,8 @@ def main() -> None:
     for tag, npts in (("full frame", cols.shape[0]), ("bake chunk", bake_u.shape[0]),
                       ("gate batch", gate_batch)):
         feats = torch.rand((npts, 4 * model.embedding_dim), device=dev).to(torch.bfloat16)
-        times[f"cublas_chain_{tag}"] = (cuda_ms(lambda: cublas_chain(model, feats), 10), None)
+        times[f"cublas_chain_{tag}"] = (
+            cuda_ms(lambda: tf32_chain.library_chain(model, feats), 10), None)
         print(f"[timing] cuBLAS bf16 chain (7 products, relu, concat) at {npts} rays: "
               f"{times[f'cublas_chain_{tag}'][0]:.3f} ms ({smi}; a yardstick, not the port)",
               flush=True)
@@ -2015,7 +2143,7 @@ def main() -> None:
     # products as the cuBLAS bf16 chain over the lanes' features, plus the
     # eager ALU rounds where the kernel has them ('both', the loops).
     def library_chain(m, v):
-        return cublas_chain(m, v.to(torch.bfloat16)[:, None].expand(-1, 4 * m.embedding_dim))[:, 0]
+        return tf32_chain.library_chain(m, v.to(torch.bfloat16)[:, None].expand(-1, 4 * m.embedding_dim))[:, 0]
 
     k6_rounds = overlap.per_layer(overlap.K6_ROUNDS) * len(overlap.LAYERS)
     library_ms["overlap_mxu"] = cuda_ms(lambda: library_chain(pmodel, pu), 10)
@@ -2119,7 +2247,8 @@ def main() -> None:
     gate_s = time.monotonic() - t0
     gate_launches = nif.nif_apply_t.launches
     frame = 2048 * 4096
-    batches = reconstruct.batch_split(frame, 1 << 19)[0] + -(-frame // (1 << 19))
+    # bf16 and f32 through reconstruct_image's batches, int8 in fixed chunks.
+    batches = 2 * reconstruct.batch_split(frame, 1 << 19)[0] + -(-frame // (1 << 19))
     kernel_apply = nif.nif_apply_t
     reconstruct.nif_apply_t = quant_psnr.nif_apply_t = nif.nif_apply_t_plain
     try:
@@ -2131,7 +2260,7 @@ def main() -> None:
           and nif.nif_apply_t_plain.cuda_runs == batches,
           k4_launches=gate_launches, batches=batches,
           plain_runs_on_cuda=nif.nif_apply_t_plain.cuda_runs, seconds=f"{gate_s:.1f}")
-    for key in ("bf16_psnr_db", "int8_psnr_db"):
+    for key in ("bf16_psnr_db", "int8_psnr_db", "f32_psnr_db"):
         gap_db = abs(quality[key] - quality_plain[key])
         phase(f"quality gate {key}", gap_db <= PSNR_GAP_DB and math.isfinite(quality[key]),
               k4=f"{quality[key]:.4f}", plain=f"{quality_plain[key]:.4f}", gap_db=f"{gap_db:.2e}")
@@ -2195,9 +2324,26 @@ def main() -> None:
           int_mm_products_ms=f"{int_mm_products['megastep_int8']:.4f}",
           int_mm_chain_ms=f"{library_ms['megastep_int8']:.4f}")
 
+    # The tf32 chain against the cuBLAS f32 chain of the same products,
+    # TF32 off (the f32 function: library_ms) and on (the tensor cores'
+    # tf32 route), and against its bf16 twin, per phase 4d's units.
+    t32 = tf32_res["times_ms"]
+    for name, unit, tag in (("env_shade", "1104x1000 sample", "frame"),
+                            ("megastep", "1104x1000 sample", "frame"),
+                            ("nif_apply", f"bake chunk ({tf32_res['bake_chunk']} points)",
+                             "bake_chunk")):
+        times[f"{name}_tf32"] = (t32[f"{name}_tf32"], t32[f"{name}_tf32_plain"])
+        library_ms[f"{name}_tf32"] = t32[f"cublas_f32_tf32_off_{tag}"]
+        print(f"[wgmma] {name} tf32 (3xTF32) {t32[f'{name}_tf32']:.4f} ms, its bf16 twin "
+              f"{t32[f'{name}_bf16']:.4f} ms ({t32[f'{name}_tf32'] / t32[f'{name}_bf16']:.2f}x), "
+              f"cuBLAS f32 chain TF32 off {t32[f'cublas_f32_tf32_off_{tag}']:.4f} ms, TF32 on "
+              f"{t32[f'cublas_f32_tf32_on_{tag}']:.4f} ms per {unit} ({smi})", flush=True)
+
     # The least time of each row's unit of work (bound), on this run's data.
     n = cols.shape[0]
     bf16_w = sum(w.numel() * 2 for w in model.kernels)
+    f32_w = sum(w.numel() * 4 for w in model32.kernels)
+    chain32 = 2 * NIF_MACS * tf32_res["escapes_per_sample"]  # phase 4d's data
     int8_w = sum(w.numel() for w in q8.kernels)
     trace_ops = (n * TRACE_RAY_OPS + bounces / MAIN_SPS
                  * (scene.num_spheres * SPHERE_OPS + scene.num_discs * DISC_OPS + SHADE_OPS))
@@ -2225,6 +2371,12 @@ def main() -> None:
                            {"bf16": 2 * NIF_MACS * bake_u.shape[0]}),
         "nif_apply_int8": least_ms(bake_u.shape[0] * 20 + int8_w,
                                 {"int8": 2 * NIF_MACS * bake_u.shape[0]}),
+        # The f32 chain's products at the tf32 peak (one pass; the kernel
+        # runs 3xTF32, two or three passes).
+        "env_shade_tf32": least_ms(n * 36 + f32_w, {"tf32": 2 * NIF_MACS * n}),
+        "megastep_tf32": least_ms(k3_bytes + f32_w, {"tf32": chain32, "f32": trace_ops}),
+        "nif_apply_tf32": least_ms(tf32_res["bake_chunk"] * 20 + f32_w,
+                                   {"tf32": 2 * NIF_MACS * tf32_res["bake_chunk"]}),
         "megastep_sobol": least_ms(k3_bytes + n + bf16_w, {"bf16": chain, "f32": trace_ops}),
         "megastep_budgets_stats": least_ms(k3_bytes + n / 2 + bf16_w,
                                         {"bf16": chain, "f32": trace_ops}),
@@ -2272,6 +2424,11 @@ def main() -> None:
         ("megastep_int8", "csrc/megastep.cuh", k5, launches["main int8 fused"]["megastep"]),
         ("nif_apply", "csrc/nif_wgmma.cuh", k4, launches["main baked"]["nif_apply"]),
         ("nif_apply_int8", "csrc/nif_wgmma.cuh", k5, launches["main baked int8"]["nif_apply"]),
+        # The f32 chain (--partials-type float) on tf32 wgmma, each with the
+        # launches of the CLI run that drove it.
+        ("env_shade_tf32", "csrc/nif_wgmma.cuh", k2, launches["f32 unfused"]["env_shade"]),
+        ("megastep_tf32", "csrc/megastep.cuh", k3, launches["f32 fused"]["megastep"]),
+        ("nif_apply_tf32", "csrc/nif_wgmma.cuh", k4, launches["f32 baked"]["nif_apply"]),
         # The modes of this slice, each with the launches of the CLI run
         # that drove it.
         ("trace_sobol", "csrc/trace.cu", k1, launches["sobol unfused"]["trace"]),
@@ -2318,6 +2475,7 @@ def main() -> None:
          "times_ms": times, "bounds_ms": bounds, "max_abs_err": err,
          "cublas_chain_ms": {k: v[0] for k, v in times.items() if k.startswith("cublas")},
          "quant_probe": k8_res, "quant_probe_sass_mma": k8_sass, "quality_gate": quality,
+         "tf32_chain": tf32_res, "turntable": tt, "exe_manifest": manifest,
          "wgmma_sass_ptxas": wg_sass,
          "quality_gate_plain": quality_plain, "quality_gate_s": gate_s,
          "host_syncs": syncs, "ui_codec": codec, "ui_runs": ui_runs, "ui_parts": ui_parts,

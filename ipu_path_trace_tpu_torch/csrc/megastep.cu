@@ -1,8 +1,9 @@
-// K3, the production kernels: every RNG mode, both chains, no stub
+// K3, the production kernels: every RNG mode, the three chains, no stub
 // (megastep.cuh holds the kernel and says what it does).
 #include "megastep.cuh"
 
-// wg: the model's chain (bf16 or int8, its int8 flag) under K3's plan.
+// wg: the model's chain (bf16, int8 or tf32, its int8 and tf32 flags) under
+// K3's plan.
 // noise != nullptr selects host noise ((samples, 4 + 4L, n) rows);
 // otherwise pid != nullptr selects Sobol mode (per-lane pixel ids and
 // sequence bases, prm->sobol_dims / sobol_key, Philox tail), else hardware

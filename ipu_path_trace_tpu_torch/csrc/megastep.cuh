@@ -9,12 +9,15 @@
 // nor the escape records nor the activations ever reach device memory: the
 // step reads the pixel coordinates (and host noise, in that mode) and writes
 // 4 words per ray (5 with the statistics).  One kernel, megastep_wg_kernel,
-// on the wgmma chains of nif_wgmma.cuh - bf16, or int8 (K5, the s8 slices;
-// the TPU kernel's quant branch) as its kInt8 parameter says.  A block of
-// kWgThreads = 384 threads: the 256 threads of the two consumer warpgroups
-// each trace one ray, then the sample's 256 escapes are shaded as two
-// 128-ray wgmma tiles (rays 0-127, then 128-255; in each, either warpgroup
-// holds 64 rows), and the producer warpgroup only streams weight slices.
+// on the wgmma chains of nif_wgmma.cuh - bf16, int8 (K5, the s8 slices;
+// the TPU kernel's quant branch) or f32 on TF32 wgmma (the TPU kernel with
+// f32 weights) as its kOp parameter (operand bytes 2, 1, 4) says.  A block
+// of kWgThreads = 384 threads: the 256 threads of the two consumer
+// warpgroups each trace one ray, then the sample's 256 escapes are shaded
+// as two 128-ray wgmma tiles (rays 0-127, then 128-255; in each, either
+// warpgroup holds 64 rows) or, for the tf32 chain, four 64-ray tiles (both
+// warpgroups on each, splitting its layers' outputs), and the producer
+// warpgroup only streams weight slices.
 // Each tracing thread keeps its ray's escape weights and direct radiance in
 // registers; only the (u, v) of the escapes and the head's decoded outputs
 // go through shared memory.  After the role split the producer has
@@ -38,10 +41,10 @@
 //    the TPU kernel's multiplicative gate does;
 //  * lum2 != nullptr (with_stats): the sum over samples of the squared
 //    Rec.709 luminance of each sample's radiance (direct + env);
-//  * env_skip: a 128-ray wgmma tile whose escape weights are all zero skips
-//    the chain (ops/megastep.py::ENV_SKIP_TILE); its contribution would be
-//    exact zeros, so the result does not change (the TPU kernel's
-//    _env_contrib guard, at tile granularity).  A tile with no live ray
+//  * env_skip: a wgmma tile (128 rays; 64 for tf32) whose escape weights
+//    are all zero skips the chain (ops/megastep.py::env_skip_tile); its
+//    contribution would be exact zeros, so the result does not change (the
+//    TPU kernel's _env_contrib guard, at tile granularity).  A tile with no live ray
 //    (the ragged tail) is skipped in any case.
 //
 // What bounds it: the NIF chain, as on the TPU (nif_wgmma.cuh says what
@@ -63,7 +66,10 @@
 //   are as many as fit (at most 4); 2 stages leave room for 46,000 B of
 //   tables; a scene with more raises in the plan;
 //   int8: activations 40,960 B, features 8,192 B, the skip layer's codes
-//   32,768 B, ring 4 x 20,480 B, the tail as bf16: 170,368 B.
+//   32,768 B, ring 4 x 20,480 B, the tail as bf16: 170,368 B;
+//   tf32 (64-ray tile): activations 10 atoms of 32 K values x 8,192 B =
+//   81,920 B, features 2 x 8,192 B, ring 3 x 40,960 B (320 rows x 32
+//   inputs x 4 B), the tail as bf16: 227,712 B, as bf16.
 //
 // The measurement stubs of --device-timing (utils/devtime.py) are a
 // template parameter, so the production kernels (kStubNone, built by
@@ -80,7 +86,7 @@ namespace pt {
 
 enum StubMode { kStubNone = 0, kStubNif = 1, kStubTrace = 2, kStubBoth = 3 };
 
-constexpr int kRaysPerBlock = 2 * kWgRays;  // two wgmma tiles
+constexpr int kRaysPerBlock = 2 * kWgRays;  // two 128-ray wgmma tiles, or four of 64
 
 // Rec.709 luma weights (megastep_pallas.py LUM_R/G/B) for the statistics.
 constexpr float kLumR = 0.2126f, kLumG = 0.7152f, kLumB = 0.0722f;
@@ -135,19 +141,20 @@ struct SobolNoiseK3 : SobolNoise {
   }
 };
 
-static_assert(kWgConsumers == kRaysPerBlock,
-              "a block's tracing threads are its two consumer warpgroups, its rays two tiles");
+static_assert(kWgConsumers == kRaysPerBlock && kRaysPerBlock % kWgTileRays<4> == 0,
+              "a block's tracing threads are its two consumer warpgroups, its rays whole tiles");
 
-template <int kRng, int kStub, bool kInt8>
+template <int kRng, int kStub, int kOp>
 __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
     TraceParams prm, NifWg net, const float* __restrict__ sph_g, const float* __restrict__ dsc_g,
     const float* __restrict__ cols, const float* __restrict__ rows,
     const float* __restrict__ noise, const int* __restrict__ pid, const int* __restrict__ base,
     const int* __restrict__ budgets, int budget_block, int samples, int n, int env_skip,
     float* __restrict__ rad_out, int* __restrict__ plen_out, float* __restrict__ lum2_out) {
-  using Chain = NifChain<kInt8>;
+  using Chain = NifChain<kOp>;
   constexpr bool kStubChain = (kStub & kStubNif) != 0;
-  constexpr int kTileUnroll = kStub == kStubNone ? 1 : 2;
+  constexpr int kTile = kWgTileRays<kOp>, kTiles = kRaysPerBlock / kTile;
+  constexpr int kTileUnroll = kStub == kStubNone || kWgSplit<kOp> ? 1 : 2;
   const WgBlock b = wg_block(net);
   float* const s_u = (float*)(b.smem + net.smem_uv);
   float* const s_v = s_u + kRaysPerBlock;
@@ -167,7 +174,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
     return;
   // From here on only the 256 consumer threads run: consumers_sync, never
   // __syncthreads.
-  WgConsumer c = wg_consumer<kInt8>(net, b);
+  WgConsumer c = wg_consumer<kOp>(net, b);
   const float* sph = s_tables;
   const float* dsc = s_tables + prm.num_s * kSphereF;
   const MegaWgIo io{s_out, kRaysPerBlock};
@@ -175,7 +182,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
   const int tid = threadIdx.x;
   const int p = blockIdx.x * kRaysPerBlock + tid;
   const bool live = p < n;  // the ragged tail still joins every barrier
-  const bool tile1_live = n - blockIdx.x * kRaysPerBlock > kWgRays;
+  const int block_rays = n - blockIdx.x * kRaysPerBlock;  // past kRaysPerBlock: all live
   const float col = live ? cols[p] : 0.0f, row = live ? rows[p] : 0.0f;
   int pixel = 0;
   uint32_t seq0 = 0u;
@@ -212,27 +219,33 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
     }
     acc_len += r.path_len;
     equirect_uv(r.esc_dir.x, r.esc_dir.y, r.esc_dir.z, prm.azimuth, &s_u[tid], &s_v[tid]);
-    // Which of the two tiles to shade (block-uniform): tile t holds the rays
-    // of warpgroup t.  The barriers also publish the (u, v).
-    bool shade0 = true, shade1 = tile1_live;
+    // Which tiles to shade (bit t, block-uniform): tile t holds the rays of
+    // threads kTile t.. kTile (t + 1) - 1 (a warpgroup's on the 128-ray
+    // tile).  A tile with no live ray is skipped.  The barriers also
+    // publish the (u, v).
+    uint32_t shade = 0u;
     if (env_skip) {
       const bool escapes = r.esc_w.x != 0.0f || r.esc_w.y != 0.0f || r.esc_w.z != 0.0f;
-      shade0 = consumers_or(c.wg == 0 && escapes);
-      shade1 = consumers_or(c.wg == 1 && escapes) && shade1;
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t)
+        shade |= (uint32_t)(consumers_or(tid / kTile == t && escapes) && block_rays > kTile * t)
+                 << t;
     } else {
       consumers_sync();
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t) shade |= (uint32_t)(block_rays > kTile * t) << t;
     }
-    if (!kStubChain && tid == 0 && (shade0 || shade1)) *ctl = kCtlGo;
+    if (!kStubChain && tid == 0 && shade) *ctl = kCtlGo;
     // The loop is unrolled in the stubs and not in the production kernels:
     // so ptxas allocates every instantiation without spills at 240
     // registers (chip_smoke.py's ptxas phase), which neither choice alone did.
 #pragma unroll kTileUnroll
-    for (int tile = 0; tile < 2; ++tile) {
-      if (!(tile ? shade1 : shade0)) continue;
-      // The group's last reads of its features and activations (the
-      // previous tile's) are done before the encode overwrites them.
-      group_sync(c.wg);
-      const int r0 = kWgRays * tile + 64 * c.wg;
+    for (int tile = 0; tile < kTiles; ++tile) {
+      if (!((shade >> tile) & 1u)) continue;
+      // The last reads of the features and activations (the previous
+      // tile's) are done before the encode overwrites them.
+      wg_sync<kOp>(c.wg);
+      const int r0 = kTile * tile + wg_row0<kOp>(c.wg);
       if constexpr (kStubChain)
         wg_tile_stub<Chain>(net, c, s_u + r0, s_v + r0, r0, io);
       else
@@ -240,7 +253,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
     }
     consumers_sync();  // the head's outputs are visible; s_u, s_v are free again
     V3 tr = r.radiance;
-    if (c.wg ? shade1 : shade0)  // direct + (bgr -> rgb flip times the escape weights)
+    if ((shade >> (tid / kTile)) & 1u)  // direct + (bgr -> rgb flip times the escape weights)
       tr = tr + V3{r.esc_w.x * s_out[2 * kRaysPerBlock + tid],
                    r.esc_w.y * s_out[kRaysPerBlock + tid], r.esc_w.z * s_out[tid]};
     acc = acc + tr;
@@ -273,8 +286,8 @@ struct MegaArgs {
 };
 
 // Validates the plan (the chain's, and room for the scene's tables), then
-// launches the model's chain (net.int8) in RNG mode kRng: one block of
-// kWgThreads threads per kRaysPerBlock rays.
+// launches the model's chain (net.int8, net.tf32) in RNG mode kRng: one
+// block of kWgThreads threads per kRaysPerBlock rays.
 template <int kRng, int kStub>
 int launch_megastep(const TraceParams& prm, const NifWg& net, const MegaArgs& a,
                     cudaStream_t stream) {
@@ -286,7 +299,9 @@ int launch_megastep(const TraceParams& prm, const NifWg& net, const MegaArgs& a,
   void (*const kernel)(TraceParams, NifWg, const float*, const float*, const float*,
                        const float*, const float*, const int*, const int*, const int*, int, int,
                        int, int, float*, int*, float*) =
-      net.int8 ? megastep_wg_kernel<kRng, kStub, true> : megastep_wg_kernel<kRng, kStub, false>;
+      net.int8   ? megastep_wg_kernel<kRng, kStub, 1>
+      : net.tf32 ? megastep_wg_kernel<kRng, kStub, 4>
+                 : megastep_wg_kernel<kRng, kStub, 2>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, net.smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -3,7 +3,7 @@
 // the step into env, trace and overhead: stub 1 ('nif') replaces the NIF
 // chain's products by ones, 2 ('trace') the bounce by a path-length
 // count, 3 ('both') both.  Built for the RNG modes a render times
-// (Philox and Sobol) and both chains (megastep_wg_kernel, whose 'nif' stub
+// (Philox and Sobol) and the three chains (megastep_wg_kernel, whose 'nif' stub
 // runs its blocks and tiles with no weight copies and no MMAs); host noise
 // is not instantiated.  What the stubbed work keeps live is said at
 // wg_tile_stub (nif_wgmma.cuh) and trace_ray (common.cuh).

@@ -1,17 +1,43 @@
 // The NIF chains on Hopper's warpgroup MMA, for K2 and K4 (nif.cu), K3
 // (megastep.cuh) and the probes K6 and K7 (probes.cu) and K8 (quant_probe.cu):
-// encode -> layers -> decode for tiles of kWgRays rays, the weights
-// streamed through shared memory by bulk copies.  The chains share the
-// tile, the ring and the slice sequence; a chain policy (ChainBf16,
-// ChainInt8, K8's ChainK8 and ChainK8Wide) gives the operand width and MMA
-// (kInt8: 1-byte operands, the s8 tile, s8 wgmma; else bf16) and the
-// epilogue (kNarrow: K8's on the bf16 tile):
+// encode -> layers -> decode for tiles of rays, the weights streamed
+// through shared memory by bulk copies.  The chains share the ring and the
+// slice sequence; a chain policy (ChainBf16, ChainInt8, ChainTf32, K8's
+// ChainK8 and ChainK8Wide) gives the operand width kOp (1: the s8 tile and
+// s8 wgmma; 2: bf16; 4: f32 on tf32 wgmma), which sets the tile (128 rays,
+// 64 for tf32), and the epilogue (kInt8's; kNarrow: K8's on the bf16 tile):
 //  * bf16 (ChainBf16): what models/nif.nif_apply computes - encode_bf16's
 //    direct sincosf angles, bf16 weights and activations with f32
 //    accumulation, f32 bias, ReLU and a round to bf16 between layers, the
 //    skip layer's concat(trunk, feats) as the tail of its K dimension, the
 //    f32 decode y * max + mean (exp when log-tone-mapped) - in another order
 //    of f32 sums;
+//  * tf32 (ChainTf32; the reference's chain at --partials-type float,
+//    models/nif.nif_apply on f32 weights): f32 features and activations,
+//    f32 weights, f32 sums, bias and ReLU with no rounding to bf16 between
+//    layers, the skip concat and the decode as bf16's, on TF32 wgmma
+//    (m64nNk8, 495 TFLOP/s dense), the card's only tensor-core route for
+//    f32 operands, in 3xTF32: each operand x is split into hi = tf32(x)
+//    and lo = tf32(x - hi) (cvt.rna), and each product is hi.hi + lo.hi +
+//    hi.lo.  One pass (hi.hi) misses the reference's f32 budget on the
+//    canonical asset (max 4.0e-2 of 1.5e-2 by a CPU emulation; PERF.md):
+//    the log decode exponentiates the features' and activations' rounding.
+//    A is read from the f32 activations and features by generic loads and
+//    split in registers (wgmma with A in registers: wg_tf32_dots); the
+//    weights' hi images are the layer's slices and their lo images (none
+//    where every weight is a tf32 value, as for the f16-trained assets)
+//    follow each hi slice in the stream.  A 4-byte operand fills a
+//    128-byte row with 32 K values, so a layer has twice the slices of
+//    bf16.  At 128 rays the f32 activations (163,840 B for 320 outputs)
+//    and features (32,768 B) and two ring stages (81,920 B) would need
+//    278,528 B, past kWgSmemLimit; so the tile is 64 rays, the activations
+//    81,920 B and the features 16,384 B, room for three stages of 40,960 B
+//    (320 rows x 32 inputs).  Both consumer warpgroups work on the same 64
+//    rows (wgmma's M): the first takes ceil(NC / 2) of a layer's NC output
+//    chunks (at most 3, 96 accumulators a thread), the second the rest,
+//    and a barrier over both (consumers_sync) stands between the layer's
+//    products and its in-place stores; both run the head's few MMAs, the
+//    first stores;
 //  * int8 (ChainInt8, K5: replaces ops/nif_pallas.py::_quant_mlp_core; the
 //    arithmetic is models/quant.quant_layer_t): Fourier features as codes
 //    clip(rint(f * 127), +-127), s8 x s8 -> s32 wgmma, then in f32 and in
@@ -51,26 +77,29 @@
 // only route to Hopper's full tensor-core rate) reads both operands there.
 //
 // Roles (kWgThreads = 384): two consumer warpgroups, each owning 64 rays of
-// the tile (wgmma's M), and a producer warpgroup one thread of which walks
-// the same slice sequence (layer by layer, tile after tile: in K2 and K4
-// the block is persistent over tiles blockIdx.x + i * gridDim.x) and keeps
-// the ring's `stages` slices filled: full[s] completes on the bulk copy's bytes,
+// the tile (wgmma's M; tf32: both on the tile's 64), and a producer
+// warpgroup one thread of which walks the same slice sequence (layer by
+// layer, tile after tile: in K2 and K4 the block is persistent over tiles
+// blockIdx.x + i * gridDim.x) and keeps the ring's `stages` slices
+// filled: full[s] completes on the bulk copy's bytes,
 // empty[s] on one arrival per consumer warp once its MMAs on the slice have
 // completed.  A consumer issues a slice's MMAs while the previous slice's
 // are still in flight (wgmma.wait_group 1), so it holds two stages.
-// Per K step (16 bf16 or 32 8-bit values: 32 bytes) a hidden layer of NC
-// 64-wide output chunks is one wgmma of N = 64 min(NC, 4) plus, for a
-// fifth chunk, one of N = 64; the head is one of N = 8 (outputs padded to 8).
+// Per K step (16 bf16, 8 tf32 or 32 8-bit values: 32 bytes) a hidden layer
+// of NC 64-wide output chunks is one wgmma of N = 64 min(NC, 4) plus, for
+// a fifth chunk, one of N = 64 (tf32: each group's share, N = 64 NC_group);
+// the head is one of N = 8 (outputs padded to 8).
 //
 // Layouts: every wgmma operand is K-major; a row holds 64 K values - 128
 // bytes of bf16 under the 128-byte swizzle, 64 bytes of s8 under the
-// 64-byte swizzle - and an "atom" is that row for a set of rows.  16-byte
-// chunk c of row r sits at chunk c ^ (r % 8) (128-byte) or c ^ ((r / 2) %
-// 4) (64-byte) of the row (wg_offset), 8-row groups 8 rows apart (the
+// 64-byte swizzle - or 32 f32 values in 128 bytes (tf32), and an "atom" is
+// that row for a set of rows.  16-byte chunk c of row r sits at chunk c ^
+// (r % 8) (128-byte) or c ^ ((r / 2) % 4) (64-byte) of the row
+// (wg_offset), 8-row groups 8 rows apart (the
 // descriptor's stride offset: 1024 or 512 bytes), and the K steps inside
 // an atom advance the descriptor by 32 bytes.
 //   * weights: a slice is one layer's rows (outputs, padded to 64 for a
-//     hidden layer, to 8 for the head) x 64 inputs, packed on the host into
+//     hidden layer, to 8 for the head) x a row's K values (64; tf32 32), packed on the host into
 //     exactly this image (ops/nif.py::wgmma_operands), so one copy of
 //     rows * row bytes fills a stage.  Input columns past the layer's
 //     fan-in are zero;
@@ -82,7 +111,7 @@
 //   * features: their own atoms, written by the encode, the columns from
 //     4E up zeroed once per block.  Layer 0 reads them as its input, the
 //     skip layer as the slices after its trunk slices.
-// Each layer's K is its fan-in rounded up to 64: the padded weight columns
+// Each layer's K is its fan-in rounded up to a row (64; tf32 32): the padded weight columns
 // are zero, so whatever the activations hold there adds nothing (the bf16
 // epilogue writes zeros for the padded outputs, which have zero weights,
 // bias and multipliers; the int8 one writes the code of 0, -128).
@@ -147,8 +176,8 @@
 
 namespace pt {
 
-constexpr int kWgRays = 128;  // rays per tile (block)
-constexpr int kWgGroups = 2;  // consumer warpgroups, 64 rays each
+constexpr int kWgRays = 128;  // rays per tile (block) of the 2- and 1-byte chains
+constexpr int kWgGroups = 2;  // consumer warpgroups
 constexpr int kWgThreads = 128 * (kWgGroups + 1);  // + the producer warpgroup
 constexpr int kWgProducerRegs = 24;  // setmaxnreg of the producer warpgroup
 constexpr int kWgConsumerRegs = 240;  // and of the consumers
@@ -157,17 +186,33 @@ constexpr int kWgMaxChunks = 5;  // 64-wide output chunks of a hidden layer: 320
 constexpr int kWgPassRows = 128;  // outputs per pass of the 8-bit skip layer
 constexpr int kWgSmemLimit = 232448;  // dynamic shared memory a block may use (227 KB)
 constexpr long long kWgHangClocks = 1ll << 34;
-// Bytes of a row of 64 K values (bf16: 128, s8: 64), of an atom of the
-// tile's rows, and of a warpgroup's 64 rows of an atom (its A).
-template <bool kInt8>
-constexpr int kWgRowBytes = kInt8 ? 64 : 128;
-template <bool kInt8>
-constexpr int kWgAtomBytes = kWgRays * kWgRowBytes<kInt8>;
-template <bool kInt8>
-constexpr int kWgGroupBytes = 64 * kWgRowBytes<kInt8>;
-// K steps of one slice (32 bytes each): 4 of 16 bf16 values, 2 of 32 s8.
-template <bool kInt8>
-constexpr int kWgKSteps = kInt8 ? 2 : 4;
+// A chain's operands are kOp-byte values: 1 the s8 codes (ChainInt8), 2
+// bf16 (ChainBf16, K8's ChainK8Wide), 4 f32 read as tf32 (ChainTf32).  By
+// the chain policy's kOp: the bytes of a K-major row (64 under the 64-byte
+// swizzle for s8, else 128 under the 128-byte one) and its K values (64,
+// 64, 32); whether the two consumer warpgroups split each layer's output
+// chunks over one 64-ray tile (the 4-byte chain) instead of owning 64 rows
+// each of a 128-ray tile; the tile's rays; the bytes of an atom (a row for
+// each of the tile's rays); the K steps of one slice (32 bytes each: 4 of
+// 16 bf16 or 8 tf32 values, 2 of 32 s8).
+template <int kOp>
+constexpr int kWgRowBytes = kOp == 1 ? 64 : 128;
+template <int kOp>
+constexpr int kWgRowK = kWgRowBytes<kOp> / kOp;
+template <int kOp>
+constexpr bool kWgSplit = kOp == 4;
+template <int kOp>
+constexpr int kWgTileRays = kWgSplit<kOp> ? 64 : kWgRays;
+template <int kOp>
+constexpr int kWgAtomBytes = kWgTileRays<kOp> * kWgRowBytes<kOp>;
+template <int kOp>
+constexpr int kWgKSteps = kWgRowBytes<kOp> / 32;
+
+// The first of warpgroup wg's rows in the tile (wgmma's A; its rays).
+template <int kOp>
+PT_HD int wg_row0(int wg) {
+  return kWgSplit<kOp> ? 0 : 64 * wg;
+}
 
 // Mirrored by ops/_lib.py::NifWg (ctypes); keep the field order.  Filled
 // by ops/nif.py::wg_struct from wgmma_plan and wgmma_operands (and by
@@ -192,6 +237,11 @@ struct NifWg {
   float inv_next[kNifMaxLayers];  // requant step of each hidden layer's outputs
   const float* mult[kNifMaxLayers];  // accumulator multipliers, padded with zeros to the rows
   const float* mult_skip;  // the skip layer's feature-dot multipliers, likewise
+  // The f32 chain (tf32 = 1: 4-byte slices, the 64-ray tile, 3xTF32): per
+  // layer the lo images of its slices, nullptr where the weights are tf32
+  // values (w holds their hi images).
+  int tf32;
+  const void* w_lo[kNifMaxLayers];
 };
 
 // ---- PTX: mbarriers, bulk copies, proxies and named barriers ----------
@@ -278,10 +328,10 @@ PT_HD bool consumers_or(bool q) {
 
 // K-major, swizzled to the row's width: start address, leading offset 16 B
 // (unused with a swizzle), 8 rows between 8-row groups; layout 1 is the
-// 128-byte swizzle (bf16), 2 the 64-byte one (s8).
-template <bool kInt8>
+// 128-byte swizzle (bf16, tf32), 2 the 64-byte one (s8).
+template <int kOp>
 PT_HD uint64_t wg_desc(uint32_t saddr) {
-  constexpr uint64_t sbo = (8 * kWgRowBytes<kInt8>) >> 4, layout = kInt8 ? 2 : 1;
+  constexpr uint64_t sbo = (8 * kWgRowBytes<kOp>) >> 4, layout = kOp == 1 ? 2 : 1;
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | (sbo << 32) | (layout << 62);
 }
 
@@ -302,6 +352,12 @@ PT_HD void wg_fence_regs(float (&r)[N]) {
 
 template <int N>
 PT_HD void wg_fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
+PT_HD void wg_fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -464,6 +520,106 @@ PT_HD void wgmma<256>(float (&d)[128], uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d[64 x N] += A[64 x 8] * B[8 x N] in tf32 -> f32, A from registers
+// (this thread's four values: wg_tf32_a), B from shared memory (K-major,
+// the 128-byte swizzle; tf32 takes no transpose immediates), the
+// accumulators laid out as the bf16 ones.  The tf32 chain's widths: a
+// warpgroup's share of a hidden layer (1-3 chunks of 64) and the head.
+template <int N>
+PT_HD void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+
+template <>
+PT_HD void wgmma_tf32<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+PT_HD void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+PT_HD void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+PT_HD void wgmma_tf32<192>(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d[64 x N] += A[64 x 32] * B[32 x N] in s8 x s8 -> s32, both from shared
 // memory, registers laid out as wgmma's f32 ones.  Integer wgmma takes no
 // scale or transpose immediates: both operands are K-major, as here.
@@ -605,32 +761,59 @@ PT_HD void wgmma_s8<256>(int (&d)[128], uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
-// The MMA of chain policy Ch on N outputs: s8 (s32 accumulators) or bf16 (f32).
+// The MMA of chain policy Ch on N outputs, both operands in shared memory:
+// s8 (s32 accumulators) or bf16 (f32).  (The tf32 chain reads A from
+// registers: wg_tf32_dots.)
 template <class Ch, int N>
 PT_HD void wg_mma(typename Ch::Acc (&d)[N / 2], uint64_t da, uint64_t db) {
-  if constexpr (Ch::kInt8)
+  if constexpr (Ch::kOp == 1)
     wgmma_s8<N>(d, da, db);
   else
     wgmma<N>(d, da, db);
 }
 
 // Byte offset of (row, k) in a K-major swizzled operand whose atoms hold
-// kWgRays rows (activations and features): bf16 128-byte rows, chunk c at
-// c ^ (row % 8); s8 64-byte rows, chunk c at c ^ ((row / 2) % 4).
-template <bool kInt8>
+// the tile's rows (activations and features): bf16 and tf32 128-byte rows
+// (64 or 32 K values), chunk c at c ^ (row % 8); s8 64-byte rows, chunk c
+// at c ^ ((row / 2) % 4).
+template <int kOp>
 PT_HD int wg_offset(int row, int k) {
-  if constexpr (kInt8)
-    return (k >> 6) * kWgAtomBytes<true> + row * 64 + ((((k >> 4) & 3) ^ ((row >> 1) & 3)) << 4) +
+  if constexpr (kOp == 1)
+    return (k >> 6) * kWgAtomBytes<1> + row * 64 + ((((k >> 4) & 3) ^ ((row >> 1) & 3)) << 4) +
            (k & 15);
+  else if constexpr (kOp == 4)
+    return (k >> 5) * kWgAtomBytes<4> + row * 128 + ((((k >> 2) & 7) ^ (row & 7)) << 4) +
+           ((k & 3) << 2);
   else
-    return (k >> 6) * kWgAtomBytes<false> + row * 128 + ((((k >> 3) & 7) ^ (row & 7)) << 4) +
+    return (k >> 6) * kWgAtomBytes<2> + row * 128 + ((((k >> 3) & 7) ^ (row & 7)) << 4) +
            ((k & 7) << 1);
+}
+
+// f32 -> tf32 rounded to nearest, ties away from zero (the low 13 bits
+// zero): the tf32 chain's split of each operand x into hi = tf32(x) and
+// lo = tf32(x - hi) (wg_tf32_a; ops/nif.py::tf32_split splits the weights
+// the same way on the host), so the hardware never drops an operand's bits.
+PT_HD float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// The barrier between the phases of a tile: over the warpgroup's 128
+// threads, or over both consumer warpgroups where they share the tile's rows.
+template <int kOp>
+PT_HD void wg_sync(int wg) {
+  if constexpr (kWgSplit<kOp>)
+    consumers_sync();
+  else
+    group_sync(wg);
 }
 
 // ---- the chain policies ------------------------------------------------
 
 // bf16: y = acc + b; hidden layers ReLU and round to bf16; the head decodes.
 struct ChainBf16 {
+  static constexpr int kOp = 2;
   static constexpr bool kInt8 = false;
   static constexpr bool kNarrow = false;  // (2-byte chains) K8's epilogue in place of ReLU
   static constexpr int kHeadOutputs = 3;
@@ -646,6 +829,7 @@ struct ChainBf16 {
 // (+ accf * ms) + b, each product and sum rounded on its own; m, ms and b
 // are the output's multiplier, skip multiplier and bias.
 struct ChainInt8 {
+  static constexpr int kOp = 1;
   static constexpr bool kInt8 = true;
   static constexpr int kHeadOutputs = 3;
   using Acc = int;
@@ -679,8 +863,19 @@ PT_HD float2 wg_pair(const float* v, int o) {
   return __ldg(reinterpret_cast<const float2*>(v + o));
 }
 
-template <bool kInt8>
-using NifChain = typename std::conditional<kInt8, ChainInt8, ChainBf16>::type;
+// f32 (the reference's --partials-type float): the bf16 chain's arithmetic
+// with f32 operands read as tf32 - f32 features, weights and activations
+// (each rounded to tf32 as it is written to shared memory), f32 sums, bias
+// and ReLU with no rounding to bf16 between layers, the f32 decode - on
+// the 64-ray tile whose rows both consumer warpgroups share.
+struct ChainTf32 : ChainBf16 {
+  static constexpr int kOp = 4;
+};
+
+// The chain of a model's operand width (NifWg: int8 1, tf32 4, else 2).
+template <int kOp>
+using NifChain = typename std::conditional<
+    kOp == 1, ChainInt8, typename std::conditional<kOp == 4, ChainTf32, ChainBf16>::type>::type;
 
 // The layer hook of the chains that run none (K2, K3, K4, K8).
 struct WgNoHook {
@@ -708,15 +903,15 @@ struct WgConsumer {
 // Waits for the ring's next slice, the s-th of layer l (slices 0..
 // in_atoms-1 read this warpgroup's activation rows, the rest its feature
 // rows), and gives the A and B descriptors of its first K step.
-template <bool kInt8>
+template <int kOp>
 PT_HD void wg_slice_begin(const NifWg& net, int l, int s, const WgPipe& p, uint32_t a_act,
                           uint32_t a_feat, uint64_t& da, uint64_t& db) {
   mbar_wait(p.full + 8 * p.stage, p.phase);
   __syncwarp();  // wgmma is .aligned: the warp issues it converged
   const int ia = net.in_atoms[l];
-  constexpr int atom = kWgAtomBytes<kInt8>;
-  da = wg_desc<kInt8>(s < ia ? a_act + s * atom : a_feat + (s - ia) * atom);
-  db = wg_desc<kInt8>(p.ring + p.stage * net.stage_bytes);
+  constexpr int atom = kWgAtomBytes<kOp>;
+  da = wg_desc<kOp>(s < ia ? a_act + s * atom : a_feat + (s - ia) * atom);
+  db = wg_desc<kOp>(p.ring + p.stage * net.stage_bytes);
 }
 
 // Moves to the next stage of the ring.
@@ -752,13 +947,13 @@ PT_HD void wg_store_codes(unsigned char* act, int wg, int lane, int o, uint32_t 
   const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
-    *reinterpret_cast<uint16_t*>(act + wg_offset<true>(64 * wg + 16 * warp + g + 8 * h, o)) =
+    *reinterpret_cast<uint16_t*>(act + wg_offset<1>(64 * wg + 16 * warp + g + 8 * h, o)) =
         (uint16_t)(w >> (16 * h));
 }
 
 // A hidden layer's epilogue for outputs o0.. o0 + N - 1 of this warp's
 // rows, written into the activations (in place).  Accumulator register
-// 4i + 2h + e is (row 16 * warp + g + 8h, output o0 + 8i + 2tg + e).
+// 4i + 2h + e is (row wg_row0 + 16 * warp + g + 8h, output o0 + 8i + 2tg + e).
 // The per-layer pointers are read once, outside the unrolled loop: read
 // per output, they held registers enough to spill K3's accumulators.
 template <class Ch, int N>
@@ -786,7 +981,15 @@ PT_HD void wg_store(const typename Ch::Acc (&acc)[N / 2], const NifWg& net, int 
         const int row = 64 * wg + 16 * warp + g + 8 * h;
         const uint32_t lo = Ch::act(Ch::dense(acc[4 * i + 2 * h], m.x, bias.x), inv);
         const uint32_t hi = Ch::act(Ch::dense(acc[4 * i + 2 * h + 1], m.y, bias.y), inv);
-        *reinterpret_cast<uint32_t*>(act + wg_offset<false>(row, o)) = lo | (hi << 16);
+        *reinterpret_cast<uint32_t*>(act + wg_offset<2>(row, o)) = lo | (hi << 16);
+      }
+    } else if constexpr (Ch::kOp == 4) {  // relu(acc + bias) in f32, unrounded
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * warp + g + 8 * h;
+        *reinterpret_cast<float2*>(act + wg_offset<4>(row, o)) =
+            make_float2(fmaxf(acc[4 * i + 2 * h] + bias.x, 0.0f),
+                        fmaxf(acc[4 * i + 2 * h + 1] + bias.y, 0.0f));
       }
     } else {  // relu(acc + bias) as bf16
 #pragma unroll
@@ -794,7 +997,7 @@ PT_HD void wg_store(const typename Ch::Acc (&acc)[N / 2], const NifWg& net, int 
         const int row = 64 * wg + 16 * warp + g + 8 * h;
         const uint32_t lo = f32_to_bf16(fmaxf(acc[4 * i + 2 * h] + bias.x, 0.0f));
         const uint32_t hi = f32_to_bf16(fmaxf(acc[4 * i + 2 * h + 1] + bias.y, 0.0f));
-        *reinterpret_cast<uint32_t*>(act + wg_offset<false>(row, o)) = lo | (hi << 16);
+        *reinterpret_cast<uint32_t*>(act + wg_offset<2>(row, o)) = lo | (hi << 16);
       }
     }
   }
@@ -811,7 +1014,7 @@ PT_HD void wg_store(const typename Ch::Acc (&acc)[N / 2], const NifWg& net, int 
 // extend the one dot.)
 template <class Ch, int NC, class Hook>
 PT_HD void wg_hidden(const NifWg& net, int l, WgConsumer& c, const Hook& hook) {
-  constexpr bool k8 = Ch::kInt8;
+  constexpr int kOp = Ch::kOp;
   WgPipe& p = c.pipe;
   unsigned char* const act = c.smem;
   const uint32_t a_act = c.a_act, a_feat = c.a_feat;
@@ -824,15 +1027,15 @@ PT_HD void wg_hidden(const NifWg& net, int l, WgConsumer& c, const Hook& hook) {
   int held = -1;  // the stage whose MMAs may still be in flight
   for (int s = 0; s < slices; ++s) {
     uint64_t da, db;
-    wg_slice_begin<k8>(net, l, s, p, a_act, a_feat, da, db);
+    wg_slice_begin<kOp>(net, l, s, p, a_act, a_feat, da, db);
     wg_fence_regs(acc0);
     wg_fence_regs(acc1);
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < kWgKSteps<k8>; ++ks) {
+    for (int ks = 0; ks < kWgKSteps<kOp>; ++ks) {
       wg_mma<Ch, N0>(acc0, da + 2 * ks, db + 2 * ks);
       if constexpr (N1 > 0)
-        wg_mma<Ch, N1>(acc1, da + 2 * ks, db + 2 * ks + N0 * kWgRowBytes<k8> / 16);
+        wg_mma<Ch, N1>(acc1, da + 2 * ks, db + 2 * ks + N0 * kWgRowBytes<kOp> / 16);
     }
     wg_commit();
     wg_wait<1>();
@@ -854,6 +1057,92 @@ PT_HD void wg_hidden(const NifWg& net, int l, WgConsumer& c, const Hook& hook) {
   group_sync(wg);
 }
 
+// The tf32 chain's A operand for K step ks of one atom of the f32
+// activations or features (64 rows x 32 K values): this thread's four
+// values, as wgmma's m64nNk8 tf32 fragment holds them (value i at row
+// 16 * warp + g + 8 (i % 2), K 8 ks + tg + 4 (i / 2)), each split into hi
+// = tf32(a) and lo = tf32(a - hi).
+PT_HD void wg_tf32_a(const unsigned char* atom, int ks, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float a = *reinterpret_cast<const float*>(
+        atom + wg_offset<4>(16 * warp + g + 8 * (i & 1), 8 * ks + tg + 4 * (i >> 1)));
+    const float h = tf32_round(a);
+    hi[i] = __float_as_uint(h);
+    lo[i] = __float_as_uint(tf32_round(a - h));
+  }
+}
+
+// Layer l's products for N outputs from weight row r0 into acc, in 3xTF32:
+// per K-slice the hi slice's products with A's hi and lo parts, then, where
+// the layer's weights have a lo part (net.w_lo[l]; none for weights that are
+// tf32 values, as the f16-trained assets' are), the lo slice's with A's hi
+// part - hi.hi + lo.hi + hi.lo, f32 sums.  A is read from the f32
+// activations (slices 0.. in_atoms - 1) and features by generic loads and
+// held in registers until the slice's MMAs complete (wait_group 0).  N = 0
+// (a group with no chunk of the layer) takes each slice and returns it.
+template <int N, int NA>
+PT_HD void wg_tf32_dots(const NifWg& net, int l, WgConsumer& c, int r0, float (&acc)[NA]) {
+  static_assert(N == 0 || NA == N / 2, "one accumulator pair per thread and 8 outputs");
+  WgPipe& p = c.pipe;
+  const int ia = net.in_atoms[l], slices = ia + net.f_atoms[l];
+  const int halves = net.w_lo[l] ? 2 : 1;
+  const uint64_t b0 = (uint64_t)(r0 * kWgRowBytes<4> / 16);
+  for (int s = 0; s < slices; ++s) {
+    const unsigned char* const atom =
+        c.smem + (s < ia ? s * kWgAtomBytes<4> : net.smem_feat + (s - ia) * kWgAtomBytes<4>);
+    uint32_t hi[kWgKSteps<4>][4], lo[kWgKSteps<4>][4];
+    for (int half = 0; half < halves; ++half) {
+      uint64_t da, db;
+      wg_slice_begin<4>(net, l, s, p, c.a_act, c.a_feat, da, db);
+      if constexpr (N > 0) {
+        if (half == 0) {
+#pragma unroll
+          for (int ks = 0; ks < kWgKSteps<4>; ++ks) wg_tf32_a(atom, ks, hi[ks], lo[ks]);
+        }
+        wg_fence_regs(acc);
+        wg_fence();
+        if (half == 0) {  // the hi slice: A's hi and lo parts
+#pragma unroll
+          for (int ks = 0; ks < kWgKSteps<4>; ++ks) {
+            wgmma_tf32<N>(acc, hi[ks], db + b0 + 2 * ks);
+            wgmma_tf32<N>(acc, lo[ks], db + b0 + 2 * ks);
+          }
+        } else {  // the lo slice: A's hi part
+#pragma unroll
+          for (int ks = 0; ks < kWgKSteps<4>; ++ks) wgmma_tf32<N>(acc, hi[ks], db + b0 + 2 * ks);
+        }
+        wg_commit();
+        wg_wait<0>();
+        wg_fence_regs(acc);
+#pragma unroll
+        for (int ks = 0; ks < kWgKSteps<4>; ++ks) {
+          wg_fence_regs(hi[ks]);
+          wg_fence_regs(lo[ks]);
+        }
+      }
+      wg_release(p.empty, p.stage, c.lane);
+      wg_advance(net, p);
+    }
+  }
+}
+
+// A hidden layer of the tf32 chain: this group's NW chunks from chunk c0
+// (the groups split the layer's chunks over the tile's 64 rows), then,
+// once both groups' products are done, the epilogue in place.
+template <class Ch, int NW, class Hook>
+PT_HD void wg_hidden_tf32(const NifWg& net, int l, WgConsumer& c, const Hook& hook, int c0) {
+  constexpr int N = 64 * NW;
+  float acc[N ? N / 2 : 2];
+  wg_zero(acc);
+  wg_tf32_dots<N>(net, l, c, 64 * c0, acc);
+  hook(l);
+  consumers_sync();  // both groups have read the layer's input rows
+  if constexpr (NW > 0) wg_store<Ch, N>(acc, net, l, 64 * c0, c.smem, c.wg, c.lane);
+  consumers_sync();
+}
+
 // One pass of the 8-bit skip layer over NH outputs: the trunk slices'
 // products into acc, the feature slices' into accf (the ring holds the
 // pass's half-slices); hook(l) while the last slice's MMAs are in flight.
@@ -869,12 +1158,12 @@ PT_HD void wg_skip_dots(const NifWg& net, int l, WgPipe& p, uint32_t a_act, uint
   // ptxas adds a dummy HGMMA to balance the paths' MMA groups.
   auto dots = [&](int s, typename Ch::Acc (&d)[NH / 2]) {
     uint64_t da, db;
-    wg_slice_begin<true>(net, l, s, p, a_act, a_feat, da, db);
+    wg_slice_begin<1>(net, l, s, p, a_act, a_feat, da, db);
     wg_fence_regs(acc);
     wg_fence_regs(accf);
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < kWgKSteps<true>; ++ks) wg_mma<Ch, NH>(d, da + 2 * ks, db + 2 * ks);
+    for (int ks = 0; ks < kWgKSteps<1>; ++ks) wg_mma<Ch, NH>(d, da + 2 * ks, db + 2 * ks);
     wg_commit();
     wg_wait<1>();
     wg_fence_regs(acc);
@@ -958,12 +1247,12 @@ PT_HD void wg_skip_wide(const NifWg& net, int l, WgConsumer& c, const Hook& hook
   int held = -1;
   for (int s = 0; s < net.in_atoms[l]; ++s) {
     uint64_t da, db;
-    wg_slice_begin<false>(net, l, s, p, c.a_act, c.a_feat, da, db);
+    wg_slice_begin<2>(net, l, s, p, c.a_act, c.a_feat, da, db);
     wg_fence_regs(acc0);
     wg_fence_regs(acc1);
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < kWgKSteps<false>; ++ks) {
+    for (int ks = 0; ks < kWgKSteps<2>; ++ks) {
       wgmma<N0>(acc0, da + 2 * ks, db + 2 * ks);
       if constexpr (N1 > 0) wgmma<N1>(acc1, da + 2 * ks, db + 2 * ks + N0 * 128 / 16);
     }
@@ -982,7 +1271,7 @@ PT_HD void wg_skip_wide(const NifWg& net, int l, WgConsumer& c, const Hook& hook
   wg_release(p.empty, held, c.lane);
   group_sync(c.wg);  // the trunk is read: the chunks' outputs may overwrite it
   uint64_t da, db;
-  wg_slice_begin<false>(net, l, net.in_atoms[l], p, c.a_act, c.a_feat, da, db);
+  wg_slice_begin<2>(net, l, net.in_atoms[l], p, c.a_act, c.a_feat, da, db);
   const float* const bl = net.b[l];
   const float* const ml = net.mult[l];
   const float* const msl = net.mult_skip;
@@ -995,7 +1284,7 @@ PT_HD void wg_skip_wide(const NifWg& net, int l, WgConsumer& c, const Hook& hook
     wg_fence_regs(accf);
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < kWgKSteps<false>; ++ks)
+    for (int ks = 0; ks < kWgKSteps<2>; ++ks)
       wgmma<32>(accf, da + 2 * ks, db + 2 * ks + q * 32 * 128 / 16);
     wg_commit();
     wg_wait<0>();
@@ -1011,7 +1300,7 @@ PT_HD void wg_skip_wide(const NifWg& net, int l, WgConsumer& c, const Hook& hook
         const uint32_t hi =
             Ch::act(Ch::skip(t[base + r + 1], accf[r + 1], m.y, ms.y, bias.y), inv);
         *reinterpret_cast<uint32_t*>(
-            c.smem + wg_offset<false>(64 * c.wg + 16 * warp + g + 8 * h, o)) = lo | (hi << 16);
+            c.smem + wg_offset<2>(64 * c.wg + 16 * warp + g + 8 * h, o)) = lo | (hi << 16);
       }
     }
   };
@@ -1028,32 +1317,40 @@ PT_HD void wg_skip_wide(const NifWg& net, int l, WgConsumer& c, const Hook& hook
 }
 
 // The head (last layer, outputs padded to 8) and its epilogue, stored
-// through io for the tile's rays below io.n; hook(l) while the last slice's
-// MMAs are in flight.  Accumulator register 2h + e is (row 16 * warp + g +
-// 8h, output 2tg + e).
+// through io for the group's rays ray0.. below io.n; hook(l) while the last
+// slice's MMAs are in flight.  Accumulator register 2h + e is (row 16 *
+// warp + g + 8h, output 2tg + e).  Where the groups share the tile's rows
+// both run the head's few MMAs and the first group stores.
 template <class Ch, class Io, class Hook>
-PT_HD void wg_head(const NifWg& net, int l, WgPipe& p, uint32_t a_act, uint32_t a_feat, int ray0,
-                   int lane, const Io& io, const Hook& hook) {
-  constexpr bool k8 = Ch::kInt8;
+PT_HD void wg_head(const NifWg& net, int l, WgConsumer& c, int ray0, const Io& io,
+                   const Hook& hook) {
+  constexpr int kOp = Ch::kOp;
+  WgPipe& p = c.pipe;
+  const int lane = c.lane;
   typename Ch::Acc acc[4];
   wg_zero(acc);
-  const int slices = net.in_atoms[l] + net.f_atoms[l];
-  for (int s = 0; s < slices; ++s) {
-    uint64_t da, db;
-    wg_slice_begin<k8>(net, l, s, p, a_act, a_feat, da, db);
-    wg_fence_regs(acc);
-    wg_fence();
+  if constexpr (kOp == 4) {
+    wg_tf32_dots<8>(net, l, c, 0, acc);
+    hook(l);
+  } else {
+    const int slices = net.in_atoms[l] + net.f_atoms[l];
+    for (int s = 0; s < slices; ++s) {
+      uint64_t da, db;
+      wg_slice_begin<kOp>(net, l, s, p, c.a_act, c.a_feat, da, db);
+      wg_fence_regs(acc);
+      wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < kWgKSteps<k8>; ++ks) wg_mma<Ch, 8>(acc, da + 2 * ks, db + 2 * ks);
-    wg_commit();
-    if (s == slices - 1) hook(l);
-    wg_wait<0>();
-    wg_fence_regs(acc);
-    wg_release(p.empty, p.stage, lane);
-    wg_advance(net, p);
+      for (int ks = 0; ks < kWgKSteps<kOp>; ++ks) wg_mma<Ch, 8>(acc, da + 2 * ks, db + 2 * ks);
+      wg_commit();
+      if (s == slices - 1) hook(l);
+      wg_wait<0>();
+      wg_fence_regs(acc);
+      wg_release(p.empty, p.stage, lane);
+      wg_advance(net, p);
+    }
   }
   const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, tg = lane & 3;
-  if (2 * tg >= Ch::kHeadOutputs) return;
+  if (2 * tg >= Ch::kHeadOutputs || (kWgSplit<kOp> && c.wg)) return;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int ray = ray0 + 16 * warp + g + 8 * h;
@@ -1068,7 +1365,8 @@ PT_HD void wg_head(const NifWg& net, int l, WgPipe& p, uint32_t a_act, uint32_t 
 
 // The stream of slices: one producer thread walks each tile's slices
 // (layer by layer; a layer of several passes once per pass, that pass's
-// rows of each slice) through the ring.
+// rows of each slice; a tf32 layer with a lo part each slice's hi then lo
+// image) through the ring.
 struct WgProducer {
   uint32_t full, empty, ring;
   int stage;
@@ -1082,19 +1380,24 @@ struct WgProducer {
     for (int l = 0; l < net.num_layers; ++l) {
       const int slices = net.in_atoms[l] + net.f_atoms[l], passes = net.passes[l];
       const int slice = net.slice_bytes[l];
-      const int step = passes > 1 ? kWgPassRows * kWgRowBytes<true> : slice;  // a pass's rows
-      const unsigned char* const src = (const unsigned char*)net.w[l];
+      const int step = passes > 1 ? kWgPassRows * kWgRowBytes<1> : slice;  // a pass's rows
+      const unsigned char* const srcs[2] = {(const unsigned char*)net.w[l],
+                                            (const unsigned char*)net.w_lo[l]};
+      const int halves = net.w_lo[l] ? 2 : 1;  // the tf32 chain's lo slice after each hi one
       for (int pass = 0; pass < passes; ++pass) {
         const uint32_t bytes = (uint32_t)min(step, slice - pass * step);
         for (int s = 0; s < slices; ++s) {
-          if (!wait_free(empty + 8 * stage, phase ^ 1)) return false;
-          mbar_expect_tx(full + 8 * stage, bytes);
-          bulk_load(ring + stage * net.stage_bytes, src + (size_t)s * slice + (size_t)pass * step,
-                    bytes, full + 8 * stage);
-          ++issued;
-          if (++stage == net.stages) {
-            stage = 0;
-            phase ^= 1;
+          for (int half = 0; half < halves; ++half) {
+            if (!wait_free(empty + 8 * stage, phase ^ 1)) return false;
+            mbar_expect_tx(full + 8 * stage, bytes);
+            bulk_load(ring + stage * net.stage_bytes,
+                      srcs[half] + (size_t)s * slice + (size_t)pass * step, bytes,
+                      full + 8 * stage);
+            ++issued;
+            if (++stage == net.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
         }
       }
@@ -1195,41 +1498,47 @@ PT_HD bool wg_producer_role(Produce produce) {
   return false;
 }
 
-template <bool kInt8>
+template <int kOp>
 PT_HD WgConsumer wg_consumer(const NifWg& net, const WgBlock& b) {
   const int tid = threadIdx.x, wg = tid >> 7;
-  return {b.smem, b.s0 + wg * kWgGroupBytes<kInt8>,  // activations at offset 0
-          b.s0 + net.smem_feat + wg * kWgGroupBytes<kInt8>, wg, tid & 127, tid & 31,
+  const uint32_t rows = wg_row0<kOp>(wg) * kWgRowBytes<kOp>;  // the group's A
+  return {b.smem, b.s0 + rows,  // activations at offset 0
+          b.s0 + net.smem_feat + rows, wg, tid & 127, tid & 31,
           WgPipe{b.full, b.empty, b.s0 + net.smem_ring, 0, 0}};
 }
 
-// Feature f of row `row` into the feature atoms: bf16, or the s8 code on
-// the constant 1/127 grid, clip(rint(f * 127), -127, 127).
-template <bool kInt8>
+// Feature f of row `row` into the feature atoms: bf16, f32 (the tf32
+// chain splits it as it reads it), or the s8 code on the constant 1/127
+// grid, clip(rint(f * 127), -127, 127).
+template <int kOp>
 PT_HD void wg_put_feature(unsigned char* feat, int row, int k, float f) {
-  if constexpr (kInt8)
-    feat[wg_offset<true>(row, k)] =
+  if constexpr (kOp == 1)
+    feat[wg_offset<1>(row, k)] =
         (uint8_t)(int8_t)(int)fminf(fmaxf(rintf(f * 127.0f), -127.0f), 127.0f);
+  else if constexpr (kOp == 4)
+    *reinterpret_cast<float*>(feat + wg_offset<4>(row, k)) = f;
   else
-    *reinterpret_cast<uint16_t*>(feat + wg_offset<false>(row, k)) = f32_to_bf16(f);
+    *reinterpret_cast<uint16_t*>(feat + wg_offset<2>(row, k)) = f32_to_bf16(f);
 }
 
 // The Fourier features [sin u 2^j | sin v 2^j | cos u 2^j | cos v 2^j] of
-// this warpgroup's 64 rows, from su / sv (its rows' u and v).
-template <bool kInt8>
+// this warpgroup's 64 rows, from su / sv (its rows' u and v); where the
+// groups share the rows, both groups' threads encode them.
+template <int kOp>
 PT_HD void wg_encode(const NifWg& net, const WgConsumer& c, const float* su, const float* sv) {
+  constexpr bool split = kWgSplit<kOp>;
   const int E = net.embed_dim;
   unsigned char* const feat = c.smem + net.smem_feat;
-  for (int idx = c.t; idx < 64 * 2 * E; idx += 128) {
+  for (int idx = split ? c.t + 128 * c.wg : c.t; idx < 64 * 2 * E; idx += split ? 256 : 128) {
     const int r = idx & 63, rest = idx >> 6, axis = rest & 1, j = rest >> 1;
     float s, co;
     fourier(axis ? sv[r] : su[r], j, &s, &co);
-    const int row = 64 * c.wg + r;
-    wg_put_feature<kInt8>(feat, row, axis * E + j, s);
-    wg_put_feature<kInt8>(feat, row, 2 * E + axis * E + j, co);
+    const int row = wg_row0<kOp>(c.wg) + r;
+    wg_put_feature<kOp>(feat, row, axis * E + j, s);
+    wg_put_feature<kOp>(feat, row, 2 * E + axis * E + j, co);
   }
   fence_proxy_async();
-  group_sync(c.wg);
+  wg_sync<kOp>(c.wg);
 }
 
 // The layers of one tile over the features in place, run by both consumer
@@ -1241,38 +1550,48 @@ PT_HD void wg_layers(const NifWg& net, WgConsumer& c, int ray0, const Io& io,
   for (int l = 0; l < net.num_layers; ++l) {
     const int nc = net.chunks[l];
     if (nc == 0) {
-      wg_head<Ch>(net, l, c.pipe, c.a_act, c.a_feat, ray0, c.lane, io, hook);
+      wg_head<Ch>(net, l, c, ray0, io, hook);
       continue;
     }
-    if constexpr (Ch::kInt8) {  // the skip layer: two dots
-      if (net.in_atoms[l] && net.f_atoms[l]) {
-        switch (nc) {
-          case 1: wg_skip<Ch, 1>(net, l, c, hook); break;
-          case 2: wg_skip<Ch, 2>(net, l, c, hook); break;
-          case 3: wg_skip<Ch, 3>(net, l, c, hook); break;
-          case 4: wg_skip<Ch, 4>(net, l, c, hook); break;
-          default: wg_skip<Ch, kWgMaxChunks>(net, l, c, hook); break;
-        }
-        continue;
+    if constexpr (kWgSplit<Ch::kOp>) {  // the first group ceil(nc / 2) chunks, the second the rest
+      const int c0 = c.wg ? (nc + 1) / 2 : 0;
+      switch (c.wg ? nc / 2 : (nc + 1) / 2) {
+        case 0: wg_hidden_tf32<Ch, 0>(net, l, c, hook, c0); break;
+        case 1: wg_hidden_tf32<Ch, 1>(net, l, c, hook, c0); break;
+        case 2: wg_hidden_tf32<Ch, 2>(net, l, c, hook, c0); break;
+        default: wg_hidden_tf32<Ch, 3>(net, l, c, hook, c0); break;
       }
-    } else if constexpr (Ch::kNarrow) {  // its skip layer: two dots, chunk by chunk
-      if (net.in_atoms[l] && net.f_atoms[l]) {
-        switch (nc) {
-          case 1: wg_skip_wide<Ch, 1>(net, l, c, hook); break;
-          case 2: wg_skip_wide<Ch, 2>(net, l, c, hook); break;
-          case 3: wg_skip_wide<Ch, 3>(net, l, c, hook); break;
-          case 4: wg_skip_wide<Ch, 4>(net, l, c, hook); break;
-          default: wg_skip_wide<Ch, kWgMaxChunks>(net, l, c, hook); break;
+    } else {
+      if constexpr (Ch::kInt8) {  // the skip layer: two dots
+        if (net.in_atoms[l] && net.f_atoms[l]) {
+          switch (nc) {
+            case 1: wg_skip<Ch, 1>(net, l, c, hook); break;
+            case 2: wg_skip<Ch, 2>(net, l, c, hook); break;
+            case 3: wg_skip<Ch, 3>(net, l, c, hook); break;
+            case 4: wg_skip<Ch, 4>(net, l, c, hook); break;
+            default: wg_skip<Ch, kWgMaxChunks>(net, l, c, hook); break;
+          }
+          continue;
         }
-        continue;
+      } else if constexpr (Ch::kNarrow) {  // its skip layer: two dots, chunk by chunk
+        if (net.in_atoms[l] && net.f_atoms[l]) {
+          switch (nc) {
+            case 1: wg_skip_wide<Ch, 1>(net, l, c, hook); break;
+            case 2: wg_skip_wide<Ch, 2>(net, l, c, hook); break;
+            case 3: wg_skip_wide<Ch, 3>(net, l, c, hook); break;
+            case 4: wg_skip_wide<Ch, 4>(net, l, c, hook); break;
+            default: wg_skip_wide<Ch, kWgMaxChunks>(net, l, c, hook); break;
+          }
+          continue;
+        }
       }
-    }
-    switch (nc) {
-      case 1: wg_hidden<Ch, 1>(net, l, c, hook); break;
-      case 2: wg_hidden<Ch, 2>(net, l, c, hook); break;
-      case 3: wg_hidden<Ch, 3>(net, l, c, hook); break;
-      case 4: wg_hidden<Ch, 4>(net, l, c, hook); break;
-      default: wg_hidden<Ch, kWgMaxChunks>(net, l, c, hook); break;
+      switch (nc) {
+        case 1: wg_hidden<Ch, 1>(net, l, c, hook); break;
+        case 2: wg_hidden<Ch, 2>(net, l, c, hook); break;
+        case 3: wg_hidden<Ch, 3>(net, l, c, hook); break;
+        case 4: wg_hidden<Ch, 4>(net, l, c, hook); break;
+        default: wg_hidden<Ch, kWgMaxChunks>(net, l, c, hook); break;
+      }
     }
   }
 }
@@ -1282,28 +1601,31 @@ PT_HD void wg_layers(const NifWg& net, WgConsumer& c, int ray0, const Io& io,
 template <class Ch, class Io>
 PT_HD void wg_tile(const NifWg& net, WgConsumer& c, const float* su, const float* sv, int ray0,
                    const Io& io) {
-  wg_encode<Ch::kInt8>(net, c, su, sv);
+  wg_encode<Ch::kOp>(net, c, su, sv);
   wg_layers<Ch>(net, c, ray0, io);
 }
 
 // The measurement stub of a tile (the reference's _stub_nif_layer) in
 // this geometry: the encode as in wg_tile, then, with no copies and no
-// MMAs, each row's first feature x (its bf16 value or its s8 code) ->
-// x * 0 + 1 per layer and the decode of that 1, stored through io as
+// MMAs, each row's first feature x (its bf16 or tf32 value or its s8 code)
+// -> x * 0 + 1 per layer and the decode of that 1, stored through io as
 // wg_head stores.
 template <class Ch, class Io>
 PT_HD void wg_tile_stub(const NifWg& net, const WgConsumer& c, const float* su, const float* sv,
                         int ray0, const Io& io) {
-  wg_encode<Ch::kInt8>(net, c, su, sv);
-  if (c.t >= 64) return;
+  constexpr int kOp = Ch::kOp;
+  wg_encode<kOp>(net, c, su, sv);
+  if (c.t >= 64 || (kWgSplit<kOp> && c.wg)) return;
   const unsigned char* const feat = c.smem + net.smem_feat;
-  const int row = 64 * c.wg + c.t;
+  const int row = wg_row0<kOp>(c.wg) + c.t;
   float x;
-  if constexpr (Ch::kInt8)
-    x = (float)(int8_t)feat[wg_offset<true>(row, 0)];
+  if constexpr (kOp == 1)
+    x = (float)(int8_t)feat[wg_offset<1>(row, 0)];
+  else if constexpr (kOp == 4)
+    x = *reinterpret_cast<const float*>(feat + wg_offset<4>(row, 0));
   else
     x = __uint_as_float((uint32_t)*reinterpret_cast<const uint16_t*>(
-                            feat + wg_offset<false>(row, 0))
+                            feat + wg_offset<2>(row, 0))
                         << 16);
   for (int l = 0; l < net.num_layers; ++l) x = x * 0.0f + 1.0f;
 #pragma unroll
@@ -1320,7 +1642,7 @@ PT_HD void wg_tile_stub(const NifWg& net, const WgConsumer& c, const float* su, 
 // through nif_wg_tiles; K6 one and K7 one per loop iteration, with their
 // own ends).  Launch with kWgThreads threads and net.smem_bytes of dynamic
 // shared memory.
-template <bool kInt8, class Tile>
+template <int kOp, class Tile>
 __device__ __forceinline__ void wg_tiles(const NifWg& net, int tiles, Tile tile,
                                          int passes = 1) {
   const WgBlock b = wg_block(net);
@@ -1337,7 +1659,7 @@ __device__ __forceinline__ void wg_tiles(const NifWg& net, int tiles, Tile tile,
       }))
     return;
 
-  WgConsumer c = wg_consumer<kInt8>(net, b);
+  WgConsumer c = wg_consumer<kOp>(net, b);
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) tile(c, t);
 }
 
@@ -1347,8 +1669,9 @@ __device__ __forceinline__ void wg_tiles(const NifWg& net, int tiles, Tile tile,
 // each head output.
 template <class Ch, class Io>
 __device__ __forceinline__ void nif_wg_tiles(const NifWg& net, const Io& io) {
-  wg_tiles<Ch::kInt8>(net, (io.n + kWgRays - 1) / kWgRays, [&](WgConsumer& c, int tile) {
-    const int ray0 = tile * kWgRays + 64 * c.wg;
+  constexpr int kOp = Ch::kOp, kTile = kWgTileRays<kOp>;
+  wg_tiles<kOp>(net, (io.n + kTile - 1) / kTile, [&](WgConsumer& c, int tile) {
+    const int ray0 = tile * kTile + wg_row0<kOp>(c.wg);
     if constexpr (Io::kFeatures) {  // the group's rows of the features (the encode's place)
       unsigned char* const feat = c.smem + net.smem_feat;
       for (int idx = c.t; idx < 64 * io.rows; idx += 128) {
@@ -1359,15 +1682,18 @@ __device__ __forceinline__ void nif_wg_tiles(const NifWg& net, const Io& io) {
       group_sync(c.wg);
       wg_layers<Ch>(net, c, ray0, io);
     } else {
-      float* const su = (float*)(c.smem + net.smem_uv) + 64 * c.wg;
+      float* const su = (float*)(c.smem + net.smem_uv) + wg_row0<kOp>(c.wg);
       float* const sv = su + kWgRays;
-      if (c.t < 64) {
+      // Shared rows: the other group may still read the previous tile's
+      // features (a head that takes them) when the first group gets here.
+      if constexpr (kWgSplit<kOp>) consumers_sync();
+      if (c.t < 64 && (!kWgSplit<kOp> || c.wg == 0)) {
         float u = 0.0f, v = 0.0f;
         if (ray0 + c.t < io.n) io.uv(ray0 + c.t, &u, &v);
         su[c.t] = u;
         sv[c.t] = v;
       }
-      group_sync(c.wg);
+      wg_sync<kOp>(c.wg);
       wg_tile<Ch>(net, c, su, sv, ray0, io);
     }
   });
@@ -1410,8 +1736,10 @@ inline bool wg_valid(const NifWg& net) {
   if (net.stages < 2 || net.stages > kWgMaxStages || net.smem_bytes > kWgSmemLimit ||
       net.num_layers < 1 || net.num_layers > kNifMaxLayers)
     return false;
+  if (net.int8 && net.tf32) return false;
   for (int l = 0; l < net.num_layers; ++l)
-    if (((uintptr_t)net.w[l] & 15) || net.slice_bytes[l] > net.stage_bytes ||
+    if (((uintptr_t)net.w[l] & 15) || ((uintptr_t)net.w_lo[l] & 15) ||
+        (net.w_lo[l] && !net.tf32) || net.slice_bytes[l] > net.stage_bytes ||
         net.chunks[l] < 0 || net.chunks[l] > kWgMaxChunks ||
         net.passes[l] != (net.int8 && net.in_atoms[l] && net.f_atoms[l] && net.chunks[l]
                               ? (net.chunks[l] + 1) / 2
@@ -1429,7 +1757,8 @@ int launch_wg(Kernel kernel, const NifWg& net, int n, void* stream, Args... args
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          net.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (n + kWgRays - 1) / kWgRays;
+  const int tile_rays = net.tf32 ? kWgTileRays<4> : kWgRays;
+  const int tiles = (n + tile_rays - 1) / tile_rays;
   if (tiles == 0) return 0;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;

@@ -77,14 +77,14 @@ __global__ void __launch_bounds__(kWgThreads, 1) probe_wg_kernel(NifWg net,
                                                                const float* __restrict__ u, int n,
                                                                int per_layer,
                                                                float* __restrict__ out) {
-  wg_tiles<false>(net, (n + kWgRays - 1) / kWgRays, [&](WgConsumer& c, int tile) {
+  wg_tiles<2>(net, (n + kWgRays - 1) / kWgRays, [&](WgConsumer& c, int tile) {
     const int ray0 = tile * kWgRays + 64 * c.wg;
     // Every feature row of ray p <- bf16(u[p]); the rows from 4E up stay
     // zero (wg_setup).
     unsigned char* const feat = c.smem + net.smem_feat;
     for (int idx = c.t; idx < 64 * 4 * net.embed_dim; idx += 128) {
       const int r = idx & 63, k = idx >> 6;
-      *reinterpret_cast<uint16_t*>(feat + wg_offset<false>(64 * c.wg + r, k)) =
+      *reinterpret_cast<uint16_t*>(feat + wg_offset<2>(64 * c.wg + r, k)) =
           f32_to_bf16(ray0 + r < n ? u[ray0 + r] : 0.0f);
     }
     fence_proxy_async();
@@ -118,7 +118,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) probe_wg_loop_kernel(NifWg net,
                                                                     int n, int per_layer,
                                                                     int iters,
                                                                     float* __restrict__ out) {
-  wg_tiles<false>(
+  wg_tiles<2>(
       net, (n + kWgRays - 1) / kWgRays,
       [&](WgConsumer& c, int tile) {
         const int ray0 = tile * kWgRays + 64 * c.wg, p = ray0 + c.t;
@@ -141,7 +141,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) probe_wg_loop_kernel(NifWg net,
             }
             const uint16_t b = f32_to_bf16(v);
             for (int k = 0; k < 4 * net.embed_dim; ++k)
-              *reinterpret_cast<uint16_t*>(feat + wg_offset<false>(64 * c.wg + c.t, k)) = b;
+              *reinterpret_cast<uint16_t*>(feat + wg_offset<2>(64 * c.wg + c.t, k)) = b;
           }
           fence_proxy_async();
           group_sync(c.wg);
@@ -170,7 +170,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) probe_wg_loop_kernel(NifWg net,
 // K6 'mxu' and 'both' and K7 take the probe model's bf16 NifWg.
 extern "C" int pt_probe_mxu(const pt::NifWg* wg, const float* u, int n, float* out,
                             void* stream) {
-  if (wg == nullptr || wg->int8) return (int)cudaErrorInvalidValue;
+  if (wg == nullptr || wg->int8 || wg->tf32) return (int)cudaErrorInvalidValue;
   void (*const kernel)(pt::NifWg, const float*, int, int, float*) = pt::probe_wg_kernel<false>;
   return pt::launch_wg(kernel, *wg, n, stream, *wg, u, n, 0, out);
 }
@@ -184,14 +184,14 @@ extern "C" int pt_probe_alu(const float* u, int n, int rounds, float* out, void*
 
 extern "C" int pt_probe_both(const pt::NifWg* wg, const float* u, int n, int per_layer,
                              float* out, void* stream) {
-  if (wg == nullptr || wg->int8) return (int)cudaErrorInvalidValue;
+  if (wg == nullptr || wg->int8 || wg->tf32) return (int)cudaErrorInvalidValue;
   void (*const kernel)(pt::NifWg, const float*, int, int, float*) = pt::probe_wg_kernel<true>;
   return pt::launch_wg(kernel, *wg, n, stream, *wg, u, n, per_layer, out);
 }
 
 extern "C" int pt_probe_loop(const pt::NifWg* wg, const float* u, int n, int per_layer,
                              int iters, int prng, int state, float* out, void* stream) {
-  if (wg == nullptr || wg->int8 || iters < 0) return (int)cudaErrorInvalidValue;
+  if (wg == nullptr || wg->int8 || wg->tf32 || iters < 0) return (int)cudaErrorInvalidValue;
   void (*const kernel)(pt::NifWg, const float*, int, int, int, float*) =
       prng ? (state ? pt::probe_wg_loop_kernel<true, true> : pt::probe_wg_loop_kernel<true, false>)
            : (state ? pt::probe_wg_loop_kernel<false, true>

@@ -100,6 +100,7 @@ struct K8Epilogue {
 // head's eight rows as they are.
 template <int V>
 struct ChainK8 : K8Epilogue<V, int> {
+  static constexpr int kOp = 1;
   static constexpr bool kInt8 = true;
 };
 
@@ -108,6 +109,7 @@ struct ChainK8 : K8Epilogue<V, int> {
 // each code's bf16 value (act).
 template <int V>
 struct ChainK8Wide : K8Epilogue<V, float> {
+  static constexpr int kOp = 2;
   static constexpr bool kInt8 = false;
   static constexpr bool kNarrow = true;
   PT_HD static uint32_t act(float y, float inv) {
@@ -128,12 +130,12 @@ struct WgProbeIo {
   PT_HD void put(unsigned char* feat, int row, int k, int p) const {
     const uint8_t* const codes = (const uint8_t*)feats;
     if constexpr (Ch::kInt8)
-      feat[wg_offset<true>(row, k)] = p < n ? codes[(size_t)k * n + p] : 0;
+      feat[wg_offset<1>(row, k)] = p < n ? codes[(size_t)k * n + p] : 0;
     else if constexpr (Ch::kNarrow)
-      *reinterpret_cast<uint16_t*>(feat + wg_offset<false>(row, k)) =
+      *reinterpret_cast<uint16_t*>(feat + wg_offset<2>(row, k)) =
           p < n ? (uint16_t)e4m3_to_bf16(codes[(size_t)k * n + p]) : (uint16_t)0;
     else
-      *reinterpret_cast<uint16_t*>(feat + wg_offset<false>(row, k)) =
+      *reinterpret_cast<uint16_t*>(feat + wg_offset<2>(row, k)) =
           f32_to_bf16(p < n ? ((const float*)feats)[(size_t)k * n + p] : 0.0f);
   }
   PT_HD void store(int o, int p, float y) const { out[(size_t)o * n + p] = y; }
@@ -157,7 +159,7 @@ int launch_quant_probe_wg(const NifWg& net, const void* feats, int rows, int n, 
                           void* stream) {
   using Chain = K8Chain<V>;
   void (*const kernel)(NifWg, const void*, int, int, float*) = quant_probe_wg_kernel<V>;
-  if (Chain::kInt8 != (net.int8 != 0) || (V != kBf16 && net.mult[0] == nullptr))
+  if (Chain::kInt8 != (net.int8 != 0) || net.tf32 || (V != kBf16 && net.mult[0] == nullptr))
     return (int)cudaErrorInvalidValue;
   return launch_wg(kernel, net, n, stream, net, feats, rows, n, out);
 }

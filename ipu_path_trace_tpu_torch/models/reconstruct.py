@@ -5,8 +5,8 @@ full UV grid (u = row / height, v = col / width, the reference's
 makeGridCoordsUV), evaluate the NIF in batches serialised under a cap,
 decode, and reassemble the image with the renderer's bgr -> rgb flip.
 On CUDA every batch goes through K4 (ops/nif.py::nif_apply_t): the bf16
-chain for a ``NifModel``, the int8 chain for a ``QuantNifModel``; on the
-CPU through its plain version.
+or the f32 chain (tf32 wgmma) for a bf16 or f32 ``NifModel``, the int8
+chain for a ``QuantNifModel``; on the CPU through its plain version.
 
     python -m ipu_path_trace_tpu_torch.models.reconstruct <assets_dir> <out.exr|png> \\
         [height width] [--max-batch-size N] [--device cuda|cpu]

@@ -7,6 +7,13 @@ the root of the checkout (named by a hash of the sources and flags, so an
 edit rebuilds), which is loaded with ctypes.  Nothing here runs at import
 time: the CPU tests import every module of the port on machines without
 nvcc or a GPU.
+
+The CLI's ``--cache-dir``, ``--save-exe`` and ``--load-exe`` (the
+reference's compilation cache and saved executables) act on that library
+(``configure``, ``save_exe``): another build directory; a copy of the
+built library as ``NAME.so`` with a ``NAME.json`` manifest (the source
+digest, the nvcc flags, the GPU's name); and a saved library loaded in
+place of a build, only while its digest is today's sources'.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -39,9 +47,67 @@ NVCC_FLAGS = (
 NIF_MAX_LAYERS = 16  # csrc/nif_dev.cuh kNifMaxLayers
 
 
+# --cache-dir and --load-exe (``configure``): None keeps the defaults.
+_OVERRIDES: dict[str, Path | None] = {"build_dir": None, "load_exe": None}
+
+
 def build_dir() -> Path:
-    """``build/kernels`` beside the package (listed in .gitignore)."""
-    return CSRC.parent.parent / "build" / "kernels"
+    """``build/kernels`` beside the package (listed in .gitignore), or the
+    ``--cache-dir`` given to ``configure``."""
+    return _OVERRIDES["build_dir"] or CSRC.parent.parent / "build" / "kernels"
+
+
+def _exe_paths(name: str) -> tuple[Path, Path]:
+    return Path(name + ".so"), Path(name + ".json")
+
+
+def check_exe(name: str) -> Path:
+    """``NAME.so`` when ``NAME.json`` records today's source digest;
+    otherwise ValueError (a saved library of other sources is never
+    loaded, and nothing rebuilds in its place)."""
+    lib, manifest = _exe_paths(name)
+    try:
+        saved = json.loads(manifest.read_text())
+    except (OSError, ValueError) as e:
+        raise ValueError(f"--load-exe {name}: no readable manifest {manifest} ({e})") from e
+    if saved.get("digest") != _digest():
+        raise ValueError(f"--load-exe {name}: saved for source digest {saved.get('digest')}, "
+                         f"but the sources are {_digest()}; rebuild it with --save-exe")
+    if not lib.is_file():
+        raise ValueError(f"--load-exe {name}: {lib} is missing")
+    return lib
+
+
+def configure(cache_dir: str = "", load_exe: str = "") -> None:
+    """``--cache-dir``: build the library there; ``--load-exe``: load the
+    saved ``NAME.so`` (``check_exe``) instead of building.  Before the
+    library is first loaded; a change after that raises."""
+    want = {"build_dir": Path(cache_dir) if cache_dir else None,
+            "load_exe": check_exe(load_exe) if load_exe else None}
+    if want != _OVERRIDES and library.cache_info().currsize:
+        raise RuntimeError("the kernel library is already loaded; --cache-dir and "
+                           "--load-exe must be set before the first launch")
+    _OVERRIDES.update(want)
+
+
+def library_path() -> Path:
+    """The library ``library()`` loads: the saved one of ``--load-exe``, or
+    this checkout's build (built now if it is not there yet)."""
+    return _OVERRIDES["load_exe"] or build()
+
+
+def save_exe(name: str) -> Path:
+    """``--save-exe NAME``: the built (or loaded) library copied to
+    ``NAME.so`` beside a ``NAME.json`` manifest of the source digest, the
+    nvcc flags and the GPU's name (None without one)."""
+    src = library_path()
+    lib, manifest = _exe_paths(name)
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(src, lib)
+    gpu = torch.cuda.get_device_name(0) if torch.cuda.is_available() else None
+    manifest.write_text(json.dumps({"digest": _digest(), "nvcc_flags": list(NVCC_FLAGS),
+                                    "gpu": gpu, "library": lib.name}, indent=1) + "\n")
+    return lib
 
 
 def _nvcc() -> str:
@@ -120,7 +186,9 @@ class NifWg(ctypes.Structure):
            ("int8", ctypes.c_int), ("smem_codes", ctypes.c_int),
            ("passes", ctypes.c_int * NIF_MAX_LAYERS),
            ("inv_next", ctypes.c_float * NIF_MAX_LAYERS),
-           ("mult", ctypes.c_void_p * NIF_MAX_LAYERS), ("mult_skip", ctypes.c_void_p)]
+           ("mult", ctypes.c_void_p * NIF_MAX_LAYERS), ("mult_skip", ctypes.c_void_p),
+           # the f32 chain on tf32 wgmma
+           ("tf32", ctypes.c_int), ("w_lo", ctypes.c_void_p * NIF_MAX_LAYERS)]
     )
 
 
@@ -130,11 +198,12 @@ _I = ctypes.c_int
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels; declares every signature."""
-    lib = ctypes.CDLL(str(build()))
+    """Build (if needed) and load the kernels - or the saved library of
+    ``--load-exe`` - and declare every signature."""
+    lib = ctypes.CDLL(str(library_path()))
     lib.pt_trace.argtypes = [ctypes.POINTER(TraceParams), _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _P, _P, _P, _P, _P, _P, _P]
-    # K2, K3, K4, K6, K7 and K8 take a NifWg (bf16 or 8-bit by its flag; K3's plan for K3).
+    # K2, K3, K4, K6, K7 and K8 take a NifWg (bf16, 8-bit or tf32 by its flags; K3's plan for K3).
     wg = ctypes.POINTER(NifWg)
     lib.pt_env_shade.argtypes = [wg, _P, _P, ctypes.c_float, _I, _P, _P]
     lib.pt_nif_apply.argtypes = [wg, _P, _P, _I, _P, _P]

@@ -11,12 +11,14 @@ applied) and of path length.
 Modes, as the reference kernel's: hardware (Philox, ``seed``), host noise
 (``noise`` of shape (S, 4 + 4L, P)) and Owen-Sobol (``seed`` with
 ``sobol=(pixel_id, base, key)``, ``sobol_dims``), each with the bf16
-chain (``NifModel``) or the int8 chain (``QuantNifModel``), both
-``megastep_wg_kernel`` on the ``wgmma`` chains of ``csrc/nif_wgmma.cuh``
-under ``megastep_wg_plan``; per-block sample ``budgets`` (adaptive
-sampling), ``with_stats`` (the per-record sum of squared sample
-luminance, ``lum2``) and ``env_skip`` (the NIF chain skipped for
-128-ray tiles with no escape, ``ENV_SKIP_TILE``).
+chain (a bf16 ``NifModel``), the f32 chain on TF32 ``wgmma`` (an f32
+``NifModel``, ``--partials-type float``) or the int8 chain
+(``QuantNifModel``), all ``megastep_wg_kernel`` on the ``wgmma`` chains
+of ``csrc/nif_wgmma.cuh`` under ``megastep_wg_plan``; per-block sample
+``budgets`` (adaptive sampling), ``with_stats`` (the per-record sum of
+squared sample luminance, ``lum2``) and ``env_skip`` (the NIF chain
+skipped for tiles with no escape, ``env_skip_tile``: 128 rays, 64 for
+the f32 chain).
 For a CUDA tensor there is no fallback: a plan, build or launch that
 fails raises.  The measurement stubs of
 --device-timing (``stub``, utils/devtime.py) are the reference's:
@@ -37,9 +39,9 @@ import torch
 from ..core.scene import Scene
 from ..core.vecmath import Vec3
 from ..models.nif import NifModel
-from ..models.quant import QuantNifModel
 from . import _lib
-from .nif import WG_RAYS, model_tensors, nif_env_shade_plain, wg_arg, wg_struct, wgmma_plan
+from .nif import (WG_RAYS, _elem, chain_name, model_tensors, nif_env_shade_plain, tile_rays,
+                  wg_arg, wg_struct, wgmma_plan)
 from .trace import (TraceOut, check_mode, pack_scene, sample_rows, trace_params,
                     trace_sample_plain)
 
@@ -50,9 +52,9 @@ from .trace import (TraceOut, check_mode, pack_scene, sample_rows, trace_params,
 # barriers, and both consumer warpgroups taking every weight slice.
 BUDGET_BLOCK = 2048
 RAYS_PER_CUDA_BLOCK = 256  # csrc/megastep.cuh kRaysPerBlock: two 128-ray wgmma tiles
-# Rays per env-skip tile, the guard's granularity, at which
-# render/wavefront.dead_block_fraction measures: the wgmma tile of either
-# chain.
+# Rays per env-skip tile of the bf16 and int8 chains, the guard's
+# granularity, at which render/wavefront.dead_block_fraction measures:
+# their wgmma tile (env_skip_tile gives the model's).
 ENV_SKIP_TILE = WG_RAYS
 # The kernel's tail of the chain's shared-memory plan
 # (csrc/megastep.cuh kMegaUvBytes, kMegaOutBytes, kMegaCtlBytes): the
@@ -81,24 +83,30 @@ def table_bytes(scene: Scene) -> int:
     return 4 * (12 * scene.num_spheres + 15 * scene.num_discs)
 
 
+def env_skip_tile(model: NifModel) -> int:
+    """Rays per env-skip tile of the model's chain in K3: its wgmma tile,
+    128 rays for bf16 and int8, 64 for the f32 chain on tf32."""
+    return tile_rays(_elem(model))
+
+
 def megastep_wg_plan(model: NifModel, scene: Scene) -> dict:
     """The kernel's shared-memory plan: the ``wgmma`` chain's
-    (ops/nif.wgmma_plan, bf16 or int8) with K3's tail from ``smem_uv`` on -
-    the block's (u, v), the head's outputs and the control word
-    (MEGA_TAIL_BYTES), then the scene's tables at ``smem_tables``, 16-byte
-    aligned - and as many ring stages as then fit (at most 4; 3 bf16 and 4
-    int8 for the canonical net and the default scene).  Raises ValueError,
-    naming the limit, where not even two stages fit."""
+    (ops/nif.wgmma_plan, bf16, tf32 or int8) with K3's tail from
+    ``smem_uv`` on - the block's (u, v), the head's outputs and the control
+    word (MEGA_TAIL_BYTES), then the scene's tables at ``smem_tables``,
+    16-byte aligned - and as many ring stages as then fit (at most 4; 3
+    bf16 and tf32 and 4 int8 for the canonical net and the default scene).
+    Raises ValueError, naming the limit, where not even two stages fit."""
     tables = -(-table_bytes(scene) // 16) * 16
-    chain = "int8" if isinstance(model, QuantNifModel) else "bf16"
     plan = wgmma_plan(model, MEGA_TAIL_BYTES + tables,
-                      f"the megastep's {chain} chain with {tables} B of scene tables")
+                      f"the megastep's {chain_name(model)} chain with {tables} B of scene "
+                      f"tables")
     plan["smem_tables"] = plan["smem_uv"] + MEGA_TAIL_BYTES
     return plan
 
 
 def kernel_net(model: NifModel, scene: Scene):
-    """The NifWg of the model's chain (bf16 or int8) under
+    """The NifWg of the model's chain (bf16, tf32 or int8) under
     ``megastep_wg_plan``."""
     return wg_struct(model, megastep_wg_plan(model, scene))
 

@@ -7,7 +7,9 @@ one kernel.  ``nif_apply_t`` replaces ``nif_apply_pallas_t``: the NIF at
 given (u, v), (3, P) f32 in network channel order (``eval_env`` and the
 baked env mode call it).  Both live in ``csrc/nif.cu`` and run the
 ``wgmma`` chains of ``csrc/nif_wgmma.cuh`` on the slices of
-``wgmma_operands`` (``wg_struct``): a ``NifModel``'s bf16 chain, or a
+``wgmma_operands`` (``wg_struct``): a ``NifModel``'s bf16 chain, an f32
+``NifModel``'s chain on TF32 ``wgmma`` (the reference's ``--partials-type
+float``: 3xTF32 on the weights' hi and lo tf32 slices, 64-ray tiles), or a
 ``QuantNifModel``'s int8 chain (K5, ``_quant_mlp_core``: s8 slices under
 the 64-byte swizzle, with its multipliers from ``wgmma_scales``).  K3
 runs the same chains (ops/megastep.py), the probes K6 and K7
@@ -41,8 +43,9 @@ def _cached(model: NifModel, attr: str, tensors, build):
 
 
 # The wgmma chain's fixed shapes (csrc/nif_wgmma.cuh).
-WG_RAYS = 128  # kWgRays: rays per tile
-WG_ATOM = 64  # K values of a slice row and of an activation atom
+WG_RAYS = 128  # kWgRays: rays per tile of the bf16 and int8 chains
+WG_TF32_RAYS = 64  # kWgTileRays<4>: the tf32 chain's tile
+WG_ATOM = 64  # K values of a bf16 or s8 slice row and activation atom (tf32: 32)
 WG_ATOM_BYTES = WG_RAYS * 2 * WG_ATOM  # kWgAtomBytes of the bf16 chain (128-byte rows)
 WG_CHUNK = 64  # wgmma N of a hidden layer's output chunk
 WG_MAX_CHUNKS = 5  # kWgMaxChunks: hidden widths up to 320
@@ -55,30 +58,46 @@ WG_UV_BYTES = 2 * WG_RAYS * 4  # the tile's (u, v)
 WG_ALIGN = 1024  # slack to align the dynamic shared memory to the swizzle's 1024 B
 
 
+def row_bytes(elem: int) -> int:
+    """Bytes of a K-major slice row (kWgRowBytes): 64 for s8 (the 64-byte
+    swizzle), 128 for bf16 and f32 (the 128-byte swizzle)."""
+    return 64 if elem == 1 else 128
+
+
+def tile_rays(elem: int) -> int:
+    """Rays of the chain's tile (kWgTileRays): 64 for the 4-byte tf32
+    chain (its 128-ray activations and slices would not fit a block),
+    else 128."""
+    return WG_TF32_RAYS if elem == 4 else WG_RAYS
+
+
 def chain_plan(layer_plan, feat: int, elem: int, tail_bytes: int = WG_UV_BYTES,
                what: str = "the wgmma chain") -> dict:
     """The ``wgmma`` chain's layers and shared-memory plan
     (csrc/nif_wgmma.cuh) for ``layer_plan`` [(fan_in, fan_out, skip)] over
-    ``feat`` feature columns, in ``elem``-byte operands (2: bf16, 1: s8):
-    per layer its weight rows (a hidden layer's outputs rounded up to
-    64-wide chunks, the head's to 8), its trunk width, its 64-input
-    K-slices from the activations (``in_atoms``) and from the features
+    ``feat`` feature columns, in ``elem``-byte operands (2: bf16, 1: s8,
+    4: f32 read as tf32): per layer its weight rows (a hidden layer's
+    outputs rounded up to 64-wide chunks, the head's to 8), its trunk
+    width, its K-slices of a row's K values (``row_bytes // elem``: 64, or
+    32 for f32) from the activations (``in_atoms``) and from the features
     (``f_atoms``: layer 0 and the skip layer), its ``passes`` (the 8-bit
     skip layer's two dots run over WG_PASS_ROWS outputs at a time, each
     pass reading those rows of every slice); then the block's bytes -
-    activation and feature atoms (128 rows of 64 * elem bytes), the codes
-    of the skip layer's passes but the last (``smem_codes``), ring stages
-    of the largest slice (as many as fit, at most 4), barriers,
-    ``tail_bytes`` from ``smem_uv`` on (K2 and K4: the tile's (u, v); K3:
-    ops/megastep.megastep_wg_plan), alignment - with each piece's offset.
-    Raises ValueError, naming the limit, for a shape the chain cannot take
-    (``what`` names the kernel in the shared-memory message)."""
+    activation and feature atoms (a row for each of the tile's rays:
+    ``tile_rays``), the codes of the skip layer's passes but the last
+    (``smem_codes``), ring stages of the largest slice (as many as fit, at
+    most 4), barriers, ``tail_bytes`` from ``smem_uv`` on (K2 and K4: the
+    (u, v) of 128 rays; K3: ops/megastep.megastep_wg_plan), alignment -
+    with each piece's offset.  Raises ValueError, naming the limit, for a
+    shape the chain cannot take (``what`` names the kernel in the
+    shared-memory message)."""
     if len(layer_plan) > _lib.NIF_MAX_LAYERS:
         raise ValueError(f"NIF has {len(layer_plan)} layers; the kernel takes at most "
                          f"{_lib.NIF_MAX_LAYERS}")
-    row_bytes = WG_ATOM * elem
-    atom_bytes = WG_RAYS * row_bytes
-    f_atoms = -(-feat // WG_ATOM)
+    row = row_bytes(elem)
+    row_k = row // elem
+    atom_bytes = tile_rays(elem) * row
+    f_atoms = -(-feat // row_k)
     layers = []
     for i, (fan_in, fan_out, skip) in enumerate(layer_plan):
         if i == len(layer_plan) - 1:
@@ -94,11 +113,11 @@ def chain_plan(layer_plan, feat: int, elem: int, tail_bytes: int = WG_UV_BYTES,
             rows = chunks * WG_CHUNK
         trunk = 0 if i == 0 else fan_in - feat if skip else fan_in
         layers.append(dict(fan_in=fan_in, fan_out=fan_out, trunk=trunk, rows=rows, chunks=chunks,
-                           in_atoms=-(-trunk // WG_ATOM),
+                           in_atoms=-(-trunk // row_k),
                            f_atoms=f_atoms if i == 0 or skip else 0,
                            passes=-(-chunks // 2) if elem == 1 and i and skip and chunks else 1,
-                           slice_bytes=rows * row_bytes))
-    act_atoms = max([lay["chunks"] for lay in layers] + [0])
+                           slice_bytes=rows * row))
+    act_atoms = max([lay["chunks"] for lay in layers] + [0]) * WG_CHUNK // row_k
     stage_bytes = max(lay["slice_bytes"] for lay in layers)
     codes = WG_RAYS * WG_PASS_ROWS * (max(lay["passes"] for lay in layers) - 1)
     smem_feat = act_atoms * atom_bytes
@@ -118,49 +137,61 @@ def chain_plan(layer_plan, feat: int, elem: int, tail_bytes: int = WG_UV_BYTES,
 
 
 def _elem(model: NifModel) -> int:
-    """Operand bytes of the model's chain: 1 int8, 2 bf16; other types raise."""
+    """Operand bytes of the model's chain: 1 int8, 2 bf16, 4 f32 (tf32
+    wgmma); other types raise."""
     if isinstance(model, QuantNifModel):
         return 1
+    if model.dtype == torch.float32:
+        return 4
     if model.dtype != torch.bfloat16:
-        raise ValueError(f"the wgmma chains run bf16 or int8 weights; model is {model.dtype}")
+        raise ValueError(f"the wgmma chains run bf16, f32 or int8 weights; model is "
+                         f"{model.dtype}")
     return 2
+
+
+def chain_name(model: NifModel) -> str:
+    """The model's chain as the kernels' records name it: bf16, tf32 or int8."""
+    return {1: "int8", 2: "bf16", 4: "tf32"}[_elem(model)]
 
 
 def wgmma_plan(model: NifModel, tail_bytes: int = WG_UV_BYTES,
                what: str = "the wgmma chain") -> dict:
     """``chain_plan`` of the model: its layers, its 4E Fourier features,
-    its chain's operand width (bf16 or, for a QuantNifModel, int8)."""
+    its chain's operand width (bf16, f32 or, for a QuantNifModel, int8)."""
     return chain_plan(model.layer_plan(), 4 * model.embedding_dim, _elem(model), tail_bytes, what)
 
 
 def swizzle(x: torch.Tensor) -> torch.Tensor:
-    """(rows, 64 * atoms) -> (atoms, rows, 64): each 64-column atom in the
-    K-major swizzle image that ``wgmma`` reads - a row of 64 values is 128
-    bytes of bf16 (128-byte swizzle: 16-byte chunk c of row r at chunk
-    c ^ (r % 8)) or 64 bytes of int8 (64-byte swizzle: chunk c at
-    c ^ ((r // 2) % 4)).  The permutation is its own inverse within an
-    atom."""
-    rows, atoms = x.shape[0], x.shape[1] // WG_ATOM
-    per = 16 // x.element_size()  # values per 16-byte chunk
-    n = WG_ATOM // per  # chunks per row: 8 or 4
+    """(rows, K * atoms) -> (atoms, rows, K): each K-column atom in the
+    K-major swizzle image that ``wgmma`` reads - a row of K values is 128
+    bytes of bf16 (K = 64) or f32 (K = 32) under the 128-byte swizzle
+    (16-byte chunk c of row r at chunk c ^ (r % 8)) or 64 bytes of int8
+    (K = 64, the 64-byte swizzle: chunk c at c ^ ((r // 2) % 4)).  The
+    permutation is its own inverse within an atom."""
+    size = x.element_size()
+    row_k = row_bytes(size) // size
+    rows, atoms = x.shape[0], x.shape[1] // row_k
+    per = 16 // size  # values per 16-byte chunk
+    n = row_k // per  # chunks per row: 8 or 4
     chunks = x.reshape(rows, atoms, n, per).permute(1, 0, 2, 3)
     r = torch.arange(rows, device=x.device)
     idx = torch.arange(n, device=x.device)[None, :] ^ ((r[:, None] // (8 // n)) % n)
     return torch.gather(chunks, 2, idx[None, :, :, None].expand(atoms, rows, n, per)).reshape(
-        atoms, rows, WG_ATOM)
+        atoms, rows, row_k)
 
 
 def chain_slices(lay: dict, wt: torch.Tensor) -> torch.Tensor:
     """One layer's (out, in) weights as ``chain_plan``'s K-slices, back to
     back in the order the kernel reads them - trunk inputs, then (layer 0
-    and the skip layer) the feature inputs - each (rows, 64) in the swizzle
-    image of its type, zero past fan-in and fan-out.  One slice is one
-    bulk copy into the ring."""
+    and the skip layer) the feature inputs - each (rows, K) in the swizzle
+    image of its type (K = 64; 32 for f32), zero past fan-in and fan-out.
+    One slice is one bulk copy into the ring."""
     parts = []
+    row_k = row_bytes(wt.element_size()) // wt.element_size()
     for lo, hi, atoms in ((0, lay["trunk"], lay["in_atoms"]),
                           (lay["trunk"], lay["fan_in"], lay["f_atoms"])):
         if atoms:
-            x = wt.new_zeros((lay["rows"], atoms * WG_ATOM))
+            x = wt.new_zeros((lay["rows"], atoms * row_k))
             x[:lay["fan_out"], :hi - lo] = wt[:, lo:hi]
             parts.append(swizzle(x))
     return torch.cat(parts).contiguous()
@@ -173,16 +204,52 @@ def pad_rows(v: torch.Tensor, rows: int) -> torch.Tensor:
     return out
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest tf32 value (10 mantissa bits), ties away from zero:
+    the rounding of ``cvt.rna.tf32.f32`` (csrc/nif_wgmma.cuh tf32_round).
+    Adding half a tf32 ulp to the bits rounds the magnitude; clearing the
+    13 low bits truncates it.  For finite values."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x -> (hi, lo) = (tf32(x), tf32(x - hi)): the tf32 chain's 3xTF32
+    split of an operand, which the kernel applies to A in registers and
+    the host to the weights."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
 def wgmma_operands(model: NifModel) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """The ``wgmma`` chain's operands (K2, K3, K4), per layer (slices, f32
-    bias): ``chain_slices`` of the layer's (out, in) weights - bf16, or a
-    QuantNifModel's int8 codes - and the bias padded with zeros to the
-    rows.  Cached on the model."""
+    bias): ``chain_slices`` of the layer's (out, in) weights - bf16, the hi
+    part of f32 weights (``tf32_split``; ``wgmma_lo_slices`` has the lo
+    part), or a QuantNifModel's int8 codes - and the bias padded with
+    zeros to the rows (f32: the epilogue adds it).  Cached on the model."""
     def build():
-        return [(chain_slices(lay, w.t()), pad_rows(b, lay["rows"]))
+        def operand(w):
+            return tf32_split(w)[0] if w.dtype == torch.float32 else w
+
+        return [(chain_slices(lay, operand(w.t())), pad_rows(b, lay["rows"]))
                 for lay, w, b in zip(wgmma_plan(model)["layers"], model.kernels, model.biases)]
 
     return _cached(model, "_wgmma_operands", model.kernels + model.biases, build)
+
+
+def wgmma_lo_slices(model: NifModel) -> list[torch.Tensor | None]:
+    """The tf32 chain's lo slices per layer: ``chain_slices`` of the lo part
+    of the f32 weights (``tf32_split``), streamed after each hi slice; None
+    for a layer whose weights are all tf32 values (every f16-trained asset's),
+    whose lo part is zero.  Cached on the model."""
+    def build():
+        out = []
+        for lay, w in zip(wgmma_plan(model)["layers"], model.kernels):
+            lo = tf32_split(w.t())[1]
+            out.append(chain_slices(lay, lo) if bool(lo.any()) else None)
+        return out
+
+    return _cached(model, "_wgmma_lo_slices", model.kernels, build)
 
 
 def wgmma_scales(model: QuantNifModel) -> tuple[list[torch.Tensor], torch.Tensor, list]:
@@ -204,11 +271,12 @@ def wgmma_scales(model: QuantNifModel) -> tuple[list[torch.Tensor], torch.Tensor
 
 
 def wg_net(plan: dict, operands, embed_dim: int, log_flag: bool, max_v: float, mean,
-           scales=None) -> _lib.NifWg:
-    """A NifWg of ``plan`` over ``operands`` [(slices, bias)] - and for the
+           scales=None, lo_slices=None) -> _lib.NifWg:
+    """A NifWg of ``plan`` over ``operands`` [(slices, bias)] - for the
     narrow chains (the 8-bit ones, ``plan["elem"] == 1``, and K8's fp8 on
     the bf16 tile) ``scales``: the per-layer multipliers, the skip
-    multipliers and the per-layer quant steps - with the decode's
+    multipliers and the per-layer quant steps; for the tf32 chain
+    ``lo_slices`` (per layer the lo slices or None) - with the decode's
     constants.  The tensors must outlive the launches."""
     net = _lib.NifWg()
     net.num_layers = len(plan["layers"])
@@ -225,6 +293,9 @@ def wg_net(plan: dict, operands, embed_dim: int, log_flag: bool, max_v: float, m
     for c in range(3):
         net.mean[c] = mean[c]
     net.int8 = int(plan["elem"] == 1)
+    net.tf32 = int(plan["elem"] == 4)
+    for i, lo in enumerate(lo_slices or []):
+        net.w_lo[i] = None if lo is None else lo.data_ptr()
     if scales is not None:
         mults, mult_skip, inv_next = scales
         for i, (m, inv) in enumerate(zip(mults, inv_next)):
@@ -234,15 +305,16 @@ def wg_net(plan: dict, operands, embed_dim: int, log_flag: bool, max_v: float, m
 
 
 def wg_struct(model: NifModel, plan: dict | None = None) -> _lib.NifWg:
-    """The ``wgmma`` kernels' view of a bf16 or int8 model: the plan (K2 and
-    K4's ``wgmma_plan`` unless given; K3 passes its own) and pointers to
-    the slices, biases and (int8) multipliers, kept alive by the model's
-    cache."""
-    _elem(model)  # bf16 or int8
+    """The ``wgmma`` kernels' view of a bf16, f32 or int8 model: the plan
+    (K2 and K4's ``wgmma_plan`` unless given; K3 passes its own) and
+    pointers to the slices, biases and (int8) multipliers, kept alive by
+    the model's cache."""
+    elem = _elem(model)  # bf16, f32 or int8
     plan = plan or wgmma_plan(model)
     return wg_net(plan, wgmma_operands(model), model.embedding_dim, model.log_tone_map,
                   model.max, model.mean,
-                  wgmma_scales(model) if isinstance(model, QuantNifModel) else None)
+                  wgmma_scales(model) if elem == 1 else None,
+                  wgmma_lo_slices(model) if elem == 4 else None)
 
 
 def wg_arg(net) -> ctypes._CArgObject:
@@ -260,7 +332,8 @@ def model_tensors(model: NifModel) -> list[torch.Tensor]:
 
 
 def _chain_plain(model: NifModel, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(P, 3) decoded NIF output, network order: the int8 or the bf16 chain."""
+    """(P, 3) decoded NIF output, network order: the int8 chain, or the
+    model's bf16 or f32 chain."""
     if isinstance(model, QuantNifModel):
         return nif_apply_quant(model, u, v)
     return nif_apply(model, u, v)

@@ -44,17 +44,18 @@ H = "nif_wgmma.cuh"
 # edit never silently stops applying after the chain changes.
 ABLATIONS = {
     "base": [],
-    "no-copy": [(H, """          mbar_expect_tx(full + 8 * stage, bytes);
-          bulk_load(ring + stage * net.stage_bytes, src + (size_t)s * slice + (size_t)pass * step,
-                    bytes, full + 8 * stage);""", """          (void)bytes;
-          (void)src;
-          mbar_arrive(full + 8 * stage);""")],
+    "no-copy": [(H, """            mbar_expect_tx(full + 8 * stage, bytes);
+            bulk_load(ring + stage * net.stage_bytes,
+                      srcs[half] + (size_t)s * slice + (size_t)pass * step, bytes,
+                      full + 8 * stage);""", """            (void)bytes;
+            (void)srcs;
+            mbar_arrive(full + 8 * stage);""")],
     "no-mma": [(H, """      wg_mma<Ch, N0>(acc0, da + 2 * ks, db + 2 * ks);
       if constexpr (N1 > 0)
-        wg_mma<Ch, N1>(acc1, da + 2 * ks, db + 2 * ks + N0 * kWgRowBytes<k8> / 16);""",
+        wg_mma<Ch, N1>(acc1, da + 2 * ks, db + 2 * ks + N0 * kWgRowBytes<kOp> / 16);""",
                 """      acc0[ks] += (typename Ch::Acc)(da + db);"""),
-               (H, """    for (int ks = 0; ks < kWgKSteps<true>; ++ks) wg_mma<Ch, NH>(d, da + 2 * ks, db + 2 * ks);""",
-                """    for (int ks = 0; ks < kWgKSteps<true>; ++ks) d[ks] += (typename Ch::Acc)(da + db);""")],
+               (H, """    for (int ks = 0; ks < kWgKSteps<1>; ++ks) wg_mma<Ch, NH>(d, da + 2 * ks, db + 2 * ks);""",
+                """    for (int ks = 0; ks < kWgKSteps<1>; ++ks) d[ks] += (typename Ch::Acc)(da + db);""")],
     "no-epilogue": [(H, """    return (uint32_t)min(__float2int_rn(fmaxf(y, 0.0f) * inv), 255) ^ 0x80u;""",
                      """    return __float_as_uint(y + inv) & 0xFFu;"""),
                     (H, """  PT_HD static float dense(int acc, float m, float b) {

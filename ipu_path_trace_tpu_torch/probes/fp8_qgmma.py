@@ -75,14 +75,14 @@ def _wgmma_e4m3(n: int) -> str:
 # e4m3 wgmma instead.
 _E4M3 = "std::is_same<typename Ch::Acc, float>::value"
 QGMMA_EDITS = [
-    (H, "// The MMA of chain policy Ch on N outputs:",
+    (H, "// The MMA of chain policy Ch on N outputs,",
      "template <int N>\nPT_HD void wgmma_e4m3(float (&d)[N / 2], uint64_t da, uint64_t db);\n\n"
      + "".join(_wgmma_e4m3(n) for n in (8, 64, 128, 192, 256))
-     + "// The MMA of chain policy Ch on N outputs:"),
-    (H, """  if constexpr (Ch::kInt8)
-    wgmma_s8<N>(d, da, db);""", f"""  if constexpr (Ch::kInt8 && {_E4M3})
+     + "// The MMA of chain policy Ch on N outputs,"),
+    (H, """  if constexpr (Ch::kOp == 1)
+    wgmma_s8<N>(d, da, db);""", f"""  if constexpr (Ch::kOp == 1 && {_E4M3})
     wgmma_e4m3<N>(d, da, db);
-  else if constexpr (Ch::kInt8)
+  else if constexpr (Ch::kOp == 1)
     wgmma_s8<N>(d, da, db);"""),
     (Q, "struct ChainK8 : K8Epilogue<V, int> {",
      "struct ChainK8 : K8Epilogue<V, typename std::conditional<(V >= kFp8), float, int>::type> {"),
@@ -106,9 +106,9 @@ PT_HD void wg_promoted_dots(const NifWg& net, int l, WgPipe& p, uint32_t a_act, 
   const int split = ia && net.f_atoms[l] ? ia : slices;  // slices into acc, the rest into accf
   auto dots = [&](int s, float (&d)[NH / 2]) {
     uint64_t da, db;
-    wg_slice_begin<true>(net, l, s, p, a_act, a_feat, da, db);
+    wg_slice_begin<1>(net, l, s, p, a_act, a_feat, da, db);
 #pragma unroll
-    for (int k0 = 0; k0 < kWgKSteps<true>; k0 += kWgPromoteSteps) {
+    for (int k0 = 0; k0 < kWgKSteps<1>; k0 += kWgPromoteSteps) {
       float part[NH / 2];
       wg_zero(part);
       wg_fence_regs(part);
@@ -117,7 +117,7 @@ PT_HD void wg_promoted_dots(const NifWg& net, int l, WgPipe& p, uint32_t a_act, 
       for (int ks = k0; ks < k0 + kWgPromoteSteps; ++ks)
         wg_mma<Ch, NH>(part, da + 2 * ks, db + 2 * ks);
       wg_commit();
-      if (s == slices - 1 && k0 + kWgPromoteSteps == kWgKSteps<true>) hook(l);
+      if (s == slices - 1 && k0 + kWgPromoteSteps == kWgKSteps<1>) hook(l);
       wg_wait<0>();
       wg_fence_regs(part);
 #pragma unroll
@@ -146,9 +146,9 @@ PT_HD void wg_promoted_dots(const NifWg& net, int l, WgPipe& p, uint32_t a_act, 
                           inv);
       }}
       return Ch::code(Ch::skip("""),
-    (H, """    if constexpr (Ch::kInt8) {  // the skip layer: two dots
-      if (net.in_atoms[l] && net.f_atoms[l]) {""", f"""    if constexpr (Ch::kInt8) {{
-      if ({_E4M3} || (net.in_atoms[l] && net.f_atoms[l])) {{"""),
+    (H, """      if constexpr (Ch::kInt8) {  // the skip layer: two dots
+        if (net.in_atoms[l] && net.f_atoms[l]) {""", f"""      if constexpr (Ch::kInt8) {{
+        if ({_E4M3} || (net.in_atoms[l] && net.f_atoms[l])) {{"""),
     (H, "net.passes[l] != (net.int8 && net.in_atoms[l] && net.f_atoms[l] && net.chunks[l]",
      "net.passes[l] != (net.int8 && net.chunks[l]"),
 ]

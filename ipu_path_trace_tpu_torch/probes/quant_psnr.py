@@ -1,13 +1,16 @@
-"""On-class quality gate of the narrow NIF chain: bf16 against int8 PTQ.
+"""On-class quality gate of the narrow NIF chain: bf16 against int8 PTQ,
+with the f32 chain beside them.
 
 Replaces ``scripts/quant_psnr.py``: loads the shipped reference-scale
 asset (``assets/urban_alley_synth_nif``, the canonical 6x320 trained on
 ``synth:urban-alley:2048x4096:seed7``), quantises it after training
 (models/quant.quantize_nif on a 256x512 calibration lattice),
 reconstructs the full 2048x4096 frame with the bf16 and with the int8
-chain, both through K4 on CUDA (ops/nif.py::nif_apply_t; the plain
-versions on the CPU), and scores each against the generator's ground
-truth with the log-radiance PSNR of ``scripts/nif_width_sweep.py``.
+chain, and with the asset's weights in f32 (the f32 chain, TF32 wgmma
+on the card: ``--partials-type float``), all through K4 on CUDA
+(ops/nif.py::nif_apply_t; the plain versions on the CPU), and scores
+each against the generator's ground truth with the log-radiance PSNR of
+``scripts/nif_width_sweep.py``.
 
     python -m ipu_path_trace_tpu_torch.probes.quant_psnr [--assets DIR] [--grid 256x512] \\
         [--max-batch N] [--env synth:urban-alley:<H>x<W>:seed<N>] [--device cuda|cpu]
@@ -62,7 +65,7 @@ def reconstruct_quant(qmodel: QuantNifModel, h: int, w: int, max_batch: int) -> 
 
 
 def main(argv=None) -> dict:
-    """Reconstruct and score both chains; print and return the quality section."""
+    """Reconstruct and score the three chains; print and return the quality section."""
     ap = argparse.ArgumentParser(prog="quant_psnr")
     ap.add_argument("--assets", default=str(ASSET))
     ap.add_argument("--grid", default="256x512", help="calibration lattice HxW")
@@ -94,6 +97,11 @@ def main(argv=None) -> dict:
     p_q = psnr_log(reconstruct_quant(qmodel, h, w, args.max_batch), src)
     print(f"int8 PSNR {p_q:.2f} dB ({time.monotonic() - t0:.1f}s)", file=sys.stderr)
 
+    t0 = time.monotonic()
+    model32 = load_nif_assets(args.assets, torch.float32, args.device)[0]
+    p_f32 = psnr_log(reconstruct_image(model32, h, w, max_batch_size=args.max_batch), src)
+    print(f"f32 PSNR {p_f32:.2f} dB ({time.monotonic() - t0:.1f}s)", file=sys.stderr)
+
     quality = {
         "asset": Path(args.assets).name,
         "env": args.env,
@@ -103,6 +111,7 @@ def main(argv=None) -> dict:
                    if torch.device(args.device).type == "cuda" else "cpu, plain versions"),
         "bf16_psnr_db": p_bf16,
         "int8_psnr_db": p_q,
+        "f32_psnr_db": p_f32,
     }
     print(json.dumps(quality), flush=True)
     return quality

@@ -5,7 +5,7 @@ and ``trace_sample_with_uniforms`` are the reference's masked-lane
 wavefront over the whole batch; they are the plain version of the trace
 kernel (ops/trace.py).  ``render_step`` runs one progressive step and
 dispatches like the reference's ``render_step_impl``: the fused megastep
-kernel when ``cfg.use_fused_step`` and the env is a NIF (bf16 or int8),
+kernel when ``cfg.use_fused_step`` and the env is a NIF (bf16, f32 or int8),
 with ``cfg.megastep_stub`` forwarded to it (utils/devtime.py), otherwise
 the trace kernel per sample plus the env-shade kernel (NIF) or
 ``eval_env`` (constant or texture env, e.g. a baked NIF).
@@ -233,8 +233,9 @@ def dead_block_fraction(scene: Scene, settings: RenderSettings, cfg: StaticConfi
     """Fraction of ``block_size``-lane blocks of the worklist whose escape
     weights are all zero, averaged over ``n_samples`` Philox samples: the
     criterion of the megastep's env-skip guard, at its granularity for
-    the model's chain (ops/megastep.ENV_SKIP_TILE: the 128-ray wgmma tile
-    of both chains, which tiles the worklist from lane 0).  The trace is
+    the model's chain (ops/megastep.env_skip_tile: its wgmma tile, 128
+    rays for bf16 and int8 and 64 for f32, which tiles the worklist from
+    lane 0).  The trace is
     ops/trace.trace_sample: the kernel on CUDA (which equals its plain
     version bit for bit), the plain version on the CPU.  The ragged tail counts as escaping
     nothing, as the kernel's masked lanes do."""

@@ -82,7 +82,7 @@ from ..film.imageio import load_hdr_image, save_images
 from ..models.envlight import ConstantEnv, NifEnv, TextureEnv, bake_nif_env
 from ..models.nif import analyse_nif, load_nif_assets
 from ..models.quant import quantize_nif
-from ..ops.megastep import ENV_SKIP_TILE
+from ..ops.megastep import env_skip_tile
 from ..render.adaptive import adaptive_render_step
 from ..render.params import RenderSettings, StaticConfig
 from ..render.wavefront import dead_block_fraction, render_step
@@ -148,12 +148,16 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def parse_env_assets(assets: str, device: torch.device, nif_precision: str = "auto"):
+def parse_env_assets(assets: str, device: torch.device, nif_precision: str = "auto",
+                     partials_type: str = "half"):
     """Build the environment light from the --assets argument:
     'constant:R,G,B', 'texture:<file.exr>' or a NIF assets dir ->
     (env, (meta, weights) or None).
 
-    ``nif_precision='int8'`` quantises the NIF for the int8 chain
+    ``partials_type`` (--partials-type) is the NIF's weight type, as the
+    reference's: 'half' bf16 (the bf16 chain), 'float' f32 (the f32 chain,
+    tf32 ``wgmma`` on the card).  ``nif_precision='int8'`` quantises the
+    raw weights whatever the partials type, for the int8 chain
     (models/quant.py): a QAT asset's ``quant_amax.json`` sidecar gives the
     activation grids its fine-tune trained against; without one they are
     calibrated on a (u, v) lattice at load.
@@ -166,7 +170,8 @@ def parse_env_assets(assets: str, device: torch.device, nif_precision: str = "au
     if assets.startswith("texture:"):
         img = load_hdr_image(assets.split(":", 1)[1])
         return TextureEnv(texture=torch.from_numpy(img).to(device)), None
-    model, meta, weights = load_nif_assets(assets, torch.bfloat16, device)
+    dtype = torch.bfloat16 if partials_type == "half" else torch.float32
+    model, meta, weights = load_nif_assets(assets, dtype, device)
     if nif_precision == "int8":
         amax = None
         sidecar = os.path.join(assets, "quant_amax.json")
@@ -246,7 +251,8 @@ class PathTracerApp:
 
     def _load_env(self, assets: str) -> None:
         cfg = self.cfg
-        self.env, nif_info = parse_env_assets(assets, self.device, cfg.nif_precision)
+        self.env, nif_info = parse_env_assets(assets, self.device, cfg.nif_precision,
+                                              cfg.partials_type)
         self.active_assets = assets
         if nif_info is not None:
             meta, weights = nif_info
@@ -297,7 +303,7 @@ class PathTracerApp:
         worklist (K1 on CUDA, its plain version on the CPU), measures the
         fraction of NIF tiles with no escape - the skip guard's own
         criterion, at the tile of the model's chain (the 128-ray wgmma
-        tile of both chains) - and turns the skip on at
+        tile of bf16 and int8, the f32 chain's 64) - and turns the skip on at
         AUTO_ENV_SKIP_THRESHOLD.  No
         probe runs when the fused NIF megastep, the only kernel with the
         skip, will not."""
@@ -308,7 +314,7 @@ class PathTracerApp:
             return False
         cols = torch.from_numpy(self.worklist["u"].astype(np.float32)).to(self.device)
         rows = torch.from_numpy(self.worklist["v"].astype(np.float32)).to(self.device)
-        tile = ENV_SKIP_TILE  # the skip's tile in the kernel of either chain
+        tile = env_skip_tile(self.env.model)  # the skip's tile in the model's chain
         t0 = time.monotonic()
         frac = dead_block_fraction(self.scene, self.settings(), self.static_config(), cols, rows,
                                    step_seed(torch.Generator().manual_seed(cfg.seed)),

@@ -46,9 +46,14 @@ _FINGERPRINT_FIELDS = (
     "width", "height", "samples_per_step", "seed", "assets", "scene", "max_path_length",
     "aa_noise_type", "aa_noise_scale", "fov", "stop_prob", "roulette_depth",
     "refractive_index", "env_map_rotation", "aperture", "focal_distance", "nif_mode",
-    "nif_precision", "env_skip", "use_fused_step", "device_film", "enable_load_balancing",
-    "layout", "adaptive", "adaptive_min", "adaptive_max_factor", "sampler", "sobol_dims",
+    "partials_type", "nif_precision", "env_skip", "use_fused_step", "device_film",
+    "enable_load_balancing", "layout", "adaptive", "adaptive_min", "adaptive_max_factor",
+    "sampler", "sobol_dims",
 )
+# Fields added after checkpoints already existed: a saved fingerprint that
+# predates the field matches only the value those checkpoints were
+# rendered with (the reference's rule).
+_FIELD_DEFAULTS = {"partials_type": "half"}
 LAYOUT_KEYS = ("active_u", "active_v", "inactive_u", "inactive_v")
 
 _FORMAT = 1
@@ -111,6 +116,7 @@ def load_checkpoint(path: str, cfg) -> tuple[int, str, dict]:
         if fmt != _FORMAT:
             raise ValueError(f"checkpoint '{path}' has format {fmt}, expected {_FORMAT}")
         want = render_fingerprint(cfg)
+        got = {**_FIELD_DEFAULTS, **got}
         diffs = {k: (got.get(k), want[k]) for k in want if got.get(k) != want[k]}
         if diffs:
             raise ValueError("checkpoint does not match this render configuration "

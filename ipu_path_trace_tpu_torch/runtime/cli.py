@@ -1,10 +1,16 @@
 """The ``tpu_trace_torch`` command line.
 
 The flags the port has keep the reference CLI's names and defaults
-(``ipu_path_trace_tpu/runtime/cli.py``); ``--device`` is new.  Every
-other reference flag is still accepted by the parser, so that setting
-it to anything but its default fails with the ROADMAP.md item that will
-port it instead of being silently ignored.
+(``ipu_path_trace_tpu/runtime/cli.py``); ``--device`` is new.  The
+reference flags with no CUDA counterpart are settled for good:
+``--model`` is ``--device cpu``; ``--defer-attach``, ``--codelet-path``
+and ``--available-memory-proportion`` are accepted and ignored (a debug
+line says so); ``--no-use-pallas`` and any ``--rng-impl`` but ``auto``
+are rejected; ``--compile-only``, ``--cache-dir``, ``--save-exe`` and
+``--load-exe`` act on the kernel library (ops/_lib.py).  The two flags
+not ported yet (multi-GPU) are still accepted by the parser, so that
+setting one to anything but its default fails with the ROADMAP.md item
+that will port it instead of being silently ignored.
 """
 
 from __future__ import annotations
@@ -20,25 +26,22 @@ from ..utils.logging import handler as log_handler
 from ..utils.logging import set_log_level
 from .config import Config
 
+log = logging.getLogger(__name__)
+
 # Reference flags the port does not have yet: (flags, argparse kwargs, ROADMAP item).
 _UNPORTED = [
-    (("--model",), dict(action="store_true"), "queue 1 item 20 (use --device cpu)"),
     (("--ipus",), dict(type=int, default=1), "queue 1 item 15 (multi-GPU)"),
-    (("--save-exe",), dict(default=""), "queue 1 item 19"),
-    (("--load-exe",), dict(default=""), "queue 1 item 19"),
-    (("--compile-only",), dict(action="store_true"), "queue 1 item 19"),
-    (("--defer-attach",), dict(action="store_true"), "queue 1 item 20"),
-    (("--codelet-path",), dict(default="./"), "queue 1 item 20"),
-    (("--partials-type",), dict(default="half", choices=["half", "float"]),
-     "queue 1 item 20 (f32 NIF chain in the kernels)"),
-    (("--available-memory-proportion",), dict(type=float, default=0.6), "queue 1 item 20"),
-    (("--use-pallas",), dict(action=argparse.BooleanOptionalAction, default=True),
-     "queue 1 item 20 (the port always runs its kernels)"),
     (("--mesh-shape",), dict(default=""), "queue 1 item 15 (multi-GPU)"),
-    (("--cache-dir",), dict(default=""), "queue 1 item 19"),
-    (("--rng-impl",), dict(default="auto", choices=[
-        "auto", "threefry2x32", "rbg", "unsafe_rbg"]),
-     "queue 1 item 20 (the port's kernels use Philox)"),
+]
+
+# Reference flags accepted for parity and ignored: (flags, argparse kwargs, why).
+_IGNORED = [
+    (("--defer-attach",), dict(action="store_true"),
+     "the CUDA context attaches at the first launch"),
+    (("--codelet-path",), dict(default="./"),
+     "the kernels are built from the package's csrc/, there are no codelets"),
+    (("--available-memory-proportion",), dict(type=float, default=0.6),
+     "each kernel plans its own shared memory"),
 ]
 
 
@@ -181,12 +184,49 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Save a diagnostic channel instead of radiance (film/debugview.py), "
                         "rendered through the production camera and intersector. The "
                         "accumulator is untouched.")
-    p.add_argument("--device", default="cuda",
-                   help="'cuda' runs the CUDA kernels; 'cpu' their plain versions.")
+    p.add_argument("--device", default=None,
+                   help="'cuda' (default) runs the CUDA kernels; 'cpu' their plain versions.")
+    p.add_argument("--model", action="store_true",
+                   help="The reference's CPU simulator backend: the same as --device cpu "
+                        "(with --device cuda it is an error).")
+    p.add_argument("--partials-type", default="half", choices=["half", "float"],
+                   help="NIF weight type: half -> the bf16 chain, float -> the f32 chain "
+                        "(tf32 wgmma on the GPU).")
+    p.add_argument("--use-pallas", action=argparse.BooleanOptionalAction, default=True,
+                   help="Accepted for parity (the default). --no-use-pallas is rejected: "
+                        "the port always runs its CUDA kernels on the GPU; --device cpu "
+                        "runs their plain versions.")
+    p.add_argument("--rng-impl", default="auto",
+                   choices=["auto", "threefry2x32", "rbg", "unsafe_rbg"],
+                   help="Accepted as 'auto' only: the other values pick a JAX key "
+                        "implementation, and the port's streams are Philox in the kernels "
+                        "and torch.Generator for host noise.")
+    p.add_argument("--compile-only", action="store_true",
+                   help="Build the kernel library and the host runtime from the sources, "
+                        "print the library's path and exit (with --save-exe, save it first).")
+    p.add_argument("--cache-dir", default="",
+                   help="Directory of the built kernel library (default build/kernels/).")
+    p.add_argument("--save-exe", default="", metavar="NAME",
+                   help="Copy the built kernel library to NAME.so, with a NAME.json "
+                        "manifest (source digest, nvcc flags, GPU name).")
+    p.add_argument("--load-exe", default="", metavar="NAME",
+                   help="Load the kernel library saved as NAME.so instead of building; "
+                        "refused unless its manifest's digest is the sources'.")
+    ignored = p.add_argument_group("Reference options accepted for parity and ignored")
+    for flags, kwargs, why in _IGNORED:
+        ignored.add_argument(*flags, **kwargs, help=f"Ignored: {why}.")
     unported = p.add_argument_group("Reference options not ported yet (non-defaults raise)")
     for flags, kwargs, _ in _UNPORTED:
         unported.add_argument(*flags, **kwargs, help=argparse.SUPPRESS)
     return p
+
+
+def ignored_flags(argv=None) -> list[tuple[str, str]]:
+    """The accepted-and-ignored flags that ``argv`` sets: (flag, why)."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    return [(flags[0], why) for flags, _, why in _IGNORED
+            if getattr(args, _dest(flags[0])) != parser.get_default(_dest(flags[0]))]
 
 
 def parse_config(argv=None) -> Config:
@@ -198,6 +238,20 @@ def parse_config(argv=None) -> Config:
             raise NotImplementedError(
                 f"{flags[0]} is not ported to the PyTorch/CUDA renderer yet "
                 f"(ROADMAP.md {item})")
+    if not args.use_pallas:
+        raise ValueError("--no-use-pallas is not supported: the port runs its CUDA kernels on "
+                         "the GPU and never a plain version there; --device cpu runs the "
+                         "plain versions")
+    if args.rng_impl != "auto":
+        raise ValueError(f"--rng-impl {args.rng_impl} picks a JAX PRNG key implementation; "
+                         "the port's streams are Philox (kernels) and torch.Generator (host "
+                         "noise), so only 'auto' is accepted")
+    if args.model:
+        if args.device not in (None, "cpu"):
+            raise ValueError("--model is the reference's CPU simulator backend (--device "
+                             f"cpu); it cannot run with --device {args.device}")
+        args.device = "cpu"
+    args.device = args.device or "cuda"
     fields = {f.name for f in dataclasses.fields(Config)}
     cfg = Config(**{k: v for k, v in vars(args).items() if k in fields})
     cfg.validate()
@@ -216,6 +270,19 @@ def main(argv=None, *, use_fused_step: bool | None = None) -> int:
         cfg = dataclasses.replace(cfg, use_fused_step=use_fused_step)
     logging.basicConfig(level=logging.INFO, handlers=[log_handler()])
     set_log_level(cfg.log_level)
+    for flag, why in ignored_flags(argv):
+        log.debug("%s is accepted for parity and ignored: %s", flag, why)
+    from ..ops import _lib
+
+    try:
+        _lib.configure(cfg.cache_dir, cfg.load_exe)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if cfg.compile_only or cfg.save_exe:
+        prepare_kernels(cfg)
+        if cfg.compile_only:
+            return 0
     from .app import PathTracerApp
 
     app = PathTracerApp(cfg)
@@ -233,13 +300,31 @@ def main(argv=None, *, use_fused_step: bool | None = None) -> int:
     return 0
 
 
+def prepare_kernels(cfg: Config):
+    """``--compile-only`` and ``--save-exe``: build the kernel library (or
+    take the ``--load-exe`` one) and the host runtime now; save the
+    library under ``--save-exe``; print the library's path.  Without nvcc
+    (or g++) the build raises."""
+    from ..ops import _lib
+    from . import native
+
+    lib = _lib.library_path()
+    native.library()
+    if cfg.save_exe:
+        saved = _lib.save_exe(cfg.save_exe)
+        log.info("Saved the kernel library to '%s' (manifest %s)", saved,
+                 saved.with_suffix(".json"))
+    print(lib)
+    log.info("Kernel library: %s; host runtime: %s", lib, native.build())
+    return lib
+
+
 def start_ui_server(cfg: Config):
     """Serve the remote UI on ``cfg.ui_port`` and block until one client
     connects; a failed bind (the port taken) raises at once.  The
     preview stream is set up at the render's size."""
     from ..ui.server import InterfaceServer
 
-    log = logging.getLogger(__name__)
     server = InterfaceServer(cfg.ui_port)
     server.start()
     log.info("Waiting for remote UI client to connect...")
@@ -257,7 +342,6 @@ def graceful_stop(app):
     finishes its step and takes the exit path (the final fetch, the
     checkpoint, the save).  The handler then restores the previous ones,
     so a second signal acts as it would have without it."""
-    log = logging.getLogger(__name__)
     prev = {}
 
     def handler(signum, frame):

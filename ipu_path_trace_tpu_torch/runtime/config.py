@@ -2,8 +2,9 @@
 
 Counterpart of ``ipu_path_trace_tpu/runtime/config.py`` for the flags
 the port has: the same names, defaults and validation, plus ``device``.
-The reference's other flags are listed in runtime/cli.py with the
-ROADMAP item that will port each.
+The reference flags the port maps onto others, accepts and ignores, or
+rejects are settled in runtime/cli.py; the two it has not ported yet are
+listed there with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,8 +48,12 @@ class Config:
     # worklist and turns the skip on at >= 2% (runtime/app.py
     # PathTracerApp.resolve_env_skip); "on"/"off" force it.
     env_skip: str = "auto"
-    # "auto" runs the NIF as stored (bf16 chain); "int8" quantises it for
-    # the int8 chain (models/quant.py), with a QAT asset's quant_amax.json.
+    # The NIF's weight type, as the reference's --partials-type: "half" bf16
+    # (the bf16 chain), "float" f32 (the f32 chain, tf32 wgmma on the card).
+    partials_type: str = "half"
+    # "auto" runs the NIF as --partials-type loads it; "int8" quantises the
+    # raw weights for the int8 chain (models/quant.py), whatever the
+    # partials type, with a QAT asset's quant_amax.json.
     nif_precision: str = "auto"
     # "fused" evaluates the NIF per escaped ray; "baked" decodes it once
     # into an equirect texture (models/envlight.bake_nif_env) of the
@@ -101,9 +106,19 @@ class Config:
     # "" | normal | albedo | depth | path-length | escape-uv.
     debug_view: str = ""
     # Where the render runs.  "cuda" launches the kernels; "cpu" runs
-    # their plain versions (the port's simulator).  A CUDA request on a
-    # machine without CUDA raises: nothing falls back to the CPU.
+    # their plain versions (the port's simulator; the reference's --model
+    # maps here).  A CUDA request on a machine without CUDA raises:
+    # nothing falls back to the CPU.
     device: str = "cuda"
+    # The kernel library (ops/_lib.py), the reference's executable cache:
+    # build it into cache_dir (default build/kernels/); copy it to
+    # save_exe.so with a manifest; load load_exe.so in place of a build
+    # while its digest matches the sources; compile_only builds the
+    # library and the host runtime and exits before any render.
+    cache_dir: str = ""
+    save_exe: str = ""
+    load_exe: str = ""
+    compile_only: bool = False
     # Test/smoke knob (no CLI flag): False renders with the trace and
     # env-shade kernels per sample instead of the megastep kernel.
     use_fused_step: bool = True
@@ -133,6 +148,11 @@ class Config:
             raise ValueError(f"unknown --layout '{self.layout}' (choices: coherent, raster)")
         if self.env_skip not in ("auto", "on", "off"):
             raise ValueError(f"unknown --env-skip '{self.env_skip}' (choices: auto, on, off)")
+        if self.partials_type not in ("half", "float"):
+            raise ValueError(f"unknown --partials-type '{self.partials_type}' (choices: half, "
+                             "float)")
+        if self.save_exe and self.load_exe:
+            raise ValueError("You can not set both save-exe and load-exe.")
         if self.nif_precision not in ("auto", "int8"):
             raise ValueError(f"unknown --nif-precision '{self.nif_precision}' (choices: auto, int8)")
         if self.nif_mode not in ("fused", "baked"):

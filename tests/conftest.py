@@ -144,6 +144,12 @@ QUICK_TESTS = {
     ("test_torch_ui.py", "test_fmp4_boxes_byte_for_byte"),
     ("test_torch_ui.py", "test_native_jpeg_byte_for_byte"),
     ("test_torch_ui.py", "test_cross_package_client_and_server"),
+    # the port's f32 chain, settled flags and turntable (minus the renders)
+    ("test_torch_f32.py", "test_canonical_f32_plan_bytes"),
+    ("test_torch_f32.py", "test_tf32_split_matches_numpy"),
+    ("test_torch_flags.py", "test_save_exe_then_load_exe"),
+    ("test_torch_flags.py", "test_only_multi_gpu_flags_stay_unported"),
+    ("test_torch_turntable.py", "test_turntable_animation"),
     # checkpoint/resume
     ("test_checkpoint.py", "test_checkpoint_validation"),
     ("test_checkpoint.py", "test_resume_rejects_mismatched_config"),

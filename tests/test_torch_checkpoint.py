@@ -28,7 +28,8 @@ from ipu_path_trace_tpu_torch.film.imageio import read_exr, save_images
 from ipu_path_trace_tpu_torch.render.wavefront import render_step
 from ipu_path_trace_tpu_torch.runtime import cli
 from ipu_path_trace_tpu_torch.runtime.app import PathTracerApp, step_seed
-from ipu_path_trace_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+from ipu_path_trace_tpu_torch.runtime.checkpoint import (load_checkpoint, render_fingerprint,
+                                                         save_checkpoint)
 from ipu_path_trace_tpu_torch.runtime.config import Config
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -118,6 +119,42 @@ def test_fingerprint_mismatch_is_refused(tmp_path, field, value):
         load_checkpoint(ck, dataclasses.replace(cfg, **{field: value}))
     # Knobs that are inert in this render do not count:
     load_checkpoint(ck, dataclasses.replace(cfg, adaptive_min=3, sobol_dims=8))
+
+
+def test_partials_float_resume_is_bitwise(tmp_path):
+    """A --partials-type float render (the f32 NIF chain) resumes bit for
+    bit: 2 + 2 steps write the 4-step render's EXR bytes."""
+    kw = dict(assets=NIF, partials_type="float", samples=8, env_skip="off")
+    full = _cfg(tmp_path, "full", **kw)
+    _run(full)
+    ck = str(tmp_path / "f32.npz")
+    _run(_cfg(tmp_path, "a", checkpoint=ck, **kw), max_steps=2)
+    assert load_checkpoint(ck, _cfg(tmp_path, "a", **kw))[0] == 2
+    resumed = _cfg(tmp_path, "b", resume=ck, **kw)
+    _run(resumed)
+    assert _exr(resumed) == _exr(full)
+
+
+@pytest.mark.parametrize("saved,resumed", [("half", "float"), ("float", "half")])
+def test_partials_type_mismatch_is_refused(tmp_path, saved, resumed):
+    ck = str(tmp_path / "pt.npz")
+    cfg = _cfg(tmp_path, "pt", partials_type=saved)
+    save_checkpoint(ck, cfg, 1, hdr=np.zeros((24, 32, 3), np.float32))
+    with pytest.raises(ValueError, match="partials_type"):
+        load_checkpoint(ck, dataclasses.replace(cfg, partials_type=resumed))
+    assert load_checkpoint(ck, cfg)[0] == 1
+
+
+def test_fingerprint_without_partials_type_matches_half_only(tmp_path):
+    """A checkpoint saved before the fingerprint had partials_type was a
+    half (bf16) render: it resumes a half render and refuses a float one."""
+    ck = str(tmp_path / "old.npz")
+    cfg = _cfg(tmp_path, "old")
+    fp = {k: v for k, v in render_fingerprint(cfg).items() if k != "partials_type"}
+    save_checkpoint(ck, cfg, 2, hdr=np.zeros((24, 32, 3), np.float32), fingerprint=fp)
+    assert load_checkpoint(ck, cfg)[0] == 2
+    with pytest.raises(ValueError, match="partials_type"):
+        load_checkpoint(ck, dataclasses.replace(cfg, partials_type="float"))
 
 
 def test_resume_refuses_another_render(tmp_path):

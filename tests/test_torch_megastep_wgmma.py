@@ -161,9 +161,19 @@ def test_kernel_nets_pick_the_chain(asset):
 
 
 def test_f32_model_is_refused():
+    """K3 takes an f32 model on the tf32 chain (its plan names the chain
+    where it does not fit) and refuses weights of any other type."""
     model = nif.load_nif_assets(str(ASSETS / CANONICAL), torch.float32)[0]
-    with pytest.raises(ValueError, match="bf16"):
-        megastep.kernel_net(model, default_scene())
+    net = megastep.kernel_net(model, default_scene())
+    assert (net.tf32, net.int8, net.smem_bytes) == (1, 0, 227_712)
+    with pytest.raises(ValueError, match="bf16, f32 or int8"):
+        megastep.kernel_net(nif.load_nif_assets(str(ASSETS / CANONICAL), torch.float16)[0],
+                            default_scene())
+    big = scene_from_dict({"objects": [
+        {"type": "sphere", "center": [float(i), 0.0, -5.0], "radius": 0.4,
+         "colour": [0.5, 0.5, 0.5], "material": "diffuse"} for i in range(1000)]})
+    with pytest.raises(ValueError, match="tf32 chain"):
+        megastep.kernel_net(model, big)
 
 
 @pytest.mark.parametrize("asset", BF16_ASSETS)

@@ -219,9 +219,12 @@ def test_net_struct_layout():
     slices, bias = nif_ops.wgmma_operands(model)[3]
     assert net.w[3] == slices.data_ptr() and net.b[3] == bias.data_ptr()
     assert nif_ops.wgmma_operands(model)[3][0] is slices  # cached per model
-    with pytest.raises(ValueError, match="bf16"):
+    f32 = nif_ops.wg_struct(nif.load_nif_assets("assets/urban_alley_synth_nif",
+                                                torch.float32)[0])
+    assert (f32.tf32, list(f32.in_atoms[:7])) == (1, [0, 10, 10, 10, 10, 10, 10])
+    with pytest.raises(ValueError, match="bf16, f32 or int8"):
         nif_ops.wg_struct(nif.load_nif_assets("assets/urban_alley_synth_nif",
-                                              torch.float32)[0])
+                                              torch.float16)[0])
 
 
 @pytest.mark.parametrize("asset", ASSETS)

@@ -153,18 +153,20 @@ def test_unsupported_shapes_raise(widths, embed, head, match):
 
 
 def test_kernel_nets_pick_the_chain():
-    """K2/K4 get a NifWg for a bf16 model and for an int8 one (its int8
-    flag set); the launchers' argument refuses any other struct; an f32
-    model raises."""
+    """K2/K4 get a NifWg for a bf16 model, for an int8 one (its int8 flag
+    set) and for an f32 one (its tf32 flag set); the launchers' argument
+    refuses any other struct; a model of another weight type raises."""
     model, meta, weights = nif.load_nif_assets("assets/urban_alley_synth_nif")
-    for m, int8 in ((model, 0), (quantize_nif(weights, meta), 1)):
+    f32 = nif.load_nif_assets("assets/urban_alley_synth_nif", torch.float32)[0]
+    for m, int8, tf32 in ((model, 0, 0), (quantize_nif(weights, meta), 1, 0), (f32, 0, 1)):
         wg = nif_ops.wg_arg(nif_ops.wg_struct(m))
-        assert isinstance(wg._obj, _lib.NifWg) and wg._obj.int8 == int8
+        assert isinstance(wg._obj, _lib.NifWg)
+        assert (wg._obj.int8, wg._obj.tf32) == (int8, tf32)
     with pytest.raises(ValueError, match="NifWg"):
         nif_ops.wg_arg(_lib.TraceParams())
-    with pytest.raises(ValueError, match="bf16"):
+    with pytest.raises(ValueError, match="bf16, f32 or int8"):
         nif_ops.wg_struct(nif.load_nif_assets("assets/urban_alley_synth_nif",
-                                              torch.float32)[0])
+                                              torch.float16)[0])
 
 
 def test_wg_struct_layout():
@@ -175,13 +177,15 @@ def test_wg_struct_layout():
                      "feat_atoms", "smem_feat", "smem_ring", "smem_bar", "smem_uv",
                      "smem_bytes", "chunks", "in_atoms", "f_atoms", "slice_bytes", "w", "b",
                      "max_v", "mean", "int8", "smem_codes", "passes", "inv_next", "mult",
-                     "mult_skip"]
+                     "mult_skip", "tf32", "w_lo"]
     # 11 + 4 x 16 ints (300 B), then the pointers at their 8-byte alignment;
-    # the 8-bit chains' fields follow (2 + 16 ints, 16 floats, then pointers).
+    # the 8-bit chains' fields follow (2 + 16 ints, 16 floats, then pointers),
+    # then the tf32 chain's flag and its lo slices' pointers.
     assert (_lib.NifWg.w.offset, _lib.NifWg.b.offset, _lib.NifWg.max_v.offset) == (304, 432, 560)
     assert (_lib.NifWg.int8.offset, _lib.NifWg.mult.offset, _lib.NifWg.mult_skip.offset) == (
         576, 712, 840)
-    assert ctypes.sizeof(_lib.NifWg) == 848
+    assert (_lib.NifWg.tf32.offset, _lib.NifWg.w_lo.offset) == (848, 856)
+    assert ctypes.sizeof(_lib.NifWg) == 984
     model, _, _ = nif.load_nif_assets("assets/urban_alley_synth_nif")
     net = nif_ops.wg_struct(model)
     plan = nif_ops.wgmma_plan(model)
@@ -195,6 +199,7 @@ def test_wg_struct_layout():
     assert [net.b[i] for i in range(7)] == [b.data_ptr() for _, b in ops]
     assert (net.max_v, *net.mean) == (model.max, *model.mean)  # f32 values, stored exactly
     assert net.int8 == 0 and list(net.passes[:7]) == [1] * 7 and not any(net.mult[:7])
+    assert net.tf32 == 0 and not any(net.w_lo[:7])
 
 
 def _chain_from_slices(model, u, v):
