@@ -132,6 +132,22 @@ Phases, one line each:
                 save and every --debug-view mode through the CLI at
                 1104x1000 (the debug EXRs equal debug_view of the guides);
                 the UI's step seconds beside the headless main run's;
+  6f. train   - the NIF tools: (a) the trainer's CLI (models/train_nif.py)
+                on the card with the canonical recipe's shapes (6x320,
+                batch 65,536, the 2048x4096 synth, cosine) for 300 epochs
+                (600 steps): the median ms per step beside its bound, the
+                loss down TRAIN_LOSS_DROP-fold, TF32 off in every step and
+                the flag restored after; (b) the first 3 steps on the card
+                against the same steps on the CPU (same initial params and
+                batches, TRAIN_* below); (c) the written asset reloaded
+                (hidden size 320), the quality gate on it through K4 against
+                its plain version (PSNR_GAP_DB), a fused 1104x1000 8-spp
+                render with --assets on it (K3; finite pixels); (d) 50
+                epochs of QAT (models/quant.qat_finetune) from the shipped
+                bf16 asset, K4 and K3 int8 on the result bit for bit against
+                their plain versions, the asset written and its int8 load
+                through runtime/app.parse_env_assets equal to quantize_nif of
+                the stored weights with the fine-tune's grids;
   7. full frame - at the main path's shapes (1104x1000, a ragged last
                 block): K1 (Philox), K2 (on that sample's escapes, bf16 and
                 int8), K3 (Philox, 8 samples, bf16 and int8), K4 (one bake
@@ -286,6 +302,24 @@ K8_BF16_MEDIAN, K8_BF16_ABOVE, K8_BF16_FRACTION, K8_BF16_MAX = 5e-3, 8e-2, 2e-4,
 K8_BF16_LAUNCHES = 10
 K8_ITERS = 20  # timed launches per variant of probes.quant.main
 PSNR_GAP_DB = 0.05  # the quality gate's kernel PSNR against the plain version's
+# Phase 6f, the NIF tools: the canonical recipe's shapes (6x320, batch
+# 65,536, 131,072 samples an epoch, the 2048x4096 synth, cosine) cut to
+# TRAIN_EPOCHS; the loss must fall TRAIN_LOSS_DROP-fold from the first step.
+TRAIN_EPOCHS, TRAIN_LOSS_DROP = 300, 10.0
+# The card's first TRAIN_CPU_STEPS steps against the CPU's (same initial
+# params, same batches drawn on the host): each loss to TRAIN_LOSS_RTOL
+# relative (the products' sums round in another order); the parameters
+# then differ by Adam's steps on gradients that the rounding moves, so in
+# units of the learning rate: median TRAIN_PARAM_MEDIAN, at most
+# TRAIN_PARAM_FRACTION of them past TRAIN_PARAM_ABOVE (a gradient near
+# zero whose sign the rounding flips moves its parameter by up to two
+# steps).  These two carry the check; the largest difference is printed
+# but has no limit: over its first 3 steps Adam moves a parameter by at
+# most ~1.004 lr a step (|m_hat| / sqrt(v_hat) <= sqrt(sum a_i^2 / b_i)),
+# so any two 3-step runs differ by at most ~6 lr whatever they compute.
+TRAIN_CPU_STEPS, TRAIN_LOSS_RTOL = 3, 1e-5
+TRAIN_PARAM_MEDIAN, TRAIN_PARAM_ABOVE, TRAIN_PARAM_FRACTION = 1e-4, 1e-2, 1e-3
+QAT_EPOCHS = 50  # phase 6f (d): QAT from the shipped bf16 asset, 100 steps
 BAKE_ROWS = 30 * 1472 // 4096  # rows per bake chunk at the default --max-nif-batch-size
 SOBOL_DIMS = 12  # the CLI's default --sobol-dims
 SOBOL_KEY = 0x5EED5EED
@@ -1097,6 +1131,180 @@ def ui_components(out_dir: Path, smi: str, counters, plains) -> dict:
     return times
 
 
+def train_phase(out_dir: Path, smi: str, dev, counters, plains, scene, k3_args) -> dict:
+    """Phase 6f: train, check, use and quantise NIF assets with the port's
+    tools on the card.  ``k3_args`` = (cols, rows, settings, kw) of phase
+    5's 256x256 checks.  Returns the phase's numbers and its K3/K4 errors."""
+    from ipu_path_trace_tpu_torch.models import reconstruct, train_nif
+    from ipu_path_trace_tpu_torch.models.nif import load_nif_assets
+    from ipu_path_trace_tpu_torch.models.quant import qat_finetune, quantize_nif
+    from ipu_path_trace_tpu_torch.models.synth_env import resolve_synth
+    from ipu_path_trace_tpu_torch.ops import megastep, nif
+    from ipu_path_trace_tpu_torch.probes import quant_psnr, train_replay
+    from ipu_path_trace_tpu_torch.runtime import cli
+    from ipu_path_trace_tpu_torch.runtime.app import parse_env_assets
+    from ipu_path_trace_tpu_torch.tools.quant_qat import save_qat_asset
+
+    res, err = {}, {}
+    t6f = time.monotonic()
+    cmd = train_replay.recorded_command(ROOT / ASSET)
+    trained = out_dir / "trained_nif"
+    shutil.rmtree(trained, ignore_errors=True)
+    argv = [*cmd[3:], "--epochs", str(TRAIN_EPOCHS), "--device", "cuda"]
+    argv[1] = str(trained)
+    # (a) the trainer's CLI on the card; TF32 on outside it, off in its steps
+    seen_tf32 = []
+    step = train_nif.train_step
+
+    def spy(*a, **k):
+        seen_tf32.append(torch.backends.cuda.matmul.allow_tf32)
+        return step(*a, **k)
+
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    train_nif.train_step = spy
+    record = {}
+    try:
+        t0 = time.monotonic()
+        rc = train_nif.main(argv, record=record)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        restored = torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        train_nif.train_step = step
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    weights = load_nif_assets(str(trained))[2]
+    bound = train_replay.step_bound_ms(weights, 65536)
+    med = statistics.median(record.get("step_ms", [0.0]))
+    losses = record.get("losses", [float("nan")])
+    steps = TRAIN_EPOCHS * 2
+    res["train"] = {"seconds": secs, "steps": len(losses), "median_step_ms": med,
+                    "step_bound_ms": bound, "first_loss": losses[0], "final_loss": losses[-1]}
+    print(f"[timing] train 6x320 on the card ({smi}): {steps} steps of 65,536 in {secs:.1f} s "
+          f"(with the 2048x4096 synth), median step {med:.3f} ms, bound {bound:.3f} ms "
+          f"(f32 products at 67 TFLOP/s), loss {losses[0]:.5f} -> {losses[-1]:.5f}", flush=True)
+    phase("train: trainer CLI on the card", rc == 0 and len(losses) == steps
+          and losses[0] >= TRAIN_LOSS_DROP * losses[-1] and all(map(math.isfinite, losses))
+          and seen_tf32 == [False] * steps and restored,
+          steps=len(losses), first_loss=f"{losses[0]:.5f}", final_loss=f"{losses[-1]:.5f}",
+          tf32_in_steps=sorted(set(seen_tf32)), tf32_restored=restored,
+          median_step_ms=f"{med:.3f}", bound_ms=f"{bound:.3f}")
+
+    # (b) the card's first steps against the CPU's on the same params and batches
+    img = resolve_synth(cmd[3])
+    uv, y, _, _ = train_nif.uv_targets(img, 1e-8, True, "cpu")
+    dims = train_nif.layer_dims([320] * 6, 12, 3)
+    modules, opts = {}, {}
+    for d in ("cpu", dev):
+        kernels, biases = train_nif.init_params(dims, 0)
+        modules[d] = train_nif.NifMLP(kernels, biases, 12, 3).to(d)
+        opts[d] = train_nif.make_optimizer(modules[d], 1e-3, steps)
+    gen = torch.Generator().manual_seed(1)
+    uv_d, y_d = uv.to(dev), y.to(dev)
+    rel_losses = []
+    with train_nif.exact_f32():
+        for _ in range(TRAIN_CPU_STEPS):
+            idx = torch.randint(0, uv.shape[0], (65536,), generator=gen)
+            lc = float(train_nif.train_step(modules["cpu"], *opts["cpu"], uv[idx], y[idx]))
+            idx_d = idx.to(dev)
+            lg = float(train_nif.train_step(modules[dev], *opts[dev], uv_d[idx_d], y_d[idx_d]))
+            rel_losses.append(abs(lg - lc) / abs(lc))
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten() / 1e-3 for a, b in
+                       zip(modules[dev].parameters(), modules["cpu"].parameters())])
+    p_med, p_max = float(diffs.median()), float(diffs.max())
+    p_above = float((diffs > TRAIN_PARAM_ABOVE).float().mean())
+    res["card_vs_cpu"] = {"loss_rel": rel_losses, "param_median_lr": p_med,
+                          "param_max_lr": p_max, "param_above_frac": p_above}
+    phase(f"train: {TRAIN_CPU_STEPS} card steps = CPU steps", max(rel_losses) <= TRAIN_LOSS_RTOL
+          and p_med <= TRAIN_PARAM_MEDIAN and p_above <= TRAIN_PARAM_FRACTION,
+          loss_rel=[f"{r:.2e}" for r in rel_losses], param_median_lr=f"{p_med:.2e}",
+          param_above_frac=f"{p_above:.2e}", param_max_lr=f"{p_max:.2e}")
+    del modules, opts, uv_d, y_d
+
+    # (c) the trained asset: reload, the quality gate through K4 (and its
+    # plain version), a fused 1104x1000 render through K3
+    model, meta, _ = load_nif_assets(str(trained), torch.bfloat16, dev)
+    nif.nif_apply_t.launches = nif.nif_apply_t_plain.cuda_runs = 0
+    t0 = time.monotonic()
+    quality = quant_psnr.main(["--assets", str(trained)])
+    gate_launches = nif.nif_apply_t.launches
+    kernel_apply = nif.nif_apply_t
+    reconstruct.nif_apply_t = quant_psnr.nif_apply_t = nif.nif_apply_t_plain
+    try:
+        quality_plain = quant_psnr.main(["--assets", str(trained)])
+    finally:
+        reconstruct.nif_apply_t = quant_psnr.nif_apply_t = kernel_apply
+    gate_s = time.monotonic() - t0
+    gaps = {k: abs(quality[k] - quality_plain[k])
+            for k in ("bf16_psnr_db", "int8_psnr_db", "f32_psnr_db")}
+    res["gate"] = {"k4": quality, "plain": quality_plain, "seconds": gate_s}
+    phase("train: reloaded asset, quality gate K4 vs plain", meta.hidden_size == 320
+          and model.layer_plan()[3][2] and gate_launches > 0
+          and nif.nif_apply_t_plain.cuda_runs == gate_launches
+          and all(g <= PSNR_GAP_DB and math.isfinite(quality[k]) for k, g in gaps.items()),
+          hidden_size=meta.hidden_size, k4_launches=gate_launches,
+          **{k: f"{quality[k]:.4f}" for k in gaps}, gaps_db=[f"{g:.1e}" for g in gaps.values()],
+          seconds=f"{gate_s:.1f}")
+    print(f"[train] the trained asset's gate ({smi}): bf16 {quality['bf16_psnr_db']:.4f} dB, "
+          f"int8 PTQ {quality['int8_psnr_db']:.4f}, f32 {quality['f32_psnr_db']:.4f} "
+          f"after {steps} steps", flush=True)
+    png = out_dir / "trained_render.png"
+    for f in counters:
+        f.launches = 0
+    for f in plains:
+        f.cuda_runs = 0
+    rc = cli.main(["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(MAIN_SPS),
+                   "--samples-per-step", str(MAIN_SPS), "--assets", str(trained), "-o", str(png)],
+                  use_fused_step=True)
+    got = [f.launches for f in counters]
+    hdr = frame_luminance(png.with_suffix(".exr"))[2] if rc == 0 else np.zeros((1, 1, 3))
+    phase("train: render with the trained asset (K3)", rc == 0 and got[2] > 0
+          and not any(f.cuda_runs for f in plains) and hdr.shape == (MAIN_H, MAIN_W, 3)
+          and bool(np.isfinite(hdr).all()), launches_trace_shade_megastep_apply=got,
+          mean=f"{float(hdr.mean()):.5f}")
+
+    # (d) QAT on the card from the shipped bf16 asset, then the int8 chain
+    _, smeta, sweights = load_nif_assets(str(ROOT / ASSET))
+    qrecord = {}
+    t0 = time.monotonic()
+    qat_w, amax, qloss = qat_finetune(sweights, smeta, img, epochs=QAT_EPOCHS, batch_size=65536,
+                                      train_samples=131072, learning_rate=2e-4, seed=0,
+                                      device=dev, record=qrecord)
+    torch.cuda.synchronize()
+    qsecs = time.monotonic() - t0
+    qmed = statistics.median(qrecord["step_ms"])
+    res["qat"] = {"seconds": qsecs, "median_step_ms": qmed, "first_loss": qrecord["losses"][0],
+                  "final_loss": qloss, "amax": list(amax)}
+    print(f"[timing] QAT 6x320 on the card ({smi}): {len(qrecord['step_ms'])} steps in "
+          f"{qsecs:.1f} s, median step {qmed:.3f} ms, loss {qrecord['losses'][0]:.6f} -> "
+          f"{qloss:.6f}", flush=True)
+    q8 = quantize_nif(qat_w, smeta, amax=amax, device=dev)
+    gen_np = np.random.default_rng(2026)
+    u, v = (torch.from_numpy(gen_np.uniform(0.0, 1.0, (2, 65536)).astype(np.float32)).to(dev))
+    err["nif_apply_int8"] = apply_check("train: K4 int8 on the QAT weights", q8, u, v)
+    cols, rows, settings, kw = k3_args
+    err["megastep_int8"] = megastep_check(
+        "train: K3 int8 philox on the QAT weights",
+        megastep.render_megastep(scene, settings, q8, cols, rows, (21, 22), **kw),
+        megastep.render_megastep_plain(scene, settings, q8, cols, rows, (21, 22), **kw), True)
+    qdir = out_dir / "qat_nif"
+    shutil.rmtree(qdir, ignore_errors=True)
+    save_qat_asset(str(qdir), qat_w, smeta, amax, "256x512", ["chip_smoke.py", "phase 6f"])
+    # the asset stores the weights in f16, as the shipped one; the app's
+    # int8 load must quantise those with the fine-tune's grids
+    back = parse_env_assets(str(qdir), dev, "int8")[0].model
+    want = quantize_nif(load_nif_assets(str(qdir))[2], smeta, amax=amax, device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(
+        [*back.kernels, *back.biases, *back.mults, back.mult_skip, back.inv_next],
+        [*want.kernels, *want.biases, *want.mults, want.mult_skip, want.inv_next]))
+    phase("train: QAT on the card, saved and reloaded int8", same and math.isfinite(qloss)
+          and len(qrecord["step_ms"]) == 2 * QAT_EPOCHS, reloaded_equal=same,
+          first_loss=f"{qrecord['losses'][0]:.6f}", final_loss=f"{qloss:.6f}",
+          seconds=f"{qsecs:.1f}")
+    print(f"[timing] phase 6f (the NIF tools): {time.monotonic() - t6f:.1f} s", flush=True)
+    return {"numbers": res, "err": err}
+
+
 def main() -> None:
     # 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1393,6 +1601,7 @@ def main() -> None:
 
     # 5c. K3's measurement stubs --------------------------------------------
     stub_checks("256x256", cols, rows, kw, settings, (15, 16))
+    k3_256 = (cols, rows, settings, kw)  # phase 6f's K3 check on new weights
 
     # 6. main path through the CLI ------------------------------------------
     out_dir = ROOT / "build" / "chip_smoke"
@@ -1800,6 +2009,11 @@ def main() -> None:
               f"{r['stream_bytes']} bytes", flush=True)
         ui_runs[name] = {k: (str(v) if isinstance(v, Path) else v) for k, v in r.items()}
     ui_parts = ui_components(out_dir, smi, counters, plains)
+
+    # 6f. the NIF tools: train, check, render with and quantise new assets --
+    trained = train_phase(out_dir, smi, dev, counters, plains, scene, k3_256)
+    for k, e in trained["err"].items():
+        err[k] = max(err[k], e)
 
     # 7. checks and timing at the main path's shapes ------------------------
     # 1,104,000 lanes end in a partial block, so the kernels' tail masks run
@@ -2476,6 +2690,7 @@ def main() -> None:
          "cublas_chain_ms": {k: v[0] for k, v in times.items() if k.startswith("cublas")},
          "quant_probe": k8_res, "quant_probe_sass_mma": k8_sass, "quality_gate": quality,
          "tf32_chain": tf32_res, "turntable": tt, "exe_manifest": manifest,
+         "nif_tools": trained["numbers"],
          "wgmma_sass_ptxas": wg_sass,
          "quality_gate_plain": quality_plain, "quality_gate_s": gate_s,
          "host_syncs": syncs, "ui_codec": codec, "ui_runs": ui_runs, "ui_parts": ui_parts,

@@ -1,8 +1,10 @@
 """Neural Image Field (NIF): metadata, keras-HDF5 weights, and inference.
 
-Counterpart of ``ipu_path_trace_tpu/models/nif.py``.  The loaders are
-numpy-only (the weights are read by models/hdf5.py); the network is an ``nn.Module`` whose weights are
-buffers (the port only serves, so nothing needs gradients).
+Counterpart of ``ipu_path_trace_tpu/models/nif.py``.  The loaders and
+writers are numpy-only (the weights are read and written by
+models/hdf5.py); the network is an ``nn.Module`` whose weights are
+buffers (inference needs no gradients; models/train_nif.py trains its own
+module and hands its weights over as ``NifWeights``).
 
 The math is the reference's: uv' = 2 (uv - 1); features
 [sin(u 2^j) | sin(v 2^j) | cos(u 2^j) | cos(v 2^j)] for j < E; dense
@@ -61,6 +63,30 @@ class NifMetaData:
             hidden_size=hidden,
         )
 
+    def save(self, path: str, train_command=()) -> None:
+        """Write nif_metadata.txt: the mean with eps un-folded, and the
+        train command (a ``--layer-size`` token by default, which ``load``
+        scrapes for ``hidden_size``)."""
+        mean = self.mean.copy()
+        if self.log_tone_map:
+            mean += self.eps  # un-fold for the on-disk schema
+        doc = {
+            "embedding_dimension": self.embedding_dimension,
+            "encode_params": {
+                "eps": self.eps,
+                "log_tone_map": self.log_tone_map,
+                "max": self.max,
+                "mean": [float(x) for x in mean],
+                "transfer_function": "log" if self.log_tone_map else "linear",
+            },
+            "name": self.name,
+            "original_image_shape": list(self.image_shape),
+            "train_command": list(train_command)
+            or ["train_nif.py", "--layer-size", str(self.hidden_size)],
+        }
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=2)
+
 
 @dataclasses.dataclass
 class NifLayer:
@@ -111,6 +137,32 @@ class NifWeights:
         if not layers:
             raise ValueError(f"No Dense layers found in '{path}'.")
         return NifWeights(layers)
+
+    def save_h5(self, path: str) -> None:
+        """Save in the keras layout ``load_h5`` reads: the ``model_config``
+        JSON and ``/model_weights/<name>/<name>/kernel:0`` and ``bias:0``,
+        stored in f16 when a layer's dtype is "float16", else f32."""
+        from .hdf5 import write
+
+        layer_cfgs = [{
+            "class_name": "Dense",
+            "config": {
+                "name": l.name,
+                "units": int(l.kernel.shape[1]),
+                "activation": "linear" if l.activation in ("none", "linear") else l.activation,
+                "use_bias": l.bias is not None,
+                "dtype": l.dtype,
+            },
+        } for l in self.layers]
+        model_config = {"class_name": "Functional", "config": {"layers": layer_cfgs}}
+        datasets = {}
+        for l in self.layers:
+            store = np.float16 if l.dtype == "float16" else np.float32
+            datasets[f"/model_weights/{l.name}/{l.name}/kernel:0"] = np.asarray(l.kernel).astype(store)
+            if l.bias is not None:
+                datasets[f"/model_weights/{l.name}/{l.name}/bias:0"] = np.asarray(l.bias).astype(store)
+        write(path, {"model_config": json.dumps(model_config),
+                     "keras_version": "ipu_path_trace_tpu_torch", "backend": "torch"}, datasets)
 
 
 class NifModel(nn.Module):
@@ -224,8 +276,8 @@ def params_from_jax(jax_params, device="cpu") -> NifModel:
 
 def fourier_features(u: torch.Tensor, v: torch.Tensor, embedding_dim: int) -> torch.Tensor:
     """(P, 4E) positional encoding with the direct sin/cos of each octave."""
-    coeffs = torch.tensor([2.0 ** j for j in range(embedding_dim)],
-                          dtype=torch.float32, device=u.device)
+    # 2^j built on u's device (exact: an integer shift), no host copy
+    coeffs = (1 << torch.arange(embedding_dim, device=u.device)).to(torch.float32)
     pos_u = (2.0 * (u - 1.0))[..., None] * coeffs
     pos_v = (2.0 * (v - 1.0))[..., None] * coeffs
     return torch.cat([torch.sin(pos_u), torch.sin(pos_v),

@@ -1,8 +1,8 @@
 """Post-training int8 quantization of the NIF chain, and its plain forward.
 
-Counterpart of ``ipu_path_trace_tpu/models/quant.py`` (inference half;
-the QAT fine-tune is a training tool and waits with the trainer).  The
-scheme is the reference's:
+Counterpart of ``ipu_path_trace_tpu/models/quant.py``: the quantiser,
+its plain forward, and the QAT fine-tune (``fake_quant_apply``,
+``qat_finetune``; the end of this module).  The scheme is the reference's:
 
 * weights: per-output-channel symmetric int8, sw[oc] = absmax(w[:, oc]) / 127;
 * Fourier features: exactly in [-1, 1], constant scale 1/127;
@@ -224,3 +224,96 @@ def nif_apply_quant(model: QuantNifModel, u: torch.Tensor, v: torch.Tensor) -> t
     """int8 NIF inference -> (P, 3) f32 decoded radiance, network order."""
     y = quant_mlp_t(model, u, v).t() * model.max + torch.tensor(model.mean, device=u.device)
     return torch.exp(y) if model.log_tone_map else y
+
+
+# ------------------------------------------------------------------------
+# Quantisation-aware fine-tuning (QAT)
+# ------------------------------------------------------------------------
+#
+# PTQ alone loses quality on class; QAT re-fits the trained weights
+# THROUGH the inference quantiser with straight-through-estimator
+# gradients.  The activation grids stay fixed at the pretrained
+# calibration, and the same amax is handed to quantize_nif, so training
+# and inference quantise identically.
+
+
+def _ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: forward q, the gradient of identity."""
+    return x + (q - x).detach()
+
+
+def fake_quant_apply(params, feats: torch.Tensor, skip_layer: int | None, amax) -> torch.Tensor:
+    """The training-layout forward ((B, in) batch-major, as the trainer's
+    models/train_nif.mlp_apply) with every inference quantisation point
+    fake-quantised under the STE: the features on the constant 1/127
+    grid; the weights per-output-channel symmetric int8, their scales from
+    the live weights (detached); the post-ReLU activations on the fixed
+    per-layer grids [0, a_i] of 256 levels.  ``params`` is a list of
+    (w, b) tensors, ``amax`` one float per hidden layer.  The head's output
+    stays f32."""
+    feats = _ste(feats, torch.round(torch.clamp(feats, -1, 1) * QMAX) / QMAX)
+    x = feats
+    nl = len(params)
+    for i, (w, b) in enumerate(params):
+        sw = torch.clamp(w.detach().abs().amax(dim=0), min=1e-12) / QMAX
+        wq = _ste(w, torch.clamp(torch.round(w / sw), -QMAX, QMAX) * sw)
+        if skip_layer is not None and i == skip_layer:
+            x = torch.cat([x, feats], dim=-1)
+        x = x @ wq + b
+        if i != nl - 1:
+            x = torch.relu(x)
+            # round(x * inv) in f32, the inference requant's form: x / step
+            # rounds differently at ties.
+            inv = float(np.float32(AQMAX / amax[i]))
+            step = float(np.float32(amax[i] / AQMAX))
+            x = _ste(x, torch.clamp(torch.round(x * inv), 0, AQMAX) * step)
+    return x
+
+
+def skip_from_shapes(weights: NifWeights) -> int | None:
+    """The skip-concat layer's index, found from the layer shapes."""
+    skip, prev = None, weights.layers[0].kernel.shape[0]
+    for i, l in enumerate(weights.layers[1:], start=1):
+        if l.kernel.shape[0] != prev:
+            skip = i
+        prev = l.kernel.shape[1]
+    return skip
+
+
+def qat_finetune(weights: NifWeights, meta: NifMetaData, image: np.ndarray, *,
+                 epochs: int = 2000, batch_size: int = 16384,
+                 train_samples: int | None = None, learning_rate: float = 2e-4,
+                 calib_grid=(256, 512), seed: int = 0, device="cuda",
+                 record: dict | None = None):
+    """Fine-tune a trained NIF through the int8 fake-quant forward: the
+    trainer's data pipeline and loss (models/train_nif.py), from the
+    trained weights, Adam with a cosine-decayed low lr, TF32 off.  The
+    activation grids are the f32 chain's lattice calibration
+    (``_f32_chain_activations``), fixed.  Returns (new NifWeights, amax
+    tuple, final loss); pass the same amax to ``quantize_nif``.
+    ``record`` gets the per-step losses and milliseconds (as
+    train_nif.run_steps)."""
+    from .train_nif import NifMLP, check_device, make_optimizer, run_steps, uv_targets
+
+    device = check_device(device)
+    amax = tuple(_f32_chain_activations(
+        weights, calibration_features(meta.embedding_dimension, calib_grid)))
+    uv, targets, _, _ = uv_targets(image, meta.eps, meta.log_tone_map, device)
+    train_samples = train_samples or uv.shape[0]
+    skip = skip_from_shapes(weights)
+    module = NifMLP(
+        [torch.from_numpy(l.kernel.astype(np.float32)) for l in weights.layers],
+        [torch.from_numpy((l.bias if l.bias is not None
+                           else np.zeros(l.kernel.shape[1])).astype(np.float32))
+         for l in weights.layers],
+        meta.embedding_dimension, skip).to(device)
+    steps_per_epoch = max(1, train_samples // batch_size)
+    opt, sched = make_optimizer(module, learning_rate, epochs * steps_per_epoch)
+    loss = run_steps(module, opt, sched, uv, targets, epochs=epochs,
+                     steps_per_epoch=steps_per_epoch, batch_size=batch_size, seed=seed,
+                     forward=lambda m, f: fake_quant_apply(m.params(), f, skip, amax),
+                     record=record)
+    new = module.to_weights(names=[l.name for l in weights.layers],
+                            activations=[l.activation for l in weights.layers],
+                            dtypes=[l.dtype for l in weights.layers])
+    return new, amax, loss

@@ -26,6 +26,7 @@ scheme back through its own copy of this module).
 
 from __future__ import annotations
 
+import functools
 import re
 
 import numpy as np
@@ -156,6 +157,9 @@ def resolve_synth(path: str) -> np.ndarray | None:
     Returns the generated image, or None when ``path`` is not a synth
     scheme (the caller then treats it as a real file).  Recorded in
     shipped assets' train_command so they replay without a 100 MB EXR.
+    The last image is kept (a 2048x4096 one takes seconds to make, and the
+    trainer, the QAT fine-tune and the quality gate each ask for it), so it
+    is read-only: a caller copies it before writing.
     """
     m = _SYNTH_RE.match(path)
     if m is None:
@@ -166,4 +170,11 @@ def resolve_synth(path: str) -> np.ndarray | None:
             )
         return None
     h, w, seed = (int(g) for g in m.groups())
-    return make_urban_env(h, w, seed)
+    return _urban_env(h, w, seed)
+
+
+@functools.lru_cache(maxsize=1)
+def _urban_env(height: int, width: int, seed: int) -> np.ndarray:
+    img = make_urban_env(height, width, seed)
+    img.setflags(write=False)
+    return img

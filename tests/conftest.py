@@ -144,6 +144,12 @@ QUICK_TESTS = {
     ("test_torch_ui.py", "test_fmp4_boxes_byte_for_byte"),
     ("test_torch_ui.py", "test_native_jpeg_byte_for_byte"),
     ("test_torch_ui.py", "test_cross_package_client_and_server"),
+    # the port's NIF tools: HDF5 writer, trainer, QAT, converter
+    ("test_torch_hdf5_write.py", "test_writer_datasets_and_attrs"),
+    ("test_torch_train.py", "test_adam_and_cosine_match_optax"),
+    ("test_torch_train.py", "test_shipped_and_port_commands_parse_alike"),
+    ("test_torch_qat.py", "test_selective_apply_matches_script"),
+    ("test_torch_convert.py", "test_convert_errors_like_jax"),
     # the port's f32 chain, settled flags and turntable (minus the renders)
     ("test_torch_f32.py", "test_canonical_f32_plan_bytes"),
     ("test_torch_f32.py", "test_tf32_split_matches_numpy"),

@@ -174,16 +174,20 @@ def test_cli_defaults_match_reference():
 
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither JAX, nor the
-    JAX package, nor PIL (the GPU host has none: the port's previews use
-    its own JPEG coder)."""
+    JAX package, nor PIL, h5py or optax (the GPU host has none: the port's
+    previews use its own JPEG coder, its NIF files its own HDF5 reader and
+    writer, its trainer torch.optim); the NIF tools are among the modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ipu_path_trace_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
-        "       or n == 'ipu_path_trace_tpu' or n.startswith('ipu_path_trace_tpu.')\n"
-        "       or n == 'PIL' or n.startswith('PIL.')]\n"
+        "tools = ['models.train_nif', 'models.convert', 'models.hdf5', 'tools.quant_qat',\n"
+        "         'probes.quant_ablation', 'probes.train_replay']\n"
+        "missing = [t for t in tools if pkg.__name__ + '.' + t not in sys.modules]\n"
+        "assert not missing, missing\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in\n"
+        "       ('jax', 'ipu_path_trace_tpu', 'PIL', 'h5py', 'optax')]\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith(pkg.__name__)]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
