@@ -1305,6 +1305,127 @@ def train_phase(out_dir: Path, smi: str, dev, counters, plains, scene, k3_args) 
     return {"numbers": res, "err": err}
 
 
+def accuracy_phase(out_dir: Path, smi: str, dev, counters, plains) -> dict:
+    """Phase 10, the accuracy acceptance and the wide chains: (a) exact
+    replay against the port's NumPy oracle (probes/validate_rmse.py at
+    cut sizes, each config's criterion), (b) probes/validate_gpu.py's
+    statistical checks at cut sizes, (c) hidden width 384 - K2, K3 and K4
+    in the three chains against their plain versions (probes/wide_chain.py)
+    and a fused CLI render with a 6x384 asset written here, (d) each NIF
+    tool once at a cut size, its JSON under the phase's directory.  Returns
+    the phase's numbers."""
+    from ipu_path_trace_tpu_torch.models.nif import make_synthetic_nif
+    from ipu_path_trace_tpu_torch.models.train_nif import save_assets
+    from ipu_path_trace_tpu_torch.probes import encode_ab, validate_gpu, validate_rmse, wide_chain
+    from ipu_path_trace_tpu_torch.runtime import cli
+    from ipu_path_trace_tpu_torch.tools import (nif_hard_env_check, nif_multienv,
+                                                nif_reference_scale, nif_width_sweep)
+
+    res = {"seconds": {}}
+    acc_dir = out_dir / "accuracy"
+    shutil.rmtree(acc_dir, ignore_errors=True)
+    acc_dir.mkdir(parents=True)
+    workers = os.cpu_count() or 1
+
+    # (a) exact replay against the oracle, K1 (+ eval_env), K3 and K1 + K2
+    t0 = time.monotonic()
+    res["oracle"] = []
+    for name, size, spp in (("config1_diffuse", (128, 128), 16), ("north_star", (128, 128), 64),
+                            ("config2_texture", None, 1), ("config3_nif", None, 1)):
+        for path in validate_rmse.paths(name):
+            e = validate_rmse.run_config(name, size, "cuda", path, workers, spp)
+            res["oracle"].append(e)
+            ran = e["launches"]
+            kernels_ran = (ran["megastep"] > 0 if path == "fused" else
+                           ran["trace"] >= spp and ran["megastep"] == 0
+                           and (ran["env_shade"] >= spp) == (name == "config3_nif"))
+            phase(f"oracle {name} {e['width']}x{e['height']} @ {spp} spp {path} ({e['kernels']})",
+                  e["pass"] and kernels_ran, launches=ran, rmse=f"{e['rmse']:.3e}",
+                  rmse_absolute=f"{e['rmse_absolute']:.3e}",
+                  rmse_agreeing_lanes=f"{e['rmse_agreeing_lanes']:.3e}",
+                  diverged_fraction=f"{e['diverged_pixel_fraction']:.2e}",
+                  oracle_s=f"{e['oracle_seconds']:.1f}")
+    res["seconds"]["a"] = time.monotonic() - t0
+
+    # (b) the statistical checks: fused (Philox in K3) against unfused host
+    # noise, at the script's 256 spp (with fewer samples the noise alone can
+    # carry a check's cross / floor past the rule: PERF.md §6)
+    t0 = time.monotonic()
+    res["validate_gpu"] = validate_gpu.checks(spp=256, device=dev, nif_size=(128, 128),
+                                              texture_size=(256, 256))
+    for c in res["validate_gpu"]:
+        phase(f"validate_gpu {c['name']}", c["pass"], floor=f"{c['floor']:.5f}",
+              cross=f"{c['cross']:.5f}", bound=f"{1.5 * c['floor'] + 1e-4:.5f}")
+    res["seconds"]["b"] = time.monotonic() - t0
+
+    # (c) hidden width 384: the chains against their plain versions, then a
+    # fused CLI render with a 6x384 asset
+    t0 = time.monotonic()
+    res["wide_checks"] = wide_chain.checks(dev)
+    for c in res["wide_checks"]:
+        phase(c["name"], c["ok"], **{k: f"{v:.3e}" if isinstance(v, float) else v
+                                     for k, v in c.items() if k not in ("name", "ok")})
+    res["wide_times_ms"] = wide_chain.times(dev)
+    print(f"[timing] width 384 ({smi}): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in res["wide_times_ms"].items())
+        + " (K3 per 1104x1000 sample; PERF.md's earlier K3 bf16 on the canonical asset on "
+        "this card: 3.058 ms)",
+        flush=True)
+    weights, meta = make_synthetic_nif(wide_chain.NET_SEED, hidden=384)
+    wide_asset = acc_dir / "nif_w384_synthetic"
+    save_assets(str(wide_asset), weights, meta, ["chip_smoke.py", "phase 10c"])
+    png = acc_dir / "w384_render.png"
+    for f in counters:
+        f.launches = 0
+    for f in plains:
+        f.cuda_runs = 0
+    rc = cli.main(["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(MAIN_SPS),
+                   "--samples-per-step", str(MAIN_SPS), "--assets", str(wide_asset),
+                   "-o", str(png)], use_fused_step=True)
+    got = [f.launches for f in counters]
+    hdr = frame_luminance(png.with_suffix(".exr"))[2] if rc == 0 else np.zeros((1, 1, 3))
+    res["wide_cli"] = {"rc": rc, "launches_trace_shade_megastep_apply": got,
+                       "mean": float(hdr.mean())}
+    phase("CLI fused render with a 6x384 asset (K3)", rc == 0 and got[2] == 1
+          and not any(f.cuda_runs for f in plains) and hdr.shape == (MAIN_H, MAIN_W, 3)
+          and bool(np.isfinite(hdr).all()) and float(hdr.mean()) > 0,
+          launches_trace_shade_megastep_apply=got, mean=f"{float(hdr.mean()):.5f}")
+    res["seconds"]["c"] = time.monotonic() - t0
+
+    # (d) the NIF tools once each, cut: 20 epochs, one arch, 256x512 envs;
+    # the reference-scale tool and the encode A/B on phase 6f's 2048x4096
+    # synth, last, so that phase 9 finds it cached (models/synth_env keeps one)
+    t0 = time.monotonic()
+    tools = (("nif_multienv", nif_multienv.main,
+              ["--archs", "192", "--seeds", "13", "--epochs", "20", "--size", "256x512"],
+              "nif_multienv.json"),
+             ("nif_hard_env_check", nif_hard_env_check.main,
+              ["--widths", "192", "--epochs", "20", "--size", "256x512"], "nif_hard_env.json"),
+             ("nif_width_sweep", nif_width_sweep.main,
+              ["--widths", "384", "--epochs", "20"], "nif_widths.json"),
+             ("nif_reference_scale", nif_reference_scale.main,
+              ["--archs", "192e16", "--epochs", "20"], "nif_reference_scale.json"),
+             ("encode_ab", encode_ab.main, ["--grid", "256x512"], "encode_ab.json"))
+    res["tools"] = {}
+    for name, tool, argv, json_name in tools:
+        tool_out = acc_dir / name
+        t1 = time.monotonic()
+        rc = tool(argv + ["--out", str(tool_out)])
+        doc_path = tool_out / json_name
+        doc = json.loads(doc_path.read_text()) if doc_path.is_file() else None
+        res["tools"][name] = {"doc": doc, "seconds": time.monotonic() - t1}
+        psnrs = re.findall(r'"\w*psnr\w*": (-?[0-9.]+)', json.dumps(doc))
+        ok = doc is not None and (rc == 0 or isinstance(rc, dict))  # encode_ab returns its doc
+        phase(f"NIF tool {name}", ok and bool(psnrs) and all(math.isfinite(float(x))
+                                                            for x in psnrs),
+              json=str(doc_path.relative_to(ROOT)), psnr_db=psnrs,
+              seconds=f"{time.monotonic() - t1:.1f}")
+    res["seconds"]["d"] = time.monotonic() - t0
+    print(f"[timing] phase 10 (a-d): " + ", ".join(f"{k} {v:.1f} s"
+                                                  for k, v in res["seconds"].items()), flush=True)
+    return res
+
+
 def main() -> None:
     # 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2015,6 +2136,9 @@ def main() -> None:
     for k, e in trained["err"].items():
         err[k] = max(err[k], e)
 
+    # 10. the accuracy acceptance, validation, width 384 and the NIF tools --
+    accuracy = accuracy_phase(out_dir, smi, dev, counters, plains)
+
     # 7. checks and timing at the main path's shapes ------------------------
     # 1,104,000 lanes end in a partial block, so the kernels' tail masks run
     # here.  These launches come after the counters were read above.
@@ -2610,6 +2734,24 @@ def main() -> None:
         "overlap_both": least_ms(overlap.LANES * 8 + bf16_w,
                               {"bf16": lanes_chain, "f32": 28 * alu}),
     }
+    # Phase 10c's 6x384 net, counted as the 6x320 rows are: K2 and K3 per
+    # 1104x1000 sample, K4 per bake chunk; bf16 weights 2 B, int8 1 B.
+    from ipu_path_trace_tpu_torch.models.nif import make_params, make_synthetic_nif
+    from ipu_path_trace_tpu_torch.probes import wide_chain
+
+    wide = make_params(*make_synthetic_nif(wide_chain.NET_SEED, hidden=384))
+    wide_macs = sum(fi * fo for fi, fo, _ in wide.layer_plan())
+    wide_chain_ops = 2 * wide_macs * escapes / MAIN_SPS
+    accuracy["wide_bounds_ms"] = {
+        "megastep_384_bf16": least_ms(k3_bytes + 2 * wide_macs,
+                                      {"bf16": wide_chain_ops, "f32": trace_ops}),
+        "megastep_384_int8": least_ms(k3_bytes + wide_macs,
+                                      {"int8": wide_chain_ops, "f32": trace_ops}),
+        "env_shade_384_bf16": least_ms(n * 36 + 2 * wide_macs, {"bf16": 2 * wide_macs * n}),
+        "nif_apply_384_bf16": least_ms(bake_u.shape[0] * 20 + 2 * wide_macs,
+                                       {"bf16": 2 * wide_macs * bake_u.shape[0]})}
+    print(f"[bound] 6x384 ({wide_macs} MACs a ray): " + ", ".join(
+        f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in accuracy["wide_bounds_ms"].items()), flush=True)
     # K8: features in and every output row out, the weights once; the
     # chain's real multiply-adds (padding is zero weights).
     for variant, ops in k8_ops.items():
@@ -2690,7 +2832,7 @@ def main() -> None:
          "cublas_chain_ms": {k: v[0] for k, v in times.items() if k.startswith("cublas")},
          "quant_probe": k8_res, "quant_probe_sass_mma": k8_sass, "quality_gate": quality,
          "tf32_chain": tf32_res, "turntable": tt, "exe_manifest": manifest,
-         "nif_tools": trained["numbers"],
+         "nif_tools": trained["numbers"], "accuracy": accuracy,
          "wgmma_sass_ptxas": wg_sass,
          "quality_gate_plain": quality_plain, "quality_gate_s": gate_s,
          "host_syncs": syncs, "ui_codec": codec, "ui_runs": ui_runs, "ui_parts": ui_parts,

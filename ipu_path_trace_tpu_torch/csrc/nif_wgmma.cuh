@@ -88,7 +88,9 @@
 // Per K step (16 bf16, 8 tf32 or 32 8-bit values: 32 bytes) a hidden layer
 // of NC 64-wide output chunks is one wgmma of N = 64 min(NC, 4) plus, for
 // a fifth chunk, one of N = 64 (tf32: each group's share, N = 64 NC_group);
-// the head is one of N = 8 (outputs padded to 8).
+// the head is one of N = 8 (outputs padded to 8).  A sixth chunk (hidden
+// widths 321-384) does not fit beside the others in registers: such a
+// layer runs in passes (wg_hidden_passes, below).
 //
 // Layouts: every wgmma operand is K-major; a row holds 64 K values - 128
 // bytes of bf16 under the 128-byte swizzle, 64 bytes of s8 under the
@@ -107,7 +109,7 @@
 //     reads only its own 64 rows as A, and it overwrites them with the
 //     layer's outputs after its last wgmma of the layer has completed,
 //     holding all of a layer's outputs (up to 320) as 160 accumulators per
-//     thread;
+//     thread (a wider layer: its passes' outputs, below);
 //   * features: their own atoms, written by the encode, the columns from
 //     4E up zeroed once per block.  Layer 0 reads them as its input, the
 //     skip layer as the slices after its trunk slices.
@@ -134,6 +136,22 @@
 // read twice.  The codes of every pass but the last wait in shared memory
 // (the plan's codes area, 32,768 B for 320 outputs) until the last pass has
 // read the trunk; held in registers they spilled.
+//
+// Hidden widths 321-384 (six chunks; the 1- and 2-byte chains): 192
+// accumulators a thread would leave too few of kWgConsumerRegs for the
+// epilogue and, in K3, the rays' state.  So the layer runs in two passes of
+// kWgPassChunks = 3 chunks (wg_hidden_passes), each one wgmma of N = 192 a
+// K step over all of the layer's slices, the producer streaming each
+// slice's rows of that pass (NifWg::passes; the ring's stages hold a
+// pass's rows, 24,576 B bf16), so no weight byte is read twice and at most
+// 96 accumulators are live.  Every pass reads the layer's input rows, so
+// the first pass's outputs cannot overwrite them: they wait in registers
+// as the words the epilogue stores - 48 bf16 pairs in registers, 144 with
+// the second pass's accumulators against the 160 of a five-chunk layer; the
+// int8 chain's s8 codes, both passes', in the plan's codes area (49,152 B
+// for 128 rays), as its six-chunk skip layer's three passes - and all are
+// stored once the group has finished the last pass.  The tf32 chain needs
+// no passes: its groups split the six chunks, three each.
 //
 // Shared-memory plan of K2 and K4, canonical 6x320 net (E = 12), computed
 // in ops/nif.py::wgmma_plan and carried here in NifWg (K3's, with its own
@@ -182,7 +200,9 @@ constexpr int kWgThreads = 128 * (kWgGroups + 1);  // + the producer warpgroup
 constexpr int kWgProducerRegs = 24;  // setmaxnreg of the producer warpgroup
 constexpr int kWgConsumerRegs = 240;  // and of the consumers
 constexpr int kWgMaxStages = 4;
-constexpr int kWgMaxChunks = 5;  // 64-wide output chunks of a hidden layer: 320 outputs
+constexpr int kWgMaxChunks = 6;  // 64-wide output chunks of a hidden layer: 384 outputs
+constexpr int kWgRegChunks = 5;  // chunks a layer holds in registers at once (160 accumulators)
+constexpr int kWgPassChunks = 3;  // chunks per pass of a wider layer (wg_hidden_passes)
 constexpr int kWgPassRows = 128;  // outputs per pass of the 8-bit skip layer
 constexpr int kWgSmemLimit = 232448;  // dynamic shared memory a block may use (227 KB)
 constexpr long long kWgHangClocks = 1ll << 34;
@@ -233,7 +253,8 @@ struct NifWg {
   // The 8-bit chains (int8 = 1: s8 slices, s32 accumulators):
   int int8;
   int smem_codes;  // the skip layer's codes of all passes but the last
-  int passes[kNifMaxLayers];  // output passes of kWgPassRows (8-bit skip layer), else 1
+  int passes[kNifMaxLayers];  // output passes: of kWgPassRows (8-bit skip layer) or
+                             // kWgPassChunks chunks (a wider layer), else 1
   float inv_next[kNifMaxLayers];  // requant step of each hidden layer's outputs
   const float* mult[kNifMaxLayers];  // accumulator multipliers, padded with zeros to the rows
   const float* mult_skip;  // the skip layer's feature-dot multipliers, likewise
@@ -817,6 +838,7 @@ struct ChainBf16 {
   static constexpr bool kInt8 = false;
   static constexpr bool kNarrow = false;  // (2-byte chains) K8's epilogue in place of ReLU
   static constexpr int kHeadOutputs = 3;
+  static constexpr int kMaxChunks = kWgMaxChunks;  // widest hidden layer it is built for
   using Acc = float;
   PT_HD static float head(const NifWg& net, int l, int o, float acc) {
     const float mean = o == 0 ? net.mean[0] : (o == 1 ? net.mean[1] : net.mean[2]);
@@ -832,6 +854,7 @@ struct ChainInt8 {
   static constexpr int kOp = 1;
   static constexpr bool kInt8 = true;
   static constexpr int kHeadOutputs = 3;
+  static constexpr int kMaxChunks = kWgMaxChunks;
   using Acc = int;
   PT_HD static float dense(int acc, float m, float b) {
     const float y = (float)acc * m;
@@ -1057,6 +1080,142 @@ PT_HD void wg_hidden(const NifWg& net, int l, WgConsumer& c, const Hook& hook) {
   group_sync(wg);
 }
 
+// One pass's products over layer l's slices, N outputs a K step, into acc:
+// wg_hidden's slice loop for a layer in passes, whose ring stages hold only
+// the pass's rows of each slice (so B starts at the stage); hook(l) while
+// the last slice's MMAs are in flight.
+template <class Ch, int N, class Hook>
+PT_HD void wg_pass_dots(const NifWg& net, int l, WgConsumer& c, typename Ch::Acc (&acc)[N / 2],
+                        const Hook& hook) {
+  constexpr int kOp = Ch::kOp;
+  WgPipe& p = c.pipe;
+  wg_zero(acc);
+  const int slices = net.in_atoms[l] + net.f_atoms[l];
+  int held = -1;
+  for (int s = 0; s < slices; ++s) {
+    uint64_t da, db;
+    wg_slice_begin<kOp>(net, l, s, p, c.a_act, c.a_feat, da, db);
+    wg_fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWgKSteps<kOp>; ++ks) wg_mma<Ch, N>(acc, da + 2 * ks, db + 2 * ks);
+    wg_commit();
+    wg_wait<1>();
+    wg_fence_regs(acc);
+    if (held >= 0) wg_release(p.empty, held, c.lane);
+    held = p.stage;
+    wg_advance(net, p);
+  }
+  hook(l);
+  wg_wait<0>();
+  wg_fence_regs(acc);
+  wg_release(p.empty, held, c.lane);
+}
+
+// The 32-bit words wg_store writes per 8 outputs: a bf16 pair for each of
+// the thread's two rows, or one word of s8 codes for both.
+template <class Ch>
+constexpr int kWgWords = Ch::kInt8 ? 1 : 2;
+
+// wg_store's epilogue for outputs o0.. of acc, as words (bf16: word 2i + h
+// is row h's pair of outputs o0 + 8i + 2tg; int8: word i, wg_codes').
+template <class Ch, int N>
+PT_HD void wg_words(const typename Ch::Acc (&acc)[N / 2], const NifWg& net, int l, int o0,
+                    int lane, uint32_t (&w)[N / 8 * kWgWords<Ch>]) {
+  const int tg = lane & 3;
+  const float* const bl = net.b[l];
+  const float* const ml = net.mult[l];
+  const float inv = net.inv_next[l];
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const int o = o0 + 8 * i + 2 * tg;
+    const float2 bias = wg_pair(bl, o);
+    if constexpr (Ch::kInt8) {
+      const float2 m = wg_pair(ml, o);
+      w[i] = wg_codes([&](int h, int e) {
+        return Ch::code(Ch::dense(acc[4 * i + 2 * h + e], e ? m.y : m.x, e ? bias.y : bias.x),
+                        inv);
+      });
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t lo = f32_to_bf16(fmaxf(acc[4 * i + 2 * h] + bias.x, 0.0f));
+        const uint32_t hi = f32_to_bf16(fmaxf(acc[4 * i + 2 * h + 1] + bias.y, 0.0f));
+        w[2 * i + h] = lo | (hi << 16);
+      }
+    }
+  }
+}
+
+// Stores wg_words' words for outputs o0.. into this thread's rows.
+template <class Ch, int N>
+PT_HD void wg_put_words(const uint32_t (&w)[N / 8 * kWgWords<Ch>], int o0, unsigned char* act,
+                        int wg, int lane) {
+  const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const int o = o0 + 8 * i + 2 * tg;
+    if constexpr (Ch::kInt8) {
+      wg_store_codes(act, wg, lane, o, w[i]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(act + wg_offset<2>(64 * wg + 16 * warp + g + 8 * h, o)) =
+            w[2 * i + h];
+    }
+  }
+}
+
+// A hidden layer of NC > kWgRegChunks chunks (bf16 and int8; the header
+// comment says why): the first kWgPassChunks chunks' products and epilogue,
+// kept as words, then the rest's, then both stored in place once every warp
+// of the group has read the layer's input rows.  bf16 keeps the first
+// pass's words in registers; int8 puts every pass's codes in the plan's
+// codes area (word w of consumer thread t at [w][t], as wg_skip's: held in
+// registers beside the s32 accumulators and K3's ray state, they spilled).
+// hook(l) runs in the last pass.
+template <class Ch, int NC, class Hook>
+PT_HD void wg_hidden_passes(const NifWg& net, int l, WgConsumer& c, const Hook& hook) {
+  constexpr int N0 = 64 * kWgPassChunks, N1 = 64 * NC - N0, kKept = N0 / 8 * kWgWords<Ch>;
+  static_assert(N1 > 0 && N1 <= N0, "two passes");
+  uint32_t* const stash = reinterpret_cast<uint32_t*>(c.smem + net.smem_codes) + threadIdx.x;
+  uint32_t kept[Ch::kInt8 ? 1 : kKept];
+  {
+    typename Ch::Acc acc[N0 / 2];
+    wg_pass_dots<Ch, N0>(net, l, c, acc, WgNoHook{});
+    if constexpr (Ch::kInt8) {
+      uint32_t w[kKept];
+      wg_words<Ch, N0>(acc, net, l, 0, c.lane, w);
+#pragma unroll
+      for (int i = 0; i < kKept; ++i) stash[i * kWgConsumers] = w[i];
+    } else {
+      wg_words<Ch, N0>(acc, net, l, 0, c.lane, kept);
+    }
+  }
+  constexpr int kLast = N1 / 8 * kWgWords<Ch>;
+  uint32_t last[kLast];
+  {
+    typename Ch::Acc acc[N1 / 2];
+    wg_pass_dots<Ch, N1>(net, l, c, acc, hook);
+    wg_words<Ch, N1>(acc, net, l, N0, c.lane, last);
+  }
+  if constexpr (Ch::kInt8) {
+#pragma unroll
+    for (int i = 0; i < kLast; ++i) stash[(kKept + i) * kWgConsumers] = last[i];
+  }
+  group_sync(c.wg);  // every warp's MMAs of this layer are done before rows are overwritten
+  if constexpr (Ch::kInt8) {  // word i: outputs 8i + 2tg, 8i + 2tg + 1 of both rows
+    const int tg = c.lane & 3;
+    for (int i = 0; i < kKept + kLast; ++i)
+      wg_store_codes(c.smem, c.wg, c.lane, 8 * i + 2 * tg, stash[i * kWgConsumers]);
+  } else {
+    wg_put_words<Ch, N0>(kept, 0, c.smem, c.wg, c.lane);
+    wg_put_words<Ch, N1>(last, N0, c.smem, c.wg, c.lane);
+  }
+  fence_proxy_async();
+  group_sync(c.wg);
+}
+
 // The tf32 chain's A operand for K step ks of one atom of the f32
 // activations or features (64 rows x 32 K values): this thread's four
 // values, as wgmma's m64nNk8 tf32 fragment holds them (value i at row
@@ -1185,7 +1344,9 @@ PT_HD void wg_skip_dots(const NifWg& net, int l, WgPipe& p, uint32_t a_act, uint
 // (header comment).  The codes of all passes but the last wait in the
 // plan's codes area (word w of consumer thread t at [w][t]: each thread
 // reads back only its own words) until every warp of the group has
-// finished the last pass's reads of the trunk.
+// finished the last pass's reads of the trunk; with six chunks the last
+// pass is a full one and its codes go there too (computed after the
+// barrier, beside the restored words, they spilled).
 template <class Ch, int NC, class Hook>
 PT_HD void wg_skip(const NifWg& net, int l, WgConsumer& c, const Hook& hook) {
   WgPipe& p = c.pipe;
@@ -1194,6 +1355,8 @@ PT_HD void wg_skip(const NifWg& net, int l, WgConsumer& c, const Hook& hook) {
   const int wg = c.wg, lane = c.lane;
   constexpr int kPasses = (NC + 1) / 2, NL = 64 * (NC - 2 * (kPasses - 1));  // last pass
   constexpr int kWords = kWgPassRows / 8;  // code words per thread and full pass
+  constexpr int o_last = kWgPassRows * (kPasses - 1);
+  constexpr bool kStashLast = NC > kWgRegChunks;
   const int tg = lane & 3;
   const float inv = net.inv_next[l];
   const float* const bl = net.b[l];
@@ -1219,13 +1382,19 @@ PT_HD void wg_skip(const NifWg& net, int l, WgConsumer& c, const Hook& hook) {
   }
   typename Ch::Acc acc[NL / 2], accf[NL / 2];
   wg_skip_dots<Ch, NL>(net, l, p, a_act, a_feat, lane, acc, accf, hook);
-  group_sync(wg);
-  for (int w = 0; w < kWords * (kPasses - 1); ++w)
-    wg_store_codes(act, wg, lane, 8 * w + 2 * tg, stash[w * kWgConsumers]);
-  constexpr int o_last = kWgPassRows * (kPasses - 1);
+  if constexpr (kStashLast) {
 #pragma unroll
-  for (int i = 0; i < NL / 8; ++i)
-    wg_store_codes(act, wg, lane, o_last + 8 * i + 2 * tg, codes(o_last, i, acc, accf));
+    for (int i = 0; i < NL / 8; ++i)
+      stash[(kWords * (kPasses - 1) + i) * kWgConsumers] = codes(o_last, i, acc, accf);
+  }
+  group_sync(wg);
+  for (int w = 0; w < kWords * (kPasses - 1) + (kStashLast ? NL / 8 : 0); ++w)
+    wg_store_codes(act, wg, lane, 8 * w + 2 * tg, stash[w * kWgConsumers]);
+  if constexpr (!kStashLast) {
+#pragma unroll
+    for (int i = 0; i < NL / 8; ++i)
+      wg_store_codes(act, wg, lane, o_last + 8 * i + 2 * tg, codes(o_last, i, acc, accf));
+  }
   fence_proxy_async();
   group_sync(wg);
 }
@@ -1363,6 +1532,15 @@ PT_HD void wg_head(const NifWg& net, int l, WgConsumer& c, int ray0, const Io& i
   }
 }
 
+// The bytes of one fill of layer l's slices: a pass's rows of a layer in
+// passes (the 8-bit skip layer's kWgPassRows, a wider layer's
+// kWgPassChunks chunks; the last pass may take fewer), else the slice.
+__host__ __device__ inline int wg_fill_bytes(const NifWg& net, int l) {
+  const int nc = net.chunks[l], passes = net.passes[l];
+  return passes > 1 ? net.slice_bytes[l] / nc * ((nc + passes - 1) / passes)
+                    : net.slice_bytes[l];
+}
+
 // The stream of slices: one producer thread walks each tile's slices
 // (layer by layer; a layer of several passes once per pass, that pass's
 // rows of each slice; a tf32 layer with a lo part each slice's hi then lo
@@ -1380,7 +1558,7 @@ struct WgProducer {
     for (int l = 0; l < net.num_layers; ++l) {
       const int slices = net.in_atoms[l] + net.f_atoms[l], passes = net.passes[l];
       const int slice = net.slice_bytes[l];
-      const int step = passes > 1 ? kWgPassRows * kWgRowBytes<1> : slice;  // a pass's rows
+      const int step = wg_fill_bytes(net, l);  // a pass's rows of each slice
       const unsigned char* const srcs[2] = {(const unsigned char*)net.w[l],
                                             (const unsigned char*)net.w_lo[l]};
       const int halves = net.w_lo[l] ? 2 : 1;  // the tf32 chain's lo slice after each hi one
@@ -1569,7 +1747,10 @@ PT_HD void wg_layers(const NifWg& net, WgConsumer& c, int ray0, const Io& io,
             case 2: wg_skip<Ch, 2>(net, l, c, hook); break;
             case 3: wg_skip<Ch, 3>(net, l, c, hook); break;
             case 4: wg_skip<Ch, 4>(net, l, c, hook); break;
-            default: wg_skip<Ch, kWgMaxChunks>(net, l, c, hook); break;
+            case 5: wg_skip<Ch, 5>(net, l, c, hook); break;
+            default:
+              if constexpr (Ch::kMaxChunks > 5) wg_skip<Ch, 6>(net, l, c, hook);
+              break;
           }
           continue;
         }
@@ -1580,7 +1761,7 @@ PT_HD void wg_layers(const NifWg& net, WgConsumer& c, int ray0, const Io& io,
             case 2: wg_skip_wide<Ch, 2>(net, l, c, hook); break;
             case 3: wg_skip_wide<Ch, 3>(net, l, c, hook); break;
             case 4: wg_skip_wide<Ch, 4>(net, l, c, hook); break;
-            default: wg_skip_wide<Ch, kWgMaxChunks>(net, l, c, hook); break;
+            default: wg_skip_wide<Ch, 5>(net, l, c, hook); break;  // K8: the 6x320 net
           }
           continue;
         }
@@ -1590,7 +1771,11 @@ PT_HD void wg_layers(const NifWg& net, WgConsumer& c, int ray0, const Io& io,
         case 2: wg_hidden<Ch, 2>(net, l, c, hook); break;
         case 3: wg_hidden<Ch, 3>(net, l, c, hook); break;
         case 4: wg_hidden<Ch, 4>(net, l, c, hook); break;
-        default: wg_hidden<Ch, kWgMaxChunks>(net, l, c, hook); break;
+        case 5: wg_hidden<Ch, 5>(net, l, c, hook); break;
+        default:
+          if constexpr (Ch::kMaxChunks > kWgRegChunks)
+            wg_hidden_passes<Ch, kWgMaxChunks>(net, l, c, hook);
+          break;
       }
     }
   }
@@ -1663,14 +1848,18 @@ __device__ __forceinline__ void wg_tiles(const NifWg& net, int tiles, Tile tile,
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) tile(c, t);
 }
 
-// K2, K4 and K8's body: io.n rays.  An Io with kFeatures = false gives each
-// ray's (u, v) (io.uv) for the encode; one with kFeatures = true puts
-// io.rows precomputed feature rows (io.put).  io.store(o, ray, y) takes
-// each head output.
+// K2, K4 and K8's tile t of io.n rays.  An Io with kFeatures = false
+// gives each ray's (u, v) (io.uv) for the encode; one with kFeatures = true
+// puts io.rows precomputed feature rows (io.put).  io.store(o, ray, y)
+// takes each head output.  A functor with a forced-inline call, not a
+// lambda: as a lambda, the int8 tile with six-chunk layers compiled to a
+// 1,160-byte stack frame and spilled in K2 and K4.
 template <class Ch, class Io>
-__device__ __forceinline__ void nif_wg_tiles(const NifWg& net, const Io& io) {
-  constexpr int kOp = Ch::kOp, kTile = kWgTileRays<kOp>;
-  wg_tiles<kOp>(net, (io.n + kTile - 1) / kTile, [&](WgConsumer& c, int tile) {
+struct WgNifTile {
+  const NifWg& net;
+  const Io& io;
+  __device__ __forceinline__ void operator()(WgConsumer& c, int tile) const {
+    constexpr int kOp = Ch::kOp, kTile = kWgTileRays<kOp>;
     const int ray0 = tile * kTile + wg_row0<kOp>(c.wg);
     if constexpr (Io::kFeatures) {  // the group's rows of the features (the encode's place)
       unsigned char* const feat = c.smem + net.smem_feat;
@@ -1696,7 +1885,14 @@ __device__ __forceinline__ void nif_wg_tiles(const NifWg& net, const Io& io) {
       wg_sync<kOp>(c.wg);
       wg_tile<Ch>(net, c, su, sv, ray0, io);
     }
-  });
+  }
+};
+
+// K2, K4 and K8's body: the tiles of io.n rays (WgNifTile).
+template <class Ch, class Io>
+__device__ __forceinline__ void nif_wg_tiles(const NifWg& net, const Io& io) {
+  constexpr int kTile = kWgTileRays<Ch::kOp>;
+  wg_tiles<Ch::kOp>(net, (io.n + kTile - 1) / kTile, WgNifTile<Ch, Io>{net, io});
 }
 
 // K2's ends: equirect (u, v) of the escape direction; bgr -> rgb times the
@@ -1739,11 +1935,13 @@ inline bool wg_valid(const NifWg& net) {
   if (net.int8 && net.tf32) return false;
   for (int l = 0; l < net.num_layers; ++l)
     if (((uintptr_t)net.w[l] & 15) || ((uintptr_t)net.w_lo[l] & 15) ||
-        (net.w_lo[l] && !net.tf32) || net.slice_bytes[l] > net.stage_bytes ||
-        net.chunks[l] < 0 || net.chunks[l] > kWgMaxChunks ||
+        (net.w_lo[l] && !net.tf32) || net.chunks[l] < 0 || net.chunks[l] > kWgMaxChunks ||
         net.passes[l] != (net.int8 && net.in_atoms[l] && net.f_atoms[l] && net.chunks[l]
                               ? (net.chunks[l] + 1) / 2
+                          : !net.tf32 && net.chunks[l] > kWgRegChunks
+                              ? (net.chunks[l] + kWgPassChunks - 1) / kWgPassChunks
                               : 1) ||
+        wg_fill_bytes(net, l) > net.stage_bytes ||
         (net.int8 && net.mult[l] == nullptr))
       return false;
   return !net.int8 || net.mult_skip != nullptr;

@@ -85,6 +85,7 @@ PT_HD uint32_t e4m3_to_bf16(uint32_t code) {
 template <int V, class A>
 struct K8Epilogue {
   static constexpr int kHeadOutputs = 8;
+  static constexpr int kMaxChunks = 5;  // the canonical 6x320 net only (probes/quant.py)
   using Acc = A;
   PT_HD static float dense(Acc acc, float m, float b) { return fmaf((float)acc, m, b); }
   PT_HD static float skip(Acc acc, Acc accf, float m, float ms, float b) {

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from collections.abc import Sequence
 
 import numpy as np
 import torch
@@ -310,6 +311,50 @@ def mlp_chain(model: NifModel, feats: torch.Tensor) -> torch.Tensor:
         if i != last:
             x = torch.relu(x).to(model.dtype)
     return x
+
+
+def make_synthetic_nif(
+    key: torch.Generator | int = 0,
+    embedding_dim: int = 12,
+    hidden: int | Sequence[int] = 320,
+    num_hidden: int = 6,
+    skip_layer: int | None = 3,
+    out_channels: int = 3,
+    dtype_name: str = "float16",
+) -> tuple[NifWeights, NifMetaData]:
+    """A random NIF with the canonical architecture (6 x 320, E = 12): the
+    JAX package's ``make_synthetic_nif`` in signature, shapes and scale.
+
+    ``hidden`` may be a per-layer width list; ``skip_layer`` makes that
+    hidden layer read its trunk concatenated with the 4E features.  Kernels
+    are He-normal, N(0, 1) * sqrt(2 / fan_in), biases N(0, 1) * 0.01, drawn
+    from ``key`` (a ``torch.Generator``, or an int seed for a CPU one).
+    ``jax.random`` cannot be replayed here, so the weights match the JAX
+    function's in shape and scale only, never value for value.
+    """
+    gen = key if isinstance(key, torch.Generator) else torch.Generator().manual_seed(int(key))
+    widths = [hidden] * num_hidden if isinstance(hidden, int) else list(hidden)
+    if len(widths) != num_hidden:
+        raise ValueError(f"need {num_hidden} widths, got {widths}")
+    in_dim = 4 * embedding_dim
+    dims, cur = [], in_dim
+    for i, width in enumerate(widths):
+        dims.append((cur + in_dim if skip_layer is not None and i == skip_layer else cur, width))
+        cur = width
+    dims.append((cur, out_channels))
+    layers = []
+    for i, (fan_in, fan_out) in enumerate(dims):
+        kern = torch.randn((fan_in, fan_out), generator=gen) * np.sqrt(2.0 / fan_in)
+        bias = torch.randn((fan_out,), generator=gen) * 0.01
+        layers.append(NifLayer(name=f"dense_{i}", kernel=kern.numpy().astype(np.float32),
+                               bias=bias.numpy().astype(np.float32),
+                               activation="none" if i == len(dims) - 1 else "relu",
+                               dtype=dtype_name))
+    meta = NifMetaData(embedding_dimension=embedding_dim, name="synthetic",
+                       image_shape=(2048, 4096, 3), eps=1e-8, log_tone_map=True, max=3.43,
+                       mean=np.asarray([-2.35, -2.27, -1.96], np.float32) - 1e-8,
+                       hidden_size=widths[0])
+    return NifWeights(layers), meta
 
 
 def analyse_nif(weights: NifWeights, sample_count: int) -> dict:

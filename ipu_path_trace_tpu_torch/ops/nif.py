@@ -48,7 +48,9 @@ WG_TF32_RAYS = 64  # kWgTileRays<4>: the tf32 chain's tile
 WG_ATOM = 64  # K values of a bf16 or s8 slice row and activation atom (tf32: 32)
 WG_ATOM_BYTES = WG_RAYS * 2 * WG_ATOM  # kWgAtomBytes of the bf16 chain (128-byte rows)
 WG_CHUNK = 64  # wgmma N of a hidden layer's output chunk
-WG_MAX_CHUNKS = 5  # kWgMaxChunks: hidden widths up to 320
+WG_MAX_CHUNKS = 6  # kWgMaxChunks: hidden widths up to 384
+WG_REG_CHUNKS = 5  # kWgRegChunks: chunks a layer holds in registers at once
+WG_PASS_CHUNKS = 3  # kWgPassChunks: chunks per pass of a wider layer
 WG_HEAD_ROWS = 8  # wgmma N of the head: outputs padded to 8
 WG_PASS_ROWS = 128  # kWgPassRows: outputs per pass of the 8-bit skip layer
 WG_MAX_STAGES = 4  # kWgMaxStages
@@ -81,12 +83,15 @@ def chain_plan(layer_plan, feat: int, elem: int, tail_bytes: int = WG_UV_BYTES,
     width, its K-slices of a row's K values (``row_bytes // elem``: 64, or
     32 for f32) from the activations (``in_atoms``) and from the features
     (``f_atoms``: layer 0 and the skip layer), its ``passes`` (the 8-bit
-    skip layer's two dots run over WG_PASS_ROWS outputs at a time, each
-    pass reading those rows of every slice); then the block's bytes -
-    activation and feature atoms (a row for each of the tile's rays:
-    ``tile_rays``), the codes of the skip layer's passes but the last
-    (``smem_codes``), ring stages of the largest slice (as many as fit, at
-    most 4), barriers, ``tail_bytes`` from ``smem_uv`` on (K2 and K4: the
+    skip layer's two dots run over WG_PASS_ROWS outputs at a time; a
+    1- or 2-byte layer wider than WG_REG_CHUNKS chunks over WG_PASS_CHUNKS
+    chunks at a time; each pass reading those rows of every slice) and the
+    bytes of one fill of the ring (``fill_bytes``: a pass's rows of a
+    slice); then the block's bytes - activation and feature atoms (a row
+    for each of the tile's rays: ``tile_rays``), the codes an 8-bit layer
+    in passes keeps back (``smem_codes``), ring stages of the
+    largest fill (as many as fit, at most 4), barriers, ``tail_bytes``
+    from ``smem_uv`` on (K2 and K4: the
     (u, v) of 128 rays; K3: ops/megastep.megastep_wg_plan), alignment -
     with each piece's offset.  Raises ValueError, naming the limit, for a
     shape the chain cannot take (``what`` names the kernel in the
@@ -112,14 +117,22 @@ def chain_plan(layer_plan, feat: int, elem: int, tail_bytes: int = WG_UV_BYTES,
                                  f"hidden widths up to {WG_MAX_CHUNKS * WG_CHUNK}")
             rows = chunks * WG_CHUNK
         trunk = 0 if i == 0 else fan_in - feat if skip else fan_in
+        skip8 = elem == 1 and i and skip and chunks  # the 8-bit skip layer's two dots
+        passes = (-(-chunks // 2) if skip8 else
+                  -(-chunks // WG_PASS_CHUNKS) if elem != 4 and chunks > WG_REG_CHUNKS else 1)
+        pass_rows = -(-chunks // passes) * WG_CHUNK if passes > 1 else rows
         layers.append(dict(fan_in=fan_in, fan_out=fan_out, trunk=trunk, rows=rows, chunks=chunks,
                            in_atoms=-(-trunk // row_k),
                            f_atoms=f_atoms if i == 0 or skip else 0,
-                           passes=-(-chunks // 2) if elem == 1 and i and skip and chunks else 1,
-                           slice_bytes=rows * row))
+                           passes=passes, slice_bytes=rows * row, fill_bytes=pass_rows * row))
     act_atoms = max([lay["chunks"] for lay in layers] + [0]) * WG_CHUNK // row_k
-    stage_bytes = max(lay["slice_bytes"] for lay in layers)
-    codes = WG_RAYS * WG_PASS_ROWS * (max(lay["passes"] for lay in layers) - 1)
+    stage_bytes = max(lay["fill_bytes"] for lay in layers)
+    # The codes area of an 8-bit layer in passes: the skip layer's passes but
+    # the last; every output of a layer wider than WG_REG_CHUNKS chunks
+    # (wg_hidden_passes, and wg_skip's six chunks).
+    codes = max([WG_RAYS * (lay["rows"] if lay["chunks"] > WG_REG_CHUNKS else
+                            lay["fill_bytes"] // row * (lay["passes"] - 1))
+                 for lay in layers if elem == 1 and lay["passes"] > 1] + [0])
     smem_feat = act_atoms * atom_bytes
     smem_codes = smem_feat + f_atoms * atom_bytes
     smem_ring = smem_codes + -(-codes // WG_ALIGN) * WG_ALIGN

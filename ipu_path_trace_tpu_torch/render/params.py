@@ -2,10 +2,9 @@
 
 Counterpart of ``ipu_path_trace_tpu/render/params.py`` with the same
 field names and defaults.  PyTorch runs eagerly, so the split between
-"static" and "traced" fields only survives as documentation; the fields
-whose feature the port does not have yet (``use_pallas=False``,
-``pallas_interpret``) are validated by ``render.wavefront.render_step``
-and raise when set.
+"static" and "traced" fields only survives as documentation; the
+reference's XLA-path fields (``use_pallas=False``, ``pallas_interpret``)
+are refused by ``render.wavefront.render_step`` when set.
 """
 
 from __future__ import annotations

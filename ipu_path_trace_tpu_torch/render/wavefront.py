@@ -255,13 +255,16 @@ def dead_block_fraction(scene: Scene, settings: RenderSettings, cfg: StaticConfi
 
 
 def _check_ported(cfg: StaticConfig) -> None:
-    for name, on, item in (
+    """Refuse the reference's XLA-path switches, as the CLI does: the port
+    always runs its kernels, and takes explicit host noise (``noise=``) in
+    place of interpret mode (ROADMAP.md queue 1 item 20)."""
+    for name, on, why in (
             ("use_pallas=False", not cfg.use_pallas,
-             "queue 1 item 20: the port always runs its kernels"),
+             "the port always runs its kernels (the plain versions on the CPU)"),
             ("pallas_interpret", cfg.pallas_interpret > 0,
-             "queue 1 item 20: pass host noise as noise=")):
+             "pass host noise as noise= instead")):
         if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md {item})")
+            raise ValueError(f"{name} is refused: {why} (ROADMAP.md queue 1 item 20)")
 
 
 def render_step(scene: Scene, settings: RenderSettings, cfg: StaticConfig, work: WorkBatch,

@@ -156,6 +156,10 @@ QUICK_TESTS = {
     ("test_torch_flags.py", "test_save_exe_then_load_exe"),
     ("test_torch_flags.py", "test_only_multi_gpu_flags_stay_unported"),
     ("test_torch_turntable.py", "test_turntable_animation"),
+    # the port's oracle, validation probes and NIF tools (minus the renders)
+    ("test_torch_oracle.py", "test_oracle_equals_the_jax_oracle"),
+    ("test_torch_validate.py", "test_rmse_equals_the_script"),
+    ("test_torch_nif_tools.py", "test_parse_arch_and_psnr_log_equal_the_scripts"),
     # checkpoint/resume
     ("test_checkpoint.py", "test_checkpoint_validation"),
     ("test_checkpoint.py", "test_resume_rejects_mismatched_config"),

@@ -101,7 +101,7 @@ def test_fused_and_unfused_steps_agree_on_generator_noise():
 def test_render_step_rejects_unported_config(field, value):
     work = to_device_batch(make_worklist(4, 4), "cpu")
     cfg = StaticConfig(width=4, height=4, max_path_length=2)._replace(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"is refused: .*\(ROADMAP\.md queue 1 item 20\)"):
         render_step(default_scene(), RenderSettings.make(samples_per_step=1), cfg, work,
                     (1, 2), ConstantEnv((1.0, 1.0, 1.0)))
 

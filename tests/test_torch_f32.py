@@ -180,7 +180,7 @@ def _f32_model(widths, embed=12, head=3, skip=None, seed=0):
 
 
 @pytest.mark.parametrize("widths, embed, head, match", [
-    ([384], 12, 3, "hidden widths up to 320"),
+    ([448], 12, 3, "hidden widths up to 384"),
     ([320], 12, 16, "head takes at most 8"),
     ([64] * 16, 12, 3, "at most 16"),
     ([320, 320], 128, 3, "shared memory"),

@@ -28,7 +28,7 @@ from ipu_path_trace_tpu_torch.ops import nif as nif_ops
 ASSETS = ["assets/urban_alley_synth_nif", "assets/procedural_sky_nif", "assets/nif_w128",
           "assets/nif_w192", "assets/nif_w192e16", "assets/nif_w256e16",
           "assets/nif_m128-128-80-128-128-128"]
-SYNTHETIC = ["synthetic-64", "synthetic-64-32-48"]
+SYNTHETIC = ["synthetic-64", "synthetic-64-32-48", "synthetic-384"]
 SHAPES = ASSETS + SYNTHETIC
 
 
@@ -84,7 +84,8 @@ def test_slices_unswizzle_to_the_weights(shape):
 def test_plan_fits_a_block(shape):
     """The shared-memory plan the launcher uses stays within 227 KB, its
     pieces lie in order without overlap, the swizzled ones on 1024-byte
-    boundaries, and every slice fits a ring stage."""
+    boundaries, and every fill of the ring (a slice, or a pass's rows of
+    one for a layer in passes) fits a stage."""
     model = nif.params_from_jax(_jax_params(shape))
     plan = nif_ops.wgmma_plan(model)
     assert plan["smem_bytes"] <= 232_448
@@ -101,7 +102,9 @@ def test_plan_fits_a_block(shape):
     layers = plan["layers"]
     assert [lay["chunks"] for lay in layers[-1:]] == [0] and layers[-1]["rows"] == 8
     for i, lay in enumerate(layers):
-        assert lay["slice_bytes"] == lay["rows"] * 128 <= plan["stage_bytes"]
+        assert lay["slice_bytes"] == lay["rows"] * 128
+        assert lay["fill_bytes"] <= plan["stage_bytes"]
+        assert lay["fill_bytes"] * lay["passes"] >= lay["slice_bytes"]
         assert lay["in_atoms"] <= plan["act_atoms"]
         assert (lay["f_atoms"] > 0) == (i == 0 or lay["trunk"] != lay["fan_in"])
         if i:  # the trunk is the previous layer's output
@@ -139,7 +142,7 @@ def _model(widths, embed=12, head=3, skip=None):
 
 
 @pytest.mark.parametrize("widths, embed, head, match", [
-    ([384, 384], 12, 3, "hidden widths up to 320"),
+    ([448, 448], 12, 3, "hidden widths up to 384"),
     ([320, 320], 12, 16, "head takes at most 8"),
     ([64] * 16, 12, 3, "at most 16"),
     ([320, 320], 128, 3, "shared memory"),
@@ -150,6 +153,50 @@ def test_unsupported_shapes_raise(widths, embed, head, match):
         nif_ops.wgmma_plan(model)
     with pytest.raises(ValueError, match=match):  # the launch path raises, with no fallback
         nif_ops.wg_struct(model)
+
+
+@pytest.mark.parametrize("chain, plan_k2, plan_k3", [
+    ("bf16", (4, 24_576, 215_104), 219_520),
+    ("int8", (4, 12_288, 157_760), 162_176),
+    ("f32", (2, 49_152, 215_104), 219_520),
+])
+def test_wide_plan_384(chain, plan_k2, plan_k3):
+    """A 6x384 net (six 64-wide chunks a hidden layer) fits every chain's
+    block beside K3's tail: bf16 and int8 run each hidden layer in two
+    passes of three chunks (the int8 skip layer its three passes of 128
+    outputs), so a ring stage holds a pass's rows and four stages fit; the
+    tf32 chain's groups take three chunks each, in one pass, two stages of
+    whole slices.  (stages, stage bytes, K2/K4 plan bytes), K3's plan bytes."""
+    from ipu_path_trace_tpu_torch.core.scene import default_scene
+    from ipu_path_trace_tpu_torch.ops import megastep
+
+    weights, meta = nif.make_synthetic_nif(0, hidden=384)
+    model = (quantize_nif(weights, meta, grid=(16, 32)) if chain == "int8" else
+             nif.make_params(weights, meta, torch.bfloat16 if chain == "bf16" else torch.float32))
+    plan = nif_ops.wgmma_plan(model)
+    assert (plan["stages"], plan["stage_bytes"], plan["smem_bytes"]) == plan_k2
+    assert megastep.megastep_wg_plan(model, default_scene())["smem_bytes"] == plan_k3 <= 232_448
+    skip = {"bf16": 2, "int8": 3, "f32": 1}[chain]
+    passes = {"bf16": 2, "int8": 2, "f32": 1}[chain]
+    assert [(lay["chunks"], lay["passes"]) for lay in plan["layers"]] == [
+        (6, skip if i == 3 else passes) if i < 6 else (0, 1) for i in range(7)]
+    assert [lay["passes"] for lay in plan["layers"]] == list(nif_ops.wg_struct(model).passes[:7])
+
+
+def test_plain_nif_384_matches_jax():
+    """The port's plain NIF on a 6x384 bf16 net (the JAX package's
+    make_synthetic_nif weights) against the JAX package's nif_apply, within
+    the reference's bf16 budget."""
+    weights, meta = jnif.make_synthetic_nif(key=3, hidden=384)
+    jp = jnif.make_params(weights, meta, jnp.bfloat16)
+    model = nif.params_from_jax(jp)
+    rng = np.random.default_rng(12)
+    u, v = rng.uniform(0.0, 1.0, (2, 1000)).astype(np.float32)
+    ref = np.asarray(jnif.nif_apply(jp, jnp.asarray(u), jnp.asarray(v)))
+    got = nif.nif_apply(model, torch.from_numpy(u), torch.from_numpy(v)).numpy()
+    rel = np.abs(got - ref) / (np.abs(ref) + 1e-2 * np.abs(ref).max())
+    assert np.median(rel) < 5e-3
+    assert rel.max() < 8e-2
 
 
 def test_kernel_nets_pick_the_chain():
