@@ -217,6 +217,23 @@ Phases, one line each:
                 torch._scaled_mm chain; and K3 int8 must beat the
                 torch._int_mm chain's products alone (and so the whole
                 chain).
+  11. mesh    - the device mesh (parallel/mesh.py, probes/validate_mesh.py) on
+                one card, after phase 10: the 1x1 mesh bit for bit against the
+                mesh-less render with the folded seed at 1104x1000 @ 8 spp
+                (bf16 and int8; Philox, Sobol, two adaptive steps with lum2);
+                the virtual 8x1, 4x2 and 2x4 meshes on cuda:0 against their
+                single-device replay (K3, and K1 + K2; 8x1 bit for bit, the
+                others within rtol 1e-6, atol 1e-7), each with one sharded step
+                under torch.cuda.set_sync_debug_mode("error"); the K3 step per
+                sample of the mesh-less render, the 1x1 and the virtual meshes,
+                timed; the CLI with --mesh-shape 1x1 (host film, device film,
+                unfused, baked, --device-timing), the launch counters zeroed
+                before each run and read after, each frame within 5 SE of its
+                mesh-less run of phase 6 and the Samples/sec/chip line logged;
+                --ipus one more than the GPUs exits non-zero naming both
+                counts; with two GPUs or more the 2x1 and 1x2 meshes over two
+                of them (NCCL) against the replay, else one line saying that
+                it did not run (neither PASS nor FAIL); its seconds printed;
 Then a JSON line with the kernels, the nvidia-smi line again, and the last
 line {"ok": true, "device": {...}}.  Any failed check exits non-zero and
 prints no result.  Tolerances are the reference's own:
@@ -1426,6 +1443,161 @@ def accuracy_phase(out_dir: Path, smi: str, dev, counters, plains) -> dict:
     return res
 
 
+def mesh_phase(out_dir: Path, smi: str, dev, counters, plains, app_log, main_lum: dict,
+               main_split: dict, bake_chunks: int) -> dict:
+    """Phase 11, the device mesh (parallel/mesh.py) on one card: (a)
+    probes/validate_mesh.py's 1x1 mesh against the mesh-less render, bit
+    for bit, bf16 and int8, Philox, Sobol and adaptive; (b) the virtual
+    8x1, 4x2 and 2x4 meshes on cuda:0 against their replay, fused and
+    unfused, each with a step under set_sync_debug_mode("error"), then the
+    K3 step of the mesh-less render, the 1x1 and the virtual meshes timed;
+    (c) the CLI with --mesh-shape 1x1 (host film, device film, unfused,
+    baked, --device-timing), counters zeroed before each run and read after,
+    each frame within 5 SE of the mesh-less run of phase 6; (d) --ipus one
+    more than the GPUs exits non-zero naming both counts; (e) with two
+    GPUs or more, 2x1 and 1x2 meshes over two of them (NCCL) against the
+    replay, else one line saying it did not run."""
+    from ipu_path_trace_tpu_torch.core.records import to_device_batch
+    from ipu_path_trace_tpu_torch.core.scene import default_scene
+    from ipu_path_trace_tpu_torch.ops import megastep
+    from ipu_path_trace_tpu_torch.parallel.mesh import (make_mesh, parse_mesh_shape, replicate,
+                                                        shard_work, sharded_render_step)
+    from ipu_path_trace_tpu_torch.probes import validate_mesh
+    from ipu_path_trace_tpu_torch.render.params import RenderSettings, StaticConfig
+    from ipu_path_trace_tpu_torch.render.wavefront import render_step
+    from ipu_path_trace_tpu_torch.runtime import cli
+    from ipu_path_trace_tpu_torch.utils.devtime import time_per_call
+
+    t11 = time.monotonic()
+    res = {"seconds": {}, "cli": {}}
+
+    def report(checks):
+        for c in checks:
+            phase(c["name"], c["ok"], **{k: f"{v:.3e}" if isinstance(v, float) else v
+                                         for k, v in c.items() if k not in ("name", "ok")})
+
+    # (a) the 1x1 mesh against the mesh-less render
+    t0 = time.monotonic()
+    envs = validate_mesh.load_envs(dev)
+    res["a"] = validate_mesh.run_1x1(dev, MAIN_W, MAIN_H, MAIN_SPS, envs)
+    report(res["a"])
+    res["seconds"]["a"] = time.monotonic() - t0
+
+    # (b) virtual meshes on cuda:0 against the replay, then the step times
+    t0 = time.monotonic()
+    res["b"] = validate_mesh.run_virtual(dev, validate_mesh.SHAPES, MAIN_W, MAIN_H, MAIN_SPS,
+                                         envs["bf16"])
+    report(res["b"])
+    scene, env = default_scene(dev), envs["bf16"]
+    cfg = StaticConfig(width=MAIN_W, height=MAIN_H)
+    seed = validate_mesh.SEED
+    work = to_device_batch(validate_mesh.worklist(MAIN_W, MAIN_H, scene), dev)
+    step_ms = {"mesh-less": time_per_call(lambda: render_step(
+        scene, RenderSettings.make(samples_per_step=MAIN_SPS), cfg, work, seed, env), 5,
+        dev) * 1e3 / MAIN_SPS}
+    for shape in ("1x1", "4x2", "2x4"):
+        n = math.prod(int(x) for x in shape.split("x"))
+        px, sm = parse_mesh_shape(shape, n)
+        m = make_mesh(n, shape, [dev] * n)
+        args = (replicate(scene, m), RenderSettings.make(samples_per_step=MAIN_SPS // sm), cfg,
+                shard_work(to_device_batch(validate_mesh.worklist(MAIN_W, MAIN_H, scene, px),
+                                           dev), m), seed, replicate(env, m), m)
+        step_ms[shape] = time_per_call(lambda a=args: sharded_render_step(*a), 5,
+                                       dev) * 1e3 / MAIN_SPS
+    res["step_ms_per_sample"] = step_ms
+    print(f"[timing] mesh K3 step per 1104x1000 sample ({MAIN_SPS} samples a step, bf16; "
+          f"{smi}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in step_ms.items()), flush=True)
+    res["seconds"]["b"] = time.monotonic() - t0
+
+    # (c) the CLI on a 1x1 mesh, each run beside its mesh-less twin of phase 6
+    t0 = time.monotonic()
+    steps = MAIN_SPP // MAIN_SPS
+    fused_want = [2, 0, steps, 0]  # the env-skip probe's two K1 launches, K3 a step
+    runs = [("mesh 1x1 fused", [], True, fused_want, "main fused"),
+            ("mesh 1x1 device film", ["--device-film"], True, fused_want, "device film"),
+            ("mesh 1x1 unfused", [], False, [MAIN_SPP, MAIN_SPP, 0, 0], "main unfused"),
+            ("mesh 1x1 baked", ["--nif-mode", "baked"], True, [MAIN_SPP, 0, 0, bake_chunks],
+             "main baked"),
+            ("mesh 1x1 device timing", ["--device-timing"], True, [2, 0, steps + 3, 0], None)]
+    for name, flags, fused, want, twin in runs:
+        png = out_dir / f"{name.replace(' ', '_')}.png"
+        app_log.lines.clear()
+        for f in counters:
+            f.launches = 0
+        for f in plains:
+            f.cuda_runs = 0
+        megastep.render_megastep.stub_launches = dict.fromkeys(megastep.STUBS, 0)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        rc = cli.main(["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(MAIN_SPP),
+                       "--samples-per-step", str(MAIN_SPS), "--assets", str(ROOT / ASSET),
+                       "-o", str(png), "--mesh-shape", "1x1", *flags], use_fused_step=fused)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t1
+        got = [f.launches for f in counters]
+        plain_cuda = [f.cuda_runs for f in plains]
+        mean, se, hdr = frame_luminance(png.with_suffix(".exr"))
+        per_chip = [ln for ln in app_log.lines if ln.startswith("Samples/sec/chip: ")]
+        ok = (rc == 0 and got == want and not any(plain_cuda) and len(per_chip) == 1
+              and any(ln.startswith("Device mesh: {'pixels': 1, 'samples': 1}")
+                      for ln in app_log.lines)
+              and bool(np.isfinite(hdr).all()) and hdr.shape == (MAIN_H, MAIN_W, 3))
+        info = {"launches_trace_shade_megastep_apply": got, "plain_runs_on_cuda": plain_cuda,
+                "mean_luminance": f"{mean:.6f}", "mc_se": f"{se:.2e}", "wall_s": f"{secs:.2f}",
+                "per_chip": per_chip[0] if per_chip else None}
+        if twin is not None:
+            gap = abs(mean - main_lum[twin][0])
+            bound = 5.0 * math.hypot(se, main_lum[twin][1])
+            ok = ok and gap <= bound
+            info.update(mesh_less=twin, luminance_gap=f"{gap:.3e}", bound_5se=f"{bound:.3e}")
+        else:
+            stubs = dict(megastep.render_megastep.stub_launches)
+            splits = app_log.phase_splits()
+            split = splits[-1] if splits else {}
+            parts = [split.get(k, 0.0) for k in ("env_ms", "trace_ms", "overhead_ms")]
+            ok = (ok and len(splits) == 1 and all(x > 0 for x in parts)
+                  and abs(sum(parts) - split.get("step_ms", 0.0)) <= 2e-3
+                  and stubs == {"nif": 3, "trace": 0, "both": 3})
+            info.update(stub_launches=stubs, split=split)
+            res["split"] = split
+            print(f"[timing] device phase split, 1x1 mesh beside mesh-less ({smi}): step "
+                  f"{split.get('step_ms', 0.0):.4f} vs {main_split.get('step_ms', 0.0):.4f} ms "
+                  f"a sample, {json.dumps(split)}", flush=True)
+        res["cli"][name] = info
+        phase(name, ok, **info)
+    res["seconds"]["c"] = time.monotonic() - t0
+
+    # (d) one GPU more than the machine has
+    t0 = time.monotonic()
+    n = torch.cuda.device_count()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ipu_path_trace_tpu_torch.runtime.cli", "-w", "64", "-H", "48",
+         "-s", "1", "--samples-per-step", "1", "--assets", str(ROOT / ASSET),
+         "-o", str(out_dir / "ipus.png"), "--ipus", str(n + 1)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    want = f"Requested {n + 1} GPUs but only {n} available"
+    phase(f"--ipus {n + 1} on {n} GPU(s) refused", proc.returncode != 0 and want in proc.stderr
+          and not (out_dir / "ipus.png").exists(), rc=proc.returncode,
+          message=want if want in proc.stderr else proc.stderr[-300:])
+    res["seconds"]["d"] = time.monotonic() - t0
+
+    # (e) distinct GPUs: NCCL across the sample replicas
+    if n >= 2:
+        t0 = time.monotonic()
+        res["e"] = validate_mesh.run_virtual(dev, ("2x1", "1x2"), MAIN_W, MAIN_H, MAIN_SPS,
+                                             envs["bf16"], devices=[dev, torch.device("cuda", 1)])
+        report(res["e"])
+        res["seconds"]["e"] = time.monotonic() - t0
+    else:
+        print(f"[mesh] phase 11e not run: {n} GPU on this machine; the 2x1 and 1x2 meshes over "
+              "distinct GPUs (NCCL) need two. Neither PASS nor FAIL.", flush=True)
+    res["seconds"]["total"] = time.monotonic() - t11
+    print(f"[timing] phase 11 (mesh): " + ", ".join(f"{k} {v:.1f} s"
+                                                    for k, v in res["seconds"].items())
+          + f" ({smi})", flush=True)
+    return res
+
+
 def main() -> None:
     # 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2139,6 +2311,9 @@ def main() -> None:
     # 10. the accuracy acceptance, validation, width 384 and the NIF tools --
     accuracy = accuracy_phase(out_dir, smi, dev, counters, plains)
 
+    # 11. the device mesh on one card ---------------------------------------
+    mesh_res = mesh_phase(out_dir, smi, dev, counters, plains, app_log, lum, split, bake_chunks)
+
     # 7. checks and timing at the main path's shapes ------------------------
     # 1,104,000 lanes end in a partial block, so the kernels' tail masks run
     # here.  These launches come after the counters were read above.
@@ -2832,7 +3007,7 @@ def main() -> None:
          "cublas_chain_ms": {k: v[0] for k, v in times.items() if k.startswith("cublas")},
          "quant_probe": k8_res, "quant_probe_sass_mma": k8_sass, "quality_gate": quality,
          "tf32_chain": tf32_res, "turntable": tt, "exe_manifest": manifest,
-         "nif_tools": trained["numbers"], "accuracy": accuracy,
+         "nif_tools": trained["numbers"], "accuracy": accuracy, "mesh": mesh_res,
          "wgmma_sass_ptxas": wg_sass,
          "quality_gate_plain": quality_plain, "quality_gate_s": gate_s,
          "host_syncs": syncs, "ui_codec": codec, "ui_runs": ui_runs, "ui_parts": ui_parts,

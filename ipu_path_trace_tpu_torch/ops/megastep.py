@@ -258,12 +258,13 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     common = (_lib.ptr(sph), _lib.ptr(dsc), _lib.ptr(cols), _lib.ptr(rows))
     tail = (_lib.ptr(pid), _lib.ptr(base), _lib.ptr(budgets), budget_block, samples, n,
             int(bool(env_skip)), _lib.ptr(rad), _lib.ptr(plen), _lib.ptr(lum2))
-    if stub is None:
-        err = lib.pt_megastep(ctypes.byref(prm), wg, *common, _lib.ptr(noise), *tail,
-                              _lib.stream(dev))
-    else:
-        err = lib.pt_megastep_stub(ctypes.byref(prm), wg, *common, *tail, STUBS[stub],
-                                   _lib.stream(dev))
+    with torch.cuda.device(dev):  # the launch's shared-memory attribute, SM count and stream
+        if stub is None:
+            err = lib.pt_megastep(ctypes.byref(prm), wg, *common, _lib.ptr(noise), *tail,
+                                  _lib.stream(dev))
+        else:
+            err = lib.pt_megastep_stub(ctypes.byref(prm), wg, *common, *tail, STUBS[stub],
+                                       _lib.stream(dev))
     _lib.check(err, "megastep" if stub is None else f"megastep stub '{stub}'")
     if stub is None:
         render_megastep.launches += 1

@@ -382,8 +382,9 @@ def nif_apply_t(model: NifModel, u: torch.Tensor, v: torch.Tensor) -> torch.Tens
     if v.shape != (n,):
         raise ValueError("nif apply: u and v must be (P,)")
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    err = _lib.library().pt_nif_apply(wg_arg(wg_struct(model)), _lib.ptr(u), _lib.ptr(v), n,
-                                      _lib.ptr(out), _lib.stream(dev))
+    with torch.cuda.device(dev):
+        err = _lib.library().pt_nif_apply(wg_arg(wg_struct(model)), _lib.ptr(u), _lib.ptr(v), n,
+                                          _lib.ptr(out), _lib.stream(dev))
     _lib.check(err, "nif apply")
     nif_apply_t.launches += 1
     return out
@@ -417,9 +418,10 @@ def nif_env_shade(model: NifModel, esc_dir: Vec3, esc_w: Vec3, azimuth: float) -
     dev = _lib.require_cuda("env shade", escd, escw, *model_tensors(model))
     n = escd.shape[1]
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    err = _lib.library().pt_env_shade(wg_arg(wg_struct(model)), _lib.ptr(escd),
-                                      _lib.ptr(escw), float(azimuth), n, _lib.ptr(out),
-                                      _lib.stream(dev))
+    with torch.cuda.device(dev):
+        err = _lib.library().pt_env_shade(wg_arg(wg_struct(model)), _lib.ptr(escd),
+                                          _lib.ptr(escw), float(azimuth), n, _lib.ptr(out),
+                                          _lib.stream(dev))
     _lib.check(err, "env shade")
     nif_env_shade.launches += 1
     return Vec3.unstack(out)

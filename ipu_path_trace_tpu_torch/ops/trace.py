@@ -246,12 +246,13 @@ class TraceLaunch:
     trace_sample prepares one per call; timing the kernel alone launches one
     back to back."""
 
-    def __init__(self, args: tuple, outputs: tuple, keep: tuple):
+    def __init__(self, args: tuple, outputs: tuple, keep: tuple, device: torch.device):
         # keep: the tensors and structs behind the pointers in args.
-        self.args, self._outputs, self._keep = args, outputs, keep
+        self.args, self._outputs, self._keep, self.device = args, outputs, keep, device
 
     def launch(self) -> None:
-        _lib.check(_lib.library().pt_trace(*self.args), "trace")
+        with torch.cuda.device(self.device):  # the launch's SM count and stream
+            _lib.check(_lib.library().pt_trace(*self.args), "trace")
         trace_sample.launches += 1
 
     def out(self) -> TraceOut:
@@ -292,7 +293,7 @@ def prepare_trace(scene: Scene, settings, cols, rows, seed=None, *, noise=None,
             _lib.ptr(noise), _lib.ptr(pid), _lib.ptr(base), sample_index, n, _lib.ptr(next_ray),
             _lib.ptr(rad), _lib.ptr(escd), _lib.ptr(escw), _lib.ptr(escm), _lib.ptr(plen),
             _lib.stream(dev))
-    return TraceLaunch(args, (rad, escd, escw, escm, plen), (prm, sph, dsc, next_ray))
+    return TraceLaunch(args, (rad, escd, escw, escm, plen), (prm, sph, dsc, next_ray), dev)
 
 
 def trace_sample(scene: Scene, settings, cols, rows, seed=None, *, noise=None,

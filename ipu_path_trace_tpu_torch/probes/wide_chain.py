@@ -21,8 +21,12 @@ at 384 alone is the passes', not the net's.
 Then the times (CUDA events): K3 per 1104x1000 sample in 8-sample
 launches - the canonical asset (6x320), the synthetic 6x320 and 6x384,
 bf16 and int8 - and, for the synthetic 6x320 and 6x384 in bf16, K2 on one
-sample's escapes of that frame and K4 per bake chunk (10 rows of 4096).
-``run`` returns the checks and times; chip_smoke.py calls it.
+sample's escapes of that frame and K4 per bake chunk (10 rows of 4096);
+at 6x384 also the plain versions of K3 (bf16 and int8), K2 and K4 on the
+card (``*_plain``), and the cuBLAS bf16 chain (probes/tf32_chain.py
+``library_chain``, a yardstick the port never calls) at the frame's rays
+and at a bake chunk.  ``run`` returns the checks and times; chip_smoke.py
+calls it.
 """
 
 from __future__ import annotations
@@ -149,7 +153,8 @@ def checks(dev: torch.device) -> list[dict]:
 def times(dev: torch.device) -> dict:
     """K3 ms per 1104x1000 sample (8-sample launches): the canonical
     asset, then the synthetic 6x320 and 6x384, bf16 and int8; K2 ms on a
-    sample's escapes and K4 ms per bake chunk of the synthetic nets in bf16."""
+    sample's escapes and K4 ms per bake chunk of the synthetic nets in bf16;
+    at 6x384 the plain versions and the cuBLAS chain (module docstring)."""
     from ..core.scene import default_scene
     from ..models.nif import load_nif_assets
     from ..ops import megastep, nif, trace
@@ -178,6 +183,30 @@ def times(dev: torch.device) -> dict:
             lambda: nif.nif_env_shade(m, st.esc_dir, st.esc_w, settings.azimuth), 10, dev) * 1e3
         out[f"nif_apply_synthetic{width}_bf16"] = time_per_call(
             lambda: nif.nif_apply_t(m, bake_u, bake_v), 50, dev) * 1e3
+    # 6x384: the plain versions (TF32 off: the plain int8 dots are f32
+    # matmuls of integer values) and the cuBLAS bf16 chain.
+    from .tf32_chain import library_chain
+
+    m = models["synthetic384_bf16"]
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for chain in ("bf16", "int8"):
+            mc = models[f"synthetic384_{chain}"]
+            out[f"megastep_synthetic384_{chain}_plain"] = time_per_call(
+                lambda: megastep.render_megastep_plain(scene, settings, mc, cols, rows, SEED,
+                                                       **kw), 1, dev) * 1e3 / SAMPLES
+        out["env_shade_synthetic384_bf16_plain"] = time_per_call(
+            lambda: nif.nif_env_shade_plain(m, st.esc_dir, st.esc_w, settings.azimuth), 2,
+            dev) * 1e3
+        out["nif_apply_synthetic384_bf16_plain"] = time_per_call(
+            lambda: nif.nif_apply_t_plain(m, bake_u, bake_v), 5, dev) * 1e3
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    for tag, npts in (("frame", cols.shape[0]), ("bake_chunk", bake_u.shape[0])):
+        feats = torch.rand((npts, 4 * m.embedding_dim), device=dev).to(torch.bfloat16)
+        out[f"cublas_chain_synthetic384_{tag}"] = time_per_call(
+            lambda: library_chain(m, feats), 10, dev) * 1e3
     return out
 
 

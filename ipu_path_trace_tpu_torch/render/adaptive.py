@@ -26,8 +26,10 @@ from ..ops.megastep import BUDGET_BLOCK, LUM_B, LUM_G, LUM_R
 from .params import RenderSettings, StaticConfig
 
 
-def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(float(x), dtype=torch.float32, device=device)
+def _f32(x) -> torch.Tensor:
+    """An f32 scalar on the host: a CUDA op takes it as an argument, so
+    no copy to the card waits for the stream."""
+    return torch.tensor(float(x), dtype=torch.float32)
 
 
 def compute_budgets(r, g, b, lum2, sample_count, *, block_size: int, samples_per_step: int,
@@ -54,7 +56,7 @@ def compute_budgets(r, g, b, lum2, sample_count, *, block_size: int, samples_per
     n_blocks = vb.shape[0]
     sigma = torch.sqrt(vb)
 
-    spp_f, max_f, min_f = (_f32(x, dev) for x in (samples_per_step, max_spp, min_spp))
+    spp_f, max_f, min_f = (_f32(x) for x in (samples_per_step, max_spp, min_spp))
     total = spp_f * n_blocks
     extra = total - min_f * n_blocks  # to distribute by score
     w = sigma / torch.clamp_min(sigma.sum(), 1e-30)
@@ -78,13 +80,14 @@ def compute_budgets(r, g, b, lum2, sample_count, *, block_size: int, samples_per
 def adaptive_caps(cfg: StaticConfig, spp: int) -> tuple[int, int]:
     """(min, max) per-block budget: the floor never exceeds the average,
     the cap is round(factor * spp), at least spp."""
-    cap = max(int(torch.round(_f32(cfg.adaptive_max_factor, "cpu") * spp)), spp)
+    cap = max(int(torch.round(_f32(cfg.adaptive_max_factor) * spp)), spp)
     return min(cfg.adaptive_min, spp), cap
 
 
 def adaptive_render_step(scene, settings: RenderSettings, cfg: StaticConfig, work: WorkBatch,
                          lum2: torch.Tensor, seed: tuple[int, int] | None, env, *, noise=None,
-                         block_size: int = BUDGET_BLOCK) -> tuple[WorkBatch, torch.Tensor]:
+                         block_size: int = BUDGET_BLOCK,
+                         sample_axis_index: int = 0) -> tuple[WorkBatch, torch.Tensor]:
     """One adaptive render step; returns (work', lum2').
 
     Budgets derive from the accumulated state (the work sums and
@@ -92,7 +95,10 @@ def adaptive_render_step(scene, settings: RenderSettings, cfg: StaticConfig, wor
     rays of block g with the statistics on.  Hardware mode (``seed``) or
     host noise (``noise`` of shape (S, 4 + 4L, P), S at least the budget
     cap; rows past a block's budget are gated off).  The Sobol sampler
-    continues each lane at its own count (``work.sample_count``).
+    continues each lane at its own count (``work.sample_count``); replica j
+    of a mesh's sample axis (``sample_axis_index``) at that count plus j x
+    its block's budget, so the replicas, whose moments and so budgets are
+    the same, draw disjoint slices.
     """
     from ..models.envlight import NifEnv
     from ..ops.megastep import render_megastep
@@ -110,13 +116,16 @@ def adaptive_render_step(scene, settings: RenderSettings, cfg: StaticConfig, wor
     budgets = compute_budgets(work.r, work.g, work.b, lum2, work.sample_count,
                               block_size=block_size, samples_per_step=spp, min_spp=min_spp,
                               max_spp=cap)
-    kw = {} if noise is not None else _kernel_sobol(cfg, make_qmc_ctx(work, cfg, settings))
+    inc = budgets.repeat_interleave(block_size)[:work.u.shape[0]]
+    ctx = None if noise is not None else make_qmc_ctx(work, cfg, settings)
+    if ctx is not None and sample_axis_index:
+        ctx = ctx._replace(base=ctx.base + sample_axis_index * inc)
+    kw = _kernel_sobol(cfg, ctx)
     out = render_megastep(
         scene, settings, env.model, work.u.to(torch.float32), work.v.to(torch.float32), seed,
         noise=noise, width=cfg.width, height=cfg.height, max_path_length=cfg.max_path_length,
         aa_noise_type=cfg.aa_noise_type, budgets=budgets, budget_block=block_size,
         with_stats=True, env_skip=cfg.env_skip, **kw)
-    inc = budgets.repeat_interleave(block_size)[:work.u.shape[0]]
     new_work = WorkBatch(
         u=work.u, v=work.v,
         r=work.r + out.radiance.x, g=work.g + out.radiance.y, b=work.b + out.radiance.z,

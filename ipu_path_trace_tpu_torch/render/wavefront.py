@@ -60,6 +60,8 @@ def make_qmc_ctx(work: WorkBatch, cfg: StaticConfig, settings: RenderSettings,
     pixel_id = work.v.to(torch.int32) * cfg.width + work.u.to(torch.int32)
     if base is None:
         base = work.sample_count
+    if isinstance(base, int):  # filled on the device: no copy from the host
+        base = torch.full_like(pixel_id, base)
     base = torch.as_tensor(base, dtype=torch.int32, device=pixel_id.device)
     return QmcCtx(pixel_id=pixel_id, base=base.expand_as(pixel_id).contiguous(),
                   key=settings.sobol_key)
@@ -268,7 +270,8 @@ def _check_ported(cfg: StaticConfig) -> None:
 
 
 def render_step(scene: Scene, settings: RenderSettings, cfg: StaticConfig, work: WorkBatch,
-                seed: tuple[int, int] | None, env, *, noise=None, sobol_base=None) -> WorkBatch:
+                seed: tuple[int, int] | None, env, *, noise=None, sobol_base=None,
+                sample_axis_index: int = 0) -> WorkBatch:
     """Run one step's samples over the worklist and accumulate into it.
 
     Hardware mode (``seed`` = two uint32 words) renders
@@ -278,6 +281,11 @@ def render_step(scene: Scene, settings: RenderSettings, cfg: StaticConfig, work:
     ``cfg.sampler == "sobol"`` draws the Sobol prefix in hardware mode, at
     base ``work.sample_count`` or ``sobol_base`` when given.  Accumulation
     is the reference's: rgb sums, sampleCount += samples, pathLength sums.
+
+    ``sample_axis_index`` is this replica's position j on a mesh's sample
+    axis (parallel/mesh.py): the Sobol base moves on by j x
+    samples_per_step, so the replicas draw disjoint slices of each lane's
+    sequence.  Philox replicas are decorrelated by their seeds instead.
     """
     from ..ops.megastep import render_megastep
     from ..ops.nif import nif_env_shade
@@ -293,7 +301,10 @@ def render_step(scene: Scene, settings: RenderSettings, cfg: StaticConfig, work:
     kw = dict(width=cfg.width, height=cfg.height, max_path_length=cfg.max_path_length,
               aa_noise_type=cfg.aa_noise_type)
     if noise is None:
-        kw.update(_kernel_sobol(cfg, make_qmc_ctx(work, cfg, settings, sobol_base)))
+        ctx = make_qmc_ctx(work, cfg, settings, sobol_base)
+        if ctx is not None and sample_axis_index:
+            ctx = ctx._replace(base=ctx.base + sample_axis_index * settings.samples_per_step)
+        kw.update(_kernel_sobol(cfg, ctx))
     if cfg.use_fused_step and isinstance(env, NifEnv):
         out = render_megastep(scene, settings, env.model, cols, rows, seed, noise=noise,
                               env_skip=cfg.env_skip, stub=cfg.megastep_stub or None, **kw)

@@ -1,10 +1,19 @@
 """The progressive render loop, headless or under the remote UI.
 
-Counterpart of ``ipu_path_trace_tpu/runtime/app.py`` without its mesh
-branches: build the worklist (coherent, raster, or the load balancer's
-shuffle), resolve ``--env-skip``, then per step run ``render_step`` (or
+Counterpart of ``ipu_path_trace_tpu/runtime/app.py``: build the worklist
+(coherent, raster, or the load balancer's shuffle), resolve
+``--env-skip``, then per step run ``render_step`` (or
 ``adaptive_render_step``) on the device while a host task
 (runtime/async_task.py) post-processes the step before.
+
+With ``--ipus N`` (N > 1) or a ``--mesh-shape`` the step is sharded over
+a device mesh (parallel/mesh.py): the first N GPUs, or N shards on the
+CPU with ``--device cpu``.  The scene and the env (a baked one baked on
+each device) are replicated, the worklist is padded to a multiple of the
+pixel axis and split along it, each sample replica renders
+``samples_per_step`` / S samples, and the fetch gathers the shards.  The
+film, the checkpoint, the UI and the host task see the whole worklist as
+on one device; the summary's rate is also given per chip.
 
 With the host film (the default) each step renders the worklist's active
 buffer and fetches its records into it; the main thread then waits for
@@ -83,6 +92,8 @@ from ..models.envlight import ConstantEnv, NifEnv, TextureEnv, bake_nif_env
 from ..models.nif import analyse_nif, load_nif_assets
 from ..models.quant import quantize_nif
 from ..ops.megastep import env_skip_tile
+from ..parallel.mesh import (Replicated, Sharded, gather_work, make_mesh, replicate, shard_array,
+                             shard_work, sharded_adaptive_render_step, sharded_render_step)
 from ..render.adaptive import adaptive_render_step
 from ..render.params import RenderSettings, StaticConfig
 from ..render.wavefront import dead_block_fraction, render_step
@@ -202,6 +213,10 @@ class PathTracerApp:
         else:
             self.scene = default_scene(self.device)
         self.env = None
+        self.mesh = None  # the device mesh (parallel/mesh.py), or None: one device
+        # What the step takes: the scene and env themselves, or their
+        # replicas over the mesh.
+        self._scene_arg = self._env_arg = None
         self.film: Film | None = None
         self.balancer: LoadBalancer | None = None
         self.worklist: np.ndarray | None = None  # the initial layout
@@ -232,6 +247,14 @@ class PathTracerApp:
 
     def init(self) -> None:
         cfg = self.cfg
+        if cfg.ipus > 1 or cfg.mesh_shape:
+            # An explicit --mesh-shape forces the mesh path even at --ipus 1:
+            # a 1x1 mesh runs the sharded step on one card.
+            devices = [self.device] * max(1, cfg.ipus) if self.device.type == "cpu" else None
+            self.mesh = make_mesh(cfg.ipus, cfg.mesh_shape, devices)
+            log.info("Device mesh: %s on %s", self.mesh.shape,
+                     ", ".join(str(d) for d in self.mesh.distinct()))
+        self._scene_arg = self.scene if self.mesh is None else replicate(self.scene, self.mesh)
         self.total_spp = cfg.rounded_samples_per_pixel()
         if self.total_spp != cfg.samples:
             log.info("Rounding SPP to next multiple of %d  (Rounded SPP := %d)",
@@ -251,9 +274,9 @@ class PathTracerApp:
 
     def _load_env(self, assets: str) -> None:
         cfg = self.cfg
-        self.env, nif_info = parse_env_assets(assets, self.device, cfg.nif_precision,
-                                              cfg.partials_type)
-        self.active_assets = assets
+        env, nif_info = parse_env_assets(assets, self.device, cfg.nif_precision,
+                                         cfg.partials_type)
+        env_arg = env if self.mesh is None else replicate(env, self.mesh)
         if nif_info is not None:
             meta, weights = nif_info
             info = analyse_nif(weights, cfg.width * cfg.height)
@@ -264,17 +287,25 @@ class PathTracerApp:
                 h, w = meta.image_shape[:2] if len(meta.image_shape) >= 2 else (2048, 4096)
                 t0 = time.monotonic()
                 with self.trace.span("bake_nif_env"):
-                    self.env = bake_nif_env(self.env, int(h), int(w),
-                                            max_batch_size=cfg.max_nif_batch_size)
+                    # Each device of a mesh bakes its own replica.
+                    baked = {d: bake_nif_env(e, int(h), int(w),
+                                             max_batch_size=cfg.max_nif_batch_size)
+                             for d, e in (env_arg.copies.items() if self.mesh is not None
+                                          else [(self.device, env)])}
+                    env = next(iter(baked.values()))
+                    env_arg = env if self.mesh is None else Replicated(baked)
                     self._sync()
                 log.info("Baked NIF env to %dx%d texture in %.3f seconds (--nif-mode baked)",
                          int(h), int(w), time.monotonic() - t0)
+        self.env, self._env_arg = env, env_arg
+        self.active_assets = assets
 
     def build(self) -> None:
         cfg = self.cfg
         native.library()  # builds the host runtime; a failure raises here, before the render
+        n_px = self.mesh.shape["pixels"] if self.mesh is not None else 1
         with self.trace.span("create_path_tracing_jobs"):
-            worklist = create_tracing_jobs(cfg.width, cfg.height)
+            worklist = create_tracing_jobs(cfg.width, cfg.height, multiple_of=n_px)
             self.balancer = LoadBalancer(len(worklist))
             if cfg.enable_load_balancing:
                 if cfg.layout == "coherent":
@@ -284,7 +315,7 @@ class PathTracerApp:
             else:
                 if cfg.layout == "coherent":
                     worklist = coherent_order(worklist, self.scene, cfg.width, cfg.height,
-                                              cfg.fov)
+                                              cfg.fov, shards=n_px)
                 self.balancer.work.inactive = worklist.copy()
             self.balancer.work.active = self.balancer.work.inactive.copy()
         self.worklist = self.balancer.work.active.copy()
@@ -325,15 +356,27 @@ class PathTracerApp:
                  time.monotonic() - t0, "on" if skip else "off")
         return skip
 
+    def local_samples(self, samples_per_step: int) -> int:
+        """Each sample replica's share of a step's samples on a mesh."""
+        if self.mesh is None:
+            return samples_per_step
+        sm = self.mesh.shape["samples"]
+        if samples_per_step % sm:
+            raise ValueError(f"samples-per-step {samples_per_step} must divide by the sample "
+                             f"mesh axis ({sm})")
+        return samples_per_step // sm
+
     def settings(self) -> RenderSettings:
         """The render settings of the live state: fov, env rotation and
-        samples per step (the CLI's until a UI changes them)."""
+        samples per step (the CLI's until a UI changes them; on a mesh each
+        sample replica's share)."""
         cfg = self.cfg
         return RenderSettings.make(
             fov_degrees=self.state["fov"], aa_scale=cfg.aa_noise_scale,
             env_rotation_degrees=self.state["env_rotation"],
             refractive_index=cfg.refractive_index, stop_prob=cfg.stop_prob,
-            roulette_depth=cfg.roulette_depth, samples_per_step=self.samples_per_step,
+            roulette_depth=cfg.roulette_depth,
+            samples_per_step=self.local_samples(self.samples_per_step),
             aperture=cfg.aperture, focal_distance=cfg.focal_distance, seed=cfg.seed)
 
     def _settings_sig(self) -> tuple:
@@ -351,8 +394,42 @@ class PathTracerApp:
                             sobol_dims=cfg.sobol_dims)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
+        if self.mesh is not None:
+            self.mesh.synchronize()
+        elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _on_device(self, x: torch.Tensor | WorkBatch) -> torch.Tensor | WorkBatch | Sharded:
+        """A whole-frame tensor or worklist on the render's device, or split
+        over the mesh."""
+        if self.mesh is not None:
+            return (shard_array if isinstance(x, torch.Tensor) else shard_work)(x, self.mesh)
+        return x.to(self.device) if isinstance(x, torch.Tensor) else WorkBatch(
+            *(t.to(self.device) for t in x))
+
+    def _upload(self, records: np.ndarray) -> WorkBatch | Sharded:
+        """Host records on the render's device, or split over the mesh."""
+        return self._on_device(to_device_batch(records, "cpu"))
+
+    def _render(self, settings: RenderSettings, static: StaticConfig, work, seed, **kw):
+        """One render step on the device, or sharded over the mesh."""
+        if self.mesh is None:
+            return render_step(self.scene, settings, static, work, seed, self.env, **kw)
+        return sharded_render_step(self._scene_arg, settings, static, work, seed, self._env_arg,
+                                   self.mesh, **kw)
+
+    def _render_adaptive(self, settings: RenderSettings, static: StaticConfig, work, lum2, seed):
+        """One adaptive step on the device, or sharded over the mesh."""
+        if self.mesh is None:
+            return adaptive_render_step(self.scene, settings, static, work, lum2, seed, self.env)
+        return sharded_adaptive_render_step(self._scene_arg, settings, static, work, lum2, seed,
+                                            self._env_arg, self.mesh)
+
+    @staticmethod
+    def _whole(x, device) -> torch.Tensor | WorkBatch:
+        """A sharded worklist or array gathered on ``device``; anything else
+        as it is."""
+        return gather_work(x, device) if isinstance(x, Sharded) else x
 
     def execute(self, ui_server=None, max_steps: int | None = None) -> Film:
         """Render ``total_spp / samples_per_step`` steps (at most
@@ -376,7 +453,7 @@ class PathTracerApp:
         if cfg.device_timing:
             self._device_timing()
         start = time.monotonic()
-        log.info("Render started on %s (%s film)", self.device,
+        log.info("Render started on %s (%s film)", self.device if self.mesh is None else self.mesh,
                  "device" if cfg.device_film else "host")
         host = AsyncTask()
         with self._profiler() if cfg.profile_dir else contextlib.nullcontext() as prof:
@@ -391,10 +468,12 @@ class PathTracerApp:
         if prof is not None:
             self._write_profile(prof)
         rate = cfg.width * cfg.height * self.total_spp / elapsed
+        chips = self.mesh.size if self.mesh is not None else 1
         log.info("Render finished: %.3f seconds (Samples/sec: %.4g)", elapsed, rate)
+        log.info("Samples/sec/chip: %.4g", rate / chips)
         self._emit_metrics({"event": "summary", "elapsed_seconds": round(elapsed, 3),
                             "total_spp": int(self.total_spp),
-                            "samples_per_sec": round(rate, 1), "chips": 1})
+                            "samples_per_sec": round(rate, 1), "chips": chips})
         return self.film
 
     def _resume(self) -> tuple[int, WorkBatch | None, torch.Tensor | None]:
@@ -418,13 +497,13 @@ class PathTracerApp:
             lum2_saved = saved.pop("lum2", None)
             if set(saved) != set(WorkBatch._fields):
                 raise ValueError(f"checkpoint '{path}' holds {sorted(saved)}, not a worklist")
-            work = WorkBatch(*(torch.from_numpy(saved[k]).to(self.device)
-                               for k in WorkBatch._fields))
+            work = self._on_device(WorkBatch(*(torch.from_numpy(saved[k])
+                                               for k in WorkBatch._fields)))
             if cfg.adaptive:
                 if lum2_saved is None:
                     raise ValueError("checkpoint has no adaptive lum2 state; it was written "
                                      "without --adaptive")
-                lum2 = torch.from_numpy(lum2_saved).to(self.device)
+                lum2 = self._on_device(torch.from_numpy(lum2_saved))
         else:
             if saved["hdr"].shape != self.film.hdr.shape:
                 raise ValueError(f"checkpoint film {saved['hdr'].shape} != {self.film.hdr.shape}")
@@ -455,8 +534,9 @@ class PathTracerApp:
                         "split (the adaptive schedule shifts samples between blocks)")
         seed = step_seed(torch.Generator().manual_seed(self.cfg.seed))
         with self.trace.span("device_timing"):
-            split = measure_phases(self.scene, self.settings(), self.static_config(),
-                                   to_device_batch(self.worklist, self.device), seed, self.env)
+            split = measure_phases(self._scene_arg, self.settings(), self.static_config(),
+                                   to_device_batch(self.worklist, self.device), seed,
+                                   self._env_arg, mesh=self.mesh)
         log_phase_split(split)
 
     def _profiler(self) -> torch.profiler.profile:
@@ -686,11 +766,15 @@ class PathTracerApp:
                 state[k] = float(ui_state[k])
         if "interactive_samples" in ui_state:
             v = int(ui_state["interactive_samples"])
+            sm = self.mesh.shape["samples"] if self.mesh is not None else 1
             if v < 1:
                 log.warning("Ignoring invalid interactive_samples=%d from UI: must be >= 1", v)
             elif v > 0xFFFF and not self.cfg.device_film:
                 log.warning("Ignoring invalid interactive_samples=%d from UI: > 65535 needs "
                             "--device-film (u16 wire clip)", v)
+            elif v % sm:
+                log.warning("Ignoring invalid interactive_samples=%d from UI: must divide by "
+                            "the sample mesh axis (%d)", v, sm)
             else:
                 changed = changed or v != state["interactive_samples"]
                 state["interactive_samples"] = v
@@ -737,10 +821,11 @@ class PathTracerApp:
                 settings, sig = self.settings(), self._settings_sig()
             with self.trace.span("ipu_render"):
                 if work_dev is None or cfg.enable_load_balancing:
-                    work_dev = to_device_batch(work.active, self.device)
-                out = render_step(self.scene, settings, static, work_dev, step_seed(gen),
-                                  self.env, sobol_base=sobol_base)
-                work.active = from_device_batch(out)  # the fetch waits for the device
+                    work_dev = self._upload(work.active)
+                out = self._render(settings, static, work_dev, step_seed(gen),
+                                   sobol_base=sobol_base)
+                # The fetch waits for the device(s).
+                work.active = from_device_batch(self._whole(out, "cpu"))
             sobol_base += self.samples_per_step
             t1 = time.monotonic()
             with self.trace.span("wait_for_host"):
@@ -800,6 +885,7 @@ class PathTracerApp:
     def _fetch(self, work: WorkBatch, lum2: torch.Tensor | None) -> dict[str, np.ndarray]:
         """The device film's sums on the host (int32 counts: no u16 wire
         record on this path), with the adaptive second moments."""
+        work, lum2 = self._whole(work, "cpu"), self._whole(lum2, "cpu")
         soa = {k: t.cpu().numpy() for k, t in zip(WorkBatch._fields, work)}
         if lum2 is not None:
             soa["lum2"] = lum2.cpu().numpy()
@@ -843,9 +929,9 @@ class PathTracerApp:
         settings, sig = self.settings(), self._settings_sig()
         dirty = work is not None  # a resumed film is not on disk in this run
         if work is None:
-            work = to_device_batch(self.worklist, self.device)
+            work = self._upload(self.worklist)
         if cfg.adaptive and lum2 is None:
-            lum2 = torch.zeros(work.u.shape[0], dtype=torch.float32, device=self.device)
+            lum2 = self._on_device(torch.zeros(len(self.worklist), dtype=torch.float32))
         perm = None  # the raster gather of the previews
         done = first - 1
         step = first
@@ -858,9 +944,9 @@ class PathTracerApp:
                 break
             if status == "restart":
                 self.film.reset()
-                work = to_device_batch(self.worklist, self.device)
+                work = self._upload(self.worklist)
                 if cfg.adaptive:
-                    lum2 = torch.zeros_like(lum2)
+                    lum2 = self._on_device(torch.zeros(len(self.worklist), dtype=torch.float32))
                 self._disk_norm = self._ckpt_step = done = 0
                 dirty = False
                 gen = torch.Generator().manual_seed(cfg.seed)
@@ -870,11 +956,10 @@ class PathTracerApp:
             save = step % cfg.save_interval == 0 or step == steps
             with self.trace.span("ipu_render"):
                 if cfg.adaptive:
-                    work, lum2 = adaptive_render_step(self.scene, settings, static, work, lum2,
-                                                      step_seed(gen), self.env)
+                    work, lum2 = self._render_adaptive(settings, static, work, lum2,
+                                                       step_seed(gen))
                 else:
-                    work = render_step(self.scene, settings, static, work, step_seed(gen),
-                                       self.env)
+                    work = self._render(settings, static, work, step_seed(gen))
                 if save:
                     soa = self._fetch(work, lum2)  # the fetch waits for the device
                 else:
@@ -890,7 +975,7 @@ class PathTracerApp:
                         self.worklist, cfg.width, cfg.height).astype(np.int64)).to(self.device)
                 tone = self._live_tone(ui, self.state)
                 with self.trace.span("ui_preview"):
-                    ldr = self._preview(work, perm, tone)
+                    ldr = self._preview(self._whole(work, self.device), perm, tone)
                 with self.trace.span("ui_encode"):
                     ui.send_preview_image(ldr)
                 ui.update_progress(step, steps)

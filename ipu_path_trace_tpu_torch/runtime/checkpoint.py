@@ -48,12 +48,12 @@ _FINGERPRINT_FIELDS = (
     "refractive_index", "env_map_rotation", "aperture", "focal_distance", "nif_mode",
     "partials_type", "nif_precision", "env_skip", "use_fused_step", "device_film",
     "enable_load_balancing", "layout", "adaptive", "adaptive_min", "adaptive_max_factor",
-    "sampler", "sobol_dims",
+    "sampler", "sobol_dims", "ipus", "mesh_shape",
 )
 # Fields added after checkpoints already existed: a saved fingerprint that
 # predates the field matches only the value those checkpoints were
 # rendered with (the reference's rule).
-_FIELD_DEFAULTS = {"partials_type": "half"}
+_FIELD_DEFAULTS = {"partials_type": "half", "ipus": 1, "mesh_shape": ""}
 LAYOUT_KEYS = ("active_u", "active_v", "inactive_u", "inactive_v")
 
 _FORMAT = 1

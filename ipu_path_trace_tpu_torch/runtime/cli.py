@@ -7,10 +7,11 @@ reference flags with no CUDA counterpart are settled for good:
 and ``--available-memory-proportion`` are accepted and ignored (a debug
 line says so); ``--no-use-pallas`` and any ``--rng-impl`` but ``auto``
 are rejected; ``--compile-only``, ``--cache-dir``, ``--save-exe`` and
-``--load-exe`` act on the kernel library (ops/_lib.py).  The two flags
-not ported yet (multi-GPU) are still accepted by the parser, so that
-setting one to anything but its default fails with the ROADMAP.md item
-that will port it instead of being silently ignored.
+``--load-exe`` act on the kernel library (ops/_lib.py).  ``--ipus`` and
+``--mesh-shape`` shard the render over a device mesh
+(parallel/mesh.py): the first N GPUs, or with ``--device cpu`` N shards
+on the CPU.  Every reference flag is ported or settled, so ``_UNPORTED``
+is empty; a flag put there would be parsed and refused when set.
 """
 
 from __future__ import annotations
@@ -29,10 +30,7 @@ from .config import Config
 log = logging.getLogger(__name__)
 
 # Reference flags the port does not have yet: (flags, argparse kwargs, ROADMAP item).
-_UNPORTED = [
-    (("--ipus",), dict(type=int, default=1), "queue 1 item 15 (multi-GPU)"),
-    (("--mesh-shape",), dict(default=""), "queue 1 item 15 (multi-GPU)"),
-]
+_UNPORTED: list = []
 
 # Reference flags accepted for parity and ignored: (flags, argparse kwargs, why).
 _IGNORED = [
@@ -184,6 +182,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Save a diagnostic channel instead of radiance (film/debugview.py), "
                         "rendered through the production camera and intersector. The "
                         "accumulator is untouched.")
+    p.add_argument("--ipus", type=int, default=1, metavar="N",
+                   help="Number of GPUs to shard the render over (with --device cpu: N shards "
+                        "on the CPU).")
+    p.add_argument("--mesh-shape", default="",
+                   help="Device mesh as 'PIXELSxSAMPLES', e.g. '4x2'. Default: all devices on "
+                        "the pixel axis. Given, it forces the mesh path even at --ipus 1.")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) runs the CUDA kernels; 'cpu' their plain versions.")
     p.add_argument("--model", action="store_true",

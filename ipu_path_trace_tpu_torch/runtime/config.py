@@ -3,8 +3,7 @@
 Counterpart of ``ipu_path_trace_tpu/runtime/config.py`` for the flags
 the port has: the same names, defaults and validation, plus ``device``.
 The reference flags the port maps onto others, accepts and ignores, or
-rejects are settled in runtime/cli.py; the two it has not ported yet are
-listed there with their ROADMAP item.
+rejects are settled in runtime/cli.py.
 """
 
 from __future__ import annotations
@@ -119,6 +118,13 @@ class Config:
     save_exe: str = ""
     load_exe: str = ""
     compile_only: bool = False
+    # The device mesh (parallel/mesh.py): ipus devices - the first CUDA
+    # devices, or shards on the CPU with --device cpu - shaped
+    # "PIXELSxSAMPLES" ("" = all on the pixel axis).  ipus > 1 or a
+    # mesh_shape renders on the mesh; samples_per_step is split over its
+    # sample axis.
+    ipus: int = 1
+    mesh_shape: str = ""
     # Test/smoke knob (no CLI flag): False renders with the trace and
     # env-shade kernels per sample instead of the megastep kernel.
     use_fused_step: bool = True
@@ -189,6 +195,13 @@ class Config:
                     self.ui_port and self.interactive_samples < self.adaptive_min):
                 raise ValueError("samples-per-step (and interactive-samples with a UI) "
                                  "must be >= --adaptive-min")
+        if self.ipus > 1 or self.mesh_shape:
+            from ..parallel.mesh import parse_mesh_shape
+
+            _, sm = parse_mesh_shape(self.mesh_shape, self.ipus)
+            if self.samples_per_step % sm or (self.ui_port and self.interactive_samples % sm):
+                raise ValueError(f"samples-per-step (and interactive-samples with a UI) must "
+                                 f"divide by the sample mesh axis ({sm})")
         if self.scene:
             from ..core.scenefile import load_scene
 

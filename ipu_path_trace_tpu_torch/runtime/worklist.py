@@ -46,9 +46,14 @@ def calculate_max_rays_per_tile(width: int, height: int, num_tiles: int = VIRTUA
     return max(num_workers, rays_per_tile)
 
 
-def create_tracing_jobs(width: int, height: int, num_tiles: int = VIRTUAL_TILES) -> np.ndarray:
-    """Padded whole-image worklist (padding records carry DUMMY_COORD)."""
+def create_tracing_jobs(width: int, height: int, num_tiles: int = VIRTUAL_TILES,
+                        multiple_of: int = 1) -> np.ndarray:
+    """Padded whole-image worklist (padding records carry DUMMY_COORD),
+    its size rounded up to a multiple of ``multiple_of`` (a mesh's pixel
+    axis, so that the shards divide it evenly)."""
     size = calculate_max_rays_per_tile(width, height, num_tiles) * num_tiles
+    if multiple_of > 1 and size % multiple_of:
+        size += multiple_of - size % multiple_of
     return make_worklist(width, height, padded_size=size)
 
 
@@ -71,10 +76,18 @@ def primary_hit_class(scene: Scene, u: np.ndarray, v: np.ndarray, width: int, he
 
 
 def coherent_order(worklist: np.ndarray, scene: Scene, width: int, height: int,
-                   fov_degrees: float) -> np.ndarray:
-    """Records stably sorted by primary-hit class (raster order breaks ties)."""
+                   fov_degrees: float, shards: int = 1) -> np.ndarray:
+    """Records stably sorted by primary-hit class (raster order breaks
+    ties).  With ``shards`` > 1 the sorted order is dealt round-robin into
+    that many contiguous chunks: each mesh shard gets an even mix of
+    classes, and each chunk stays sorted."""
     key = primary_hit_class(scene, worklist["u"], worklist["v"], width, height, fov_degrees)
-    return worklist[np.lexsort((np.arange(len(worklist)), key))]
+    perm = np.lexsort((np.arange(len(worklist)), key))
+    if shards > 1:
+        if len(perm) % shards:
+            raise ValueError(f"worklist size {len(perm)} does not divide into {shards} shards")
+        perm = np.concatenate([perm[i::shards] for i in range(shards)])
+    return worklist[perm]
 
 
 def deal_order(path_length: np.ndarray, num_tiles: int) -> np.ndarray:

@@ -19,8 +19,14 @@ On CUDA every variant runs ``loop`` samples in one launch between CUDA
 events, after a warm-up, ``reps`` times; times are per full-frame sample.
 On the CPU (``--device cpu``) the plain versions are timed with the host
 clock, and the result says so: no CPU number is reported under a device's
-name.  The reference's mesh branch is not ported (ROADMAP queue 1 item
-15).
+name.
+
+On a mesh (parallel/mesh.py) the sharded step is timed - on one card
+with CUDA events, across distinct GPUs with the host clock between syncs
+of them all - and the rate is also reported per chip
+(``mpaths_per_sec_chip``); the fused split runs the stubs through the
+sharded step, and the unfused standalone split is skipped, as the
+reference skips it.
 """
 
 from __future__ import annotations
@@ -37,10 +43,18 @@ from .logging import logger
 DEVICE_LOOP = 300  # samples per timed launch on the card: the canonical step
 
 
-def time_per_call(fn, reps: int, device: torch.device) -> float:
+def time_per_call(fn, reps: int, device: torch.device, mesh=None) -> float:
     """Seconds per call after one warm-up: CUDA events on the card, the
-    host clock for the plain versions on the CPU."""
+    host clock for the plain versions on the CPU and for a mesh over
+    distinct GPUs (synchronised before and after)."""
     fn()
+    if mesh is not None and len(mesh.distinct()) > 1:
+        mesh.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        mesh.synchronize()
+        return (time.perf_counter() - t0) / reps
     if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -73,39 +87,51 @@ def device_label(device: torch.device) -> str:
 
 
 def measure_phases(scene, settings, cfg, work, seed, env, loop: int | None = None,
-                   reps: int = 2) -> dict:
+                   reps: int = 2, mesh=None) -> dict:
     """Per-sample time of each phase at the given shapes (ms).
 
-    Returns ``step_ms``, ``mpaths_per_sec`` and ``device``; for the fused
-    NIF path also ``env_ms``, ``trace_ms``, ``overhead_ms`` (which sum to
-    ``step_ms``); for the unfused path ``trace_ms``
-    and, with a NIF env, ``env_ms`` of the standalone kernels.  ``loop``
-    defaults to DEVICE_LOOP samples per launch on CUDA, where one megastep
-    launch renders them all, and to ``settings.samples_per_step`` on the
-    CPU, whose plain versions have no launch cost to amortise."""
+    Returns ``step_ms``, ``mpaths_per_sec`` and ``device`` (and on a mesh
+    ``mpaths_per_sec_chip``); for the fused NIF path also ``env_ms``, ``trace_ms``,
+    ``overhead_ms`` (which sum to ``step_ms``); for the unfused path off a
+    mesh ``trace_ms`` and, with a NIF env, ``env_ms`` of the standalone
+    kernels.  ``loop`` defaults to DEVICE_LOOP samples per launch on CUDA,
+    where one megastep launch renders them all, and to
+    ``settings.samples_per_step`` on the CPU, whose plain versions have no
+    launch cost to amortise.  With ``mesh`` the step is the sharded one
+    (``scene`` and ``env`` replicated or plain, ``work`` the whole
+    worklist): a step renders ``loop`` samples on each sample replica."""
     from ..ops.nif import nif_env_shade
     from ..ops.trace import trace_sample
-    from ..render.wavefront import render_step
+    from ..parallel.mesh import make_step_fn, replicate, shard_work
 
-    device = work.u.device
+    device = work.u.device if mesh is None else mesh.first
     if loop is None:
         loop = DEVICE_LOOP if device.type == "cuda" else settings.samples_per_step
     n_pixels = int(work.u.shape[0])
     loop_settings = settings._replace(samples_per_step=loop)
+    replicas, chips = (1, 1) if mesh is None else (mesh.shape["samples"], mesh.size)
+    if mesh is not None:
+        scene, env, work = replicate(scene, mesh), replicate(env, mesh), shard_work(work, mesh)
 
     def per_sample(c) -> float:
-        return time_per_call(lambda: render_step(scene, loop_settings, c, work, seed, env),
-                     reps, device) / loop
+        step = make_step_fn(c, mesh)
+        return time_per_call(lambda: step(scene, loop_settings, work, seed, env),
+                             reps, device, mesh) / loop
 
     step_s = per_sample(cfg)
-    out = {"device": device_label(device), "step_ms": step_s * 1e3,
-           "mpaths_per_sec": n_pixels / step_s / 1e6}
-    if cfg.use_fused_step and isinstance(env, NifEnv):
+    rate = n_pixels * replicas / step_s / 1e6
+    out = {"device": device_label(device), "step_ms": step_s * 1e3, "mpaths_per_sec": rate}
+    if mesh is not None:
+        out["mpaths_per_sec_chip"] = rate / chips
+    nif_env = isinstance(env.on(device) if mesh is not None else env, NifEnv)
+    if cfg.use_fused_step and nif_env:
         nif_stub_s = per_sample(cfg._replace(megastep_stub="nif"))
         skeleton_s = per_sample(cfg._replace(megastep_stub="both"))
         out["env_ms"] = max(step_s - nif_stub_s, 0.0) * 1e3
         out["trace_ms"] = max(nif_stub_s - skeleton_s, 0.0) * 1e3
         out["overhead_ms"] = skeleton_s * 1e3
+        return out
+    if mesh is not None:
         return out
     cols, rows = work.u.to(torch.float32), work.v.to(torch.float32)
     kw = dict(width=cfg.width, height=cfg.height, max_path_length=cfg.max_path_length,
@@ -131,6 +157,9 @@ def log_phase_split(split: dict) -> None:
     """Log the measured split (the per-step cycle-count analog)."""
     parts = [f"step={split['step_ms']:.3f}ms/sample",
              f"({split['mpaths_per_sec']:.1f} Mpaths/s)"]
+    if split.get("mpaths_per_sec_chip", split["mpaths_per_sec"]) != split["mpaths_per_sec"]:
+        parts[-1] = f"({split['mpaths_per_sec']:.1f} Mpaths/s, " \
+                    f"{split['mpaths_per_sec_chip']:.1f} Mpaths/s/chip)"
     for key, name in (("trace_ms", "trace"), ("env_ms", "nif-env"),
                       ("overhead_ms", "other")):
         if key in split:

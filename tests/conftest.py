@@ -160,6 +160,11 @@ QUICK_TESTS = {
     ("test_torch_oracle.py", "test_oracle_equals_the_jax_oracle"),
     ("test_torch_validate.py", "test_rmse_equals_the_script"),
     ("test_torch_nif_tools.py", "test_parse_arch_and_psnr_log_equal_the_scripts"),
+    # the port's device mesh (minus the JAX comparisons and the app's renders)
+    ("test_torch_mesh.py", "test_parse_mesh_shape_matches_jax"),
+    ("test_torch_mesh.py", "test_sharded_step_equals_its_replay"),
+    ("test_torch_mesh_app.py", "test_ipus_and_mesh_shape_parse"),
+    ("test_torch_mesh_app.py", "test_ui_interactive_samples_must_divide_by_the_sample_axis"),
     # checkpoint/resume
     ("test_checkpoint.py", "test_checkpoint_validation"),
     ("test_checkpoint.py", "test_resume_rejects_mismatched_config"),

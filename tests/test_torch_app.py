@@ -150,12 +150,19 @@ def test_cli_without_cuda_raises(tmp_path):
     assert not (tmp_path / "x.png").exists()
 
 
-@pytest.mark.parametrize("flag", [["--ipus", "2"], ["--mesh-shape", "2x1"]])
-def test_cli_unported_flags_name_their_roadmap_item(tmp_path, flag):
+@pytest.mark.parametrize("flag,msg", [
+    (["--mesh-shape", "3x2", "--ipus", "4"], "mesh-shape 3x2 needs 6 devices but 4 requested"),
+    (["--mesh-shape", "2"], "mesh-shape must be 'PIXELSxSAMPLES', got '2'"),
+], ids=["flag0", "flag1"])
+def test_cli_unported_flags_name_their_roadmap_item(tmp_path, capsys, flag, msg):
+    """--ipus and --mesh-shape are ported (parallel/mesh.py): a mesh shape
+    that is malformed or does not multiply to --ipus is refused, with the
+    reference's messages, before anything renders."""
     argv = ["-o", str(tmp_path / "x.png"), "--assets", "constant:1,1,1",
             "--device", "cpu", "-w", "4", "-H", "4", "-s", "1", "--samples-per-step", "1"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue \d"):
-        cli.main(argv + flag)
+    assert cli.main(argv + flag) == 2
+    assert msg in capsys.readouterr().err
+    assert not (tmp_path / "x.png").exists()
 
 
 def test_cli_defaults_match_reference():
