@@ -234,6 +234,23 @@ Phases, one line each:
                 counts; with two GPUs or more the 2x1 and 1x2 meshes over two
                 of them (NCCL) against the replay, else one line saying that
                 it did not run (neither PASS nor FAIL); its seconds printed;
+  12. studies - the port's studies (probes/ and tools/, each through its
+                main, output under build/chip_smoke/studies): adaptive_bench,
+                sobol_bench (its consistency check must pass), denoise_bench,
+                adaptive_depth_check (with adaptive_bench's speedup) and
+                adaptive_knob_sweep at 368x336 with ground truths of 1024
+                spp and steps of 32, each with finite, well-formed fields;
+                fused_bench, phase_bench, megastep_split (every chain and
+                stub), host_roundtrip_bench, coherent_layout_probe,
+                envskip_bench (the enclosed scene all dead) and
+                scene_scale_bench (every count, bf16) at 1104x1000 with few
+                repetitions; each count's grid_scene through K3 against its
+                plain version (host noise, 16x16); the three figure tools,
+                gen_sobol_dirs equal to render/_sobol_dirs.DIRS, and ui_probe
+                (a CLI subprocess) through its five phases; the launch
+                counters zeroed before each in-process study and read after
+                (K3 launched, no plain version on the card); its seconds
+                printed;
 Then a JSON line with the kernels, the nvidia-smi line again, and the last
 line {"ok": true, "device": {...}}.  Any failed check exits non-zero and
 prints no result.  Tolerances are the reference's own:
@@ -1598,6 +1615,160 @@ def mesh_phase(out_dir: Path, smi: str, dev, counters, plains, app_log, main_lum
     return res
 
 
+STUDY_CUT = ["--width", "368", "--height", "336"]  # phase 12: Group 1 at a cut frame
+STUDY_COUNTS_CHECK = (16, 16)  # phase 12: each scene count's K3 against plain at 16x16 rays
+
+
+def study_phase(out_dir: Path, smi: str, dev, counters, plains) -> dict:
+    """Phase 12, the studies (probes/ and tools/ of the port, each through its
+    main with its output under out_dir/studies): the sampling studies at a
+    cut frame (STUDY_CUT, ground truths of 1024 spp, steps of 32), the
+    device-time probes at 1104x1000 with few repetitions, scene_scale_bench
+    at every object count on the bf16 chain with each count's K3 against
+    its plain version (host noise, STUDY_COUNTS_CHECK), the figure tools and
+    the Sobol table's generator, and ui_probe's five phases against a CLI
+    subprocess.  Each in-process study zeroes the launch counters before and
+    reads them after: K3 must have launched and no plain version run on the
+    card.  Any study that raises or returns non-zero fails the run."""
+    from ipu_path_trace_tpu_torch.core.records import make_worklist, to_device_batch
+    from ipu_path_trace_tpu_torch.core.scene import grid_scene
+    from ipu_path_trace_tpu_torch.models.nif import load_nif_assets
+    from ipu_path_trace_tpu_torch.ops import megastep
+    from ipu_path_trace_tpu_torch.probes import (adaptive_bench, adaptive_depth_check,
+                                                 adaptive_knob_sweep, coherent_layout_probe,
+                                                 denoise_bench, envskip_bench, fused_bench,
+                                                 host_roundtrip_bench, megastep_split,
+                                                 phase_bench, scene_scale_bench, sobol_bench,
+                                                 ui_probe)
+    from ipu_path_trace_tpu_torch.render import _sobol_dirs
+    from ipu_path_trace_tpu_torch.render.params import RenderSettings
+    from ipu_path_trace_tpu_torch.tools import (adaptive_compare, denoise_compare,
+                                                gen_sobol_dirs, sobol_compare)
+
+    t12 = time.monotonic()
+    sdir = out_dir / "studies"
+    res = {"seconds": {}, "launches": {}, "results": {}}
+    gt = ["--gt-spp", "1024"]
+
+    def finite(*xs) -> bool:
+        return bool(np.isfinite(np.asarray(xs, dtype=np.float64)).all())
+
+    def study(name, mod, args, out_name, check, k3=True):
+        for f in counters:
+            f.launches = 0
+        for f in plains:
+            f.cuda_runs = 0
+        t0 = time.monotonic()
+        rc = mod.main(["--out", str(sdir / name)] + args)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        got = [f.launches for f in counters]
+        plain_cuda = [f.cuda_runs for f in plains]
+        data = json.loads((sdir / name / out_name).read_text()) if out_name else {}
+        ok = (rc == 0 and check(data) and not any(plain_cuda)
+              and (got[2] > 0 if k3 else True))
+        res["seconds"][name], res["launches"][name], res["results"][name] = secs, got, data
+        phase(f"study {name}", ok, rc=rc, launches_trace_shade_megastep_apply=got,
+              plain_runs_on_cuda=plain_cuda, seconds=f"{secs:.1f}")
+        return data
+
+    # Group 1: what the sampling features buy, at a cut frame.
+    ab = study("adaptive_bench", adaptive_bench, STUDY_CUT + gt + ["--spp-step", "32"],
+               "adaptive_bench.json",
+               lambda d: finite(*d["sample_efficiency"], d["time_to_quality_speedup"])
+               and len(d["adaptive"]) == 5 and d["final_counts"]["max"] > d["final_counts"]["min"])
+    study("sobol_bench", sobol_bench,
+          STUDY_CUT + gt + ["--spp-step", "32", "--rate-steps", "2"], "sobol_bench.json",
+          lambda d: finite(*(x for v in d["sample_efficiency_vs_prng_uniform"].values()
+                             for x in v), *d["rates_mpaths_300spp"].values())
+          and d["hw_vs_host_consistency"]["pass"])
+    study("denoise_bench", denoise_bench, STUDY_CUT + gt + ["--preview-spp", "8,32,128"],
+          "denoise_bench.json",
+          lambda d: all(finite(*(v for e in s["denoised"] for k, v in e.items() if "rmse" in k))
+                        and len(s["denoised"]) == 3 for s in d["scenes"].values()))
+    study("adaptive_depth_check", adaptive_depth_check,
+          STUDY_CUT + ["--n", "2048", "--spp-step", "32", "--speedup",
+                       str(max(1.0, ab.get("time_to_quality_speedup", 1.0)))],
+          "adaptive_depth_check.json",
+          lambda d: finite(d["depth_check"]["noise_ratio_a_over_u"])
+          and isinstance(d["depth_check"]["holds"], bool))
+    study("adaptive_knob_sweep", adaptive_knob_sweep,
+          STUDY_CUT + gt + ["--spp-step", "32", "--steps", "4"], "adaptive_knob_sweep.json",
+          lambda d: finite(*(r["sample_efficiency"] for r in d["knob_sweep"]["rows"]))
+          and len(d["knob_sweep"]["rows"]) == len(adaptive_knob_sweep.KNOBS))
+
+    # Group 2: where the device time goes, at 1104x1000 with few repetitions.
+    full = ["--width", str(MAIN_W), "--height", str(MAIN_H)]
+    study("fused_bench", fused_bench, full + ["--reps", "1"], "fused_bench.json",
+          lambda d: finite(*d["ms_per_sample"].values()))
+    study("phase_bench", phase_bench, full + ["--reps", "1"], "phase_bench.json",
+          lambda d: finite(*d["ms_per_sample"].values())
+          and min(d["ms_per_sample"]["trace"], d["ms_per_sample"]["env_shade"]) > 0)
+    megastep.render_megastep.stub_launches = dict.fromkeys(megastep.STUBS, 0)
+    study("megastep_split", megastep_split, full + ["--loop", "32", "--reps", "1"],
+          "megastep_split.json",
+          lambda d: set(d["ms_per_sample"]) == {"bf16", "int8", "tf32"}
+          and finite(*(v for c in d["ms_per_sample"].values() for v in c.values())))
+    res["stub_launches"] = dict(megastep.render_megastep.stub_launches)
+    phase("study megastep_split ran every stub", all(
+        v > 0 for v in res["stub_launches"].values()), stub_launches=res["stub_launches"])
+    study("host_roundtrip_bench", host_roundtrip_bench,
+          ["--size", f"{MAIN_W}x{MAIN_H}", "--steps", "8:3,300:1"], "host_roundtrip_bench.json",
+          lambda d: finite(*(r["host_film_step_ms"] for r in d["rows"]),
+                           *(r["device_ms"] for r in d["rows"])))
+    study("coherent_layout_probe", coherent_layout_probe,
+          full + ["--spp", "64", "--min-seconds", "0.3", "--samples", "1"],
+          "coherent_layout_probe.json",
+          lambda d: finite(d["coherent_vs_raster"], d["shuffled_vs_raster"]))
+    study("envskip_bench", envskip_bench, full + ["--spp", "64", "--samples", "2", "--reps", "1"],
+          "envskip_bench.json",
+          lambda d: d["scenes"]["enclosed"]["dead_block_fraction"] == 1.0
+          and finite(*(r["speedup"] for r in d["scenes"].values())))
+    study("scene_scale_bench", scene_scale_bench,
+          full + ["--chains", "bf16", "--spp", "64", "--min-seconds", "0.3"],
+          "scene_scale_bench.json",
+          lambda d: [r["objects"] for r in d["rows"]] == list(scene_scale_bench.COUNTS)
+          and finite(*(r["ms_per_sample"] for r in d["rows"])))
+    # Each swept count's K3 against its plain version (bf16, host noise).
+    bf16 = load_nif_assets(str(ROOT / ASSET), torch.bfloat16, dev)[0]
+    w, h = STUDY_COUNTS_CHECK
+    work = to_device_batch(make_worklist(w, h), dev)
+    cols, rows = work.u.float(), work.v.float()
+    gen = np.random.default_rng(12)
+    noise = gen.uniform(0.0, 1.0, (2, 44, w * h)).astype(np.float32)
+    noise[:, 0:2] = gen.normal(size=(2, 2, w * h))
+    noise_t = torch.from_numpy(noise).to(dev)
+    kw = dict(width=w, height=h, max_path_length=10)
+    settings = RenderSettings.make(samples_per_step=2)
+    for n in scene_scale_bench.COUNTS:
+        scene = grid_scene(n - 1, device=dev)
+        megastep_check(f"K3 bf16 host-noise on grid_scene, {n} objects",
+                       megastep.render_megastep(scene, settings, bf16, cols, rows,
+                                                noise=noise_t, **kw),
+                       megastep.render_megastep_plain(scene, settings, bf16, cols, rows,
+                                                      noise=noise_t, **kw), False)
+
+    # The figures and the Sobol table.
+    study("adaptive_compare", adaptive_compare, STUDY_CUT + ["--steps", "2", "--spp-step", "32"],
+          None, lambda d: (sdir / "adaptive_compare" / "adaptive_compare.png").stat().st_size > 0)
+    study("sobol_compare", sobol_compare, STUDY_CUT + ["--spp", "8"], None,
+          lambda d: (sdir / "sobol_compare" / "sobol_compare.png").stat().st_size > 0)
+    study("denoise_compare", denoise_compare, ["--size", "128", "--spp", "8"], None,
+          lambda d: (sdir / "denoise_compare" / "denoise_compare.png").stat().st_size > 0,
+          k3=False)
+    phase("study gen_sobol_dirs", gen_sobol_dirs.directions() == _sobol_dirs.DIRS
+          and gen_sobol_dirs.main(["--out", str(sdir / "gen_sobol_dirs")]) == 0)
+
+    # Group 3: the UI on the card, through a CLI subprocess.
+    study("ui_probe", ui_probe, ["--port", str(free_port()), "--size", "256", "--window", "3",
+                                 "--exposure-wait", "1"], "ui_probe.json",
+          lambda d: all(p["ok"] for p in d["phases"]) and d["steps"]["steps"] > 0, k3=False)
+    res["seconds"]["total"] = time.monotonic() - t12
+    print(f"[timing] phase 12 (the studies): " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in res["seconds"].items()) + f" ({smi})", flush=True)
+    return res
+
+
 def main() -> None:
     # 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2314,6 +2485,9 @@ def main() -> None:
     # 11. the device mesh on one card ---------------------------------------
     mesh_res = mesh_phase(out_dir, smi, dev, counters, plains, app_log, lum, split, bake_chunks)
 
+    # 12. the studies ---------------------------------------------------------
+    studies = study_phase(out_dir, smi, dev, counters, plains)
+
     # 7. checks and timing at the main path's shapes ------------------------
     # 1,104,000 lanes end in a partial block, so the kernels' tail masks run
     # here.  These launches come after the counters were read above.
@@ -3008,6 +3182,7 @@ def main() -> None:
          "quant_probe": k8_res, "quant_probe_sass_mma": k8_sass, "quality_gate": quality,
          "tf32_chain": tf32_res, "turntable": tt, "exe_manifest": manifest,
          "nif_tools": trained["numbers"], "accuracy": accuracy, "mesh": mesh_res,
+         "studies": {k: studies[k] for k in ("seconds", "launches", "stub_launches")},
          "wgmma_sass_ptxas": wg_sass,
          "quality_gate_plain": quality_plain, "quality_gate_s": gate_s,
          "host_syncs": syncs, "ui_codec": codec, "ui_runs": ui_runs, "ui_parts": ui_parts,

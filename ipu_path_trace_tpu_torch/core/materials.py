@@ -20,6 +20,16 @@ REFRACT_WEIGHT = 1.15  # smallpaint's refraction boost
 TWO_PI = 2.0 * math.pi
 
 
+def roulette_weight(rand, stop_prob):
+    """Russian roulette: (stop, weight) = light::rouletteWeight(rand, p).
+    Stops when rand <= p; a surviving ray is compensated by 1 / (1 - p).
+    The kernels do the roulette inside (csrc/common.cuh); this is the
+    helper the reference exposes."""
+    stop = rand <= stop_prob
+    weight = 1.0 / (1.0 - stop_prob)
+    return stop, weight
+
+
 def hemisphere_sample(u1: torch.Tensor, u2: torch.Tensor) -> Vec3:
     """Uniform hemisphere sample about +z: z = u1, azimuth 2 pi u2."""
     r = torch.sqrt(torch.clamp_min(1.0 - u1 * u1, 0.0))

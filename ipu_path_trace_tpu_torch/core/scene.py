@@ -84,6 +84,47 @@ def make_scene(spheres, discs, colours, emissions, materials, *, device="cpu") -
     return Scene(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays))
 
 
+def grid_scene(num_spheres: int, emissive_every: int = 8, device="cpu") -> Scene:
+    """Procedural stress scene: ``num_spheres`` spheres on a grid + floor.
+
+    For measuring how the trace scales with object count: spheres on an
+    approximately square XZ grid in front of the default camera, cycling
+    diffuse / specular / refractive materials; every ``emissive_every``-th
+    sphere is a small light.  Deterministic - no RNG.
+    """
+    if num_spheres < 1:
+        raise ValueError("num_spheres must be >= 1")
+    cols = max(1, int(np.ceil(np.sqrt(num_spheres))))
+    rows = int(np.ceil(num_spheres / cols))
+    spacing = 1.1
+    radius = 0.42
+    spheres, colours, emissions, materials = [], [], [], []
+    M = Material
+    mats = [M.DIFFUSE, M.SPECULAR, M.REFRACTIVE]
+    palette = [(1.6, 0.7, 0.5), (1.0, 1.0, 1.0), (0.75, 0.75, 0.75),
+               (0.5, 1.2, 0.8), (1.4, 1.4, 0.6)]
+    for i in range(num_spheres):
+        r, c = divmod(i, cols)
+        x = (c - (cols - 1) / 2.0) * spacing
+        z = -3.0 - r * spacing
+        y = -1.6 + radius + 0.25 * ((i * 7) % 3)
+        spheres.append(((x, y, z), radius))
+        if emissive_every and i % emissive_every == emissive_every - 1:
+            colours.append((1.0, 1.0, 1.0))
+            emissions.append((10.0, 9.5, 8.0))
+            materials.append(M.DIFFUSE)
+        else:
+            colours.append(palette[i % len(palette)])
+            emissions.append((0.0, 0.0, 0.0))
+            materials.append(mats[i % len(mats)])
+    discs = [((0.0, 1.0, 0.0), (0.0, -1.6, -3.0 - (rows - 1) * spacing / 2.0),
+              2.0 + max(cols, rows) * spacing)]
+    colours.append((1.5, 1.5, 1.4))
+    emissions.append((0.0, 0.0, 0.0))
+    materials.append(M.DIFFUSE)
+    return make_scene(spheres, discs, colours, emissions, materials, device=device)
+
+
 def default_scene(device="cpu") -> Scene:
     """The reference's hard-coded scene: five spheres (left diffuse,
     middle mirror, right glass, front diffuse with a refractive

@@ -165,6 +165,9 @@ QUICK_TESTS = {
     ("test_torch_mesh.py", "test_sharded_step_equals_its_replay"),
     ("test_torch_mesh_app.py", "test_ipus_and_mesh_shape_parse"),
     ("test_torch_mesh_app.py", "test_ui_interactive_samples_must_divide_by_the_sample_axis"),
+    # the port's studies: their arithmetic and one toy run
+    ("test_torch_studies.py", "test_two_seed_identity"),
+    ("test_torch_studies_run.py", "test_envskip_bench_stats_cpu"),
     # checkpoint/resume
     ("test_checkpoint.py", "test_checkpoint_validation"),
     ("test_checkpoint.py", "test_resume_rejects_mismatched_config"),
