@@ -23,7 +23,8 @@ Phases, one line each:
                 IMMA, HMMA or HGMMA with a register operand (ptxas may add a
                 dummy HGMMA on RZ, which computes nothing); likewise K3
                 (megastep_wg_kernel, both chains): every instantiation with
-                a chain (Philox, host noise, Sobol, the 'trace' stubs) holds
+                a chain (Philox, host noise, Sobol, each untraced and
+                recording the per-block record, the 'trace' stubs) holds
                 its chain's wgmma and no mma.sync, the 'nif' and 'both' stubs
                 no MMA at all, and no megastep_kernel (the old mma.sync K3) is
                 built; ptxas reports no spills for any K2, K3 or K4 kernel
@@ -717,14 +718,14 @@ def sass_mma_counts(lib_path: Path) -> dict:
 
 # The wgmma kernels by their mangled template arguments: K2 and K4
 # (<kOp>: operand bytes 1 int8, 2 bf16, 4 tf32), K3
-# megastep_wg_kernel<kRng, kStub, kOp>, K6's
+# megastep_wg_kernel<kRng, kStub, kOp, kRecord>, K6's
 # probe_wg_kernel<kAlu>, K7's probe_wg_loop_kernel<kPrng, kState>, K8's
 # quant_probe_wg_kernel<variant>; and the old mma.sync kernels - K3's
 # megastep_kernel, K6's probe_mxu_kernel and probe_both_kernel, K7's
 # probe_loop_kernel, K8's quant_probe_kernel - which must no longer be built.
 WG_KERNELS = {"K2": re.compile(r"16env_shade_kernelILi([124])E"),
               "K4": re.compile(r"16nif_apply_kernelILi([124])E"),
-              "K3": re.compile(r"18megastep_wg_kernelILi(\d)ELi(\d)ELi([124])EE"),
+              "K3": re.compile(r"18megastep_wg_kernelILi(\d)ELi(\d)ELi([124])ELb([01])EE"),
               "K6": re.compile(r"15probe_wg_kernelILb([01])EE"),
               "K7": re.compile(r"20probe_wg_loop_kernelILb([01])ELb([01])EE"),
               "K8": re.compile(r"21quant_probe_wg_kernelILi(\d)EE")}
@@ -763,7 +764,8 @@ def wg_instantiations(functions, build_log: list[str]) -> dict:
                 continue
             if kernel == "K3":
                 chain = CHAIN_OF_OP[m[3]]
-                key = f"K3 {chain} {RNG_NAMES[int(m[1])]} {STUB_NAMES[int(m[2])]}"
+                key = (f"K3 {chain} {RNG_NAMES[int(m[1])]} {STUB_NAMES[int(m[2])]}"
+                       + (" recording" if m[4] == "1" else ""))
                 mma = int(m[2]) in (0, 2)
             elif kernel == "K8":  # fp8 runs the bf16 tile
                 v = int(m[1])
@@ -2014,7 +2016,8 @@ def main() -> None:
             phase(f"SASS {kernel} {chain}", functions is not None and v is not None
                   and holds_its_chain(v), cuobjdump=functions is not None,
                   **{op: (v or {}).get(op) for op in MMA_OPS + ("HGMMA_RZ", "HGMMA_TF32")})
-    built = [f"{r} production" for r in RNG_NAMES.values()] + [
+    built = [f"{r} production{rec}" for r in RNG_NAMES.values()
+             for rec in ("", " recording")] + [
         f"{r} {st}" for r in ("philox", "sobol") for st in list(STUB_NAMES.values())[1:]]
     for chain in ("bf16", "int8", "tf32"):
         k3 = {k: v for k, v in wg_sass.items() if k.startswith(f"K3 {chain} ")}

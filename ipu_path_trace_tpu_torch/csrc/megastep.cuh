@@ -71,6 +71,18 @@
 //   81,920 B, features 2 x 8,192 B, ring 3 x 40,960 B (320 rows x 32
 //   inputs x 4 B), the tail as bf16: 227,712 B, as bf16.
 //
+// The per-block record (stamps, nullable; ops/megastep.py passes a buffer
+// only while a traced render loop runs, utils/tracing.py): each block
+// writes kStampWords int64 - its start, read from %globaltimer at entry
+// before the role split, its end after its last store, its SM (%smid), the
+// live lane-samples it ran, the lane-samples that escaped (nonzero escape
+// weights) and the chain tile passes it ran (a tile env_skip skipped does
+// not count).  The record is a template parameter (kRecord), like the
+// stubs: launch_megastep picks the recording kernel for a non-null
+// pointer, and the kernel without it compiles exactly as before the record
+// existed.  In the recording kernel the escape tally is one register and
+// thread 0 counts the tile passes in the control word's second int.
+//
 // The measurement stubs of --device-timing (utils/devtime.py) are a
 // template parameter, so the production kernels (kStubNone, built by
 // megastep.cu) compile exactly as without them; megastep_stub.cu builds
@@ -98,6 +110,21 @@ constexpr int kMegaUvBytes = 2 * kRaysPerBlock * 4;
 constexpr int kMegaOutBytes = 3 * kRaysPerBlock * 4;
 constexpr int kMegaCtlBytes = 16;
 constexpr int kWgAlignSlack = 1024;  // the plan's slack for the 1024-byte alignment
+// The per-block record's int64 words (utils/tracing.py STAMP_WORDS): start
+// and end (ns), SM, live lane-samples, escaped lane-samples, tile passes.
+constexpr int kStampWords = 6;
+
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
+__device__ __forceinline__ int sm_id() {
+  unsigned s;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
+  return (int)s;
+}
 
 __host__ __device__ inline int mega_tables_offset(const NifWg& net) {
   return net.smem_uv + kMegaUvBytes + kMegaOutBytes + kMegaCtlBytes;
@@ -144,13 +171,14 @@ struct SobolNoiseK3 : SobolNoise {
 static_assert(kWgConsumers == kRaysPerBlock && kRaysPerBlock % kWgTileRays<4> == 0,
               "a block's tracing threads are its two consumer warpgroups, its rays whole tiles");
 
-template <int kRng, int kStub, int kOp>
+template <int kRng, int kStub, int kOp, bool kRecord>
 __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
     TraceParams prm, NifWg net, const float* __restrict__ sph_g, const float* __restrict__ dsc_g,
     const float* __restrict__ cols, const float* __restrict__ rows,
     const float* __restrict__ noise, const int* __restrict__ pid, const int* __restrict__ base,
     const int* __restrict__ budgets, int budget_block, int samples, int n, int env_skip,
-    float* __restrict__ rad_out, int* __restrict__ plen_out, float* __restrict__ lum2_out) {
+    float* __restrict__ rad_out, int* __restrict__ plen_out, float* __restrict__ lum2_out,
+    long long* __restrict__ stamps) {
   using Chain = NifChain<kOp>;
   constexpr bool kStubChain = (kStub & kStubNif) != 0;
   constexpr int kTile = kWgTileRays<kOp>, kTiles = kRaysPerBlock / kTile;
@@ -160,9 +188,25 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
   float* const s_v = s_u + kRaysPerBlock;
   float* const s_out = s_v + kRaysPerBlock;
   volatile int* const ctl = (volatile int*)(s_out + 3 * kRaysPerBlock);
+  // The record's block-wide tallies, beside the control word: tile passes
+  // (thread 0 alone) and escapes (summed at exit).
+  volatile int* const s_passes = ctl + 1;
+  int* const s_escapes = (int*)(ctl + 2);
   float* const s_tables = (float*)(b.smem + mega_tables_offset(net));
+  if constexpr (kRecord) {
+    if (threadIdx.x == 0) {
+      stamps[(long long)blockIdx.x * kStampWords] = global_ns();
+      stamps[(long long)blockIdx.x * kStampWords + 2] = sm_id();
+    }
+  }
   wg_setup(net, b);
-  if (threadIdx.x == 0) *ctl = kCtlIdle;
+  if (threadIdx.x == 0) {
+    *ctl = kCtlIdle;
+    if constexpr (kRecord) {
+      *s_passes = 0;
+      *s_escapes = 0;
+    }
+  }
   load_tables(prm, sph_g, dsc_g, s_tables);
   __syncthreads();
   if (wg_producer_role([&] {
@@ -199,6 +243,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
   V3 acc = {0.0f, 0.0f, 0.0f};
   int acc_len = 0;
   float acc_l2 = 0.0f;
+  int acc_esc = 0;  // the record's escaped lane-samples (a dead lane's weights are zero)
 
   for (int s = 0; s < n_samples; ++s) {
     TraceResult r;
@@ -224,8 +269,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
     // tile).  A tile with no live ray is skipped.  The barriers also
     // publish the (u, v).
     uint32_t shade = 0u;
+    const bool escapes = r.esc_w.x != 0.0f || r.esc_w.y != 0.0f || r.esc_w.z != 0.0f;
+    if constexpr (kRecord) acc_esc += escapes;
     if (env_skip) {
-      const bool escapes = r.esc_w.x != 0.0f || r.esc_w.y != 0.0f || r.esc_w.z != 0.0f;
 #pragma unroll
       for (int t = 0; t < kTiles; ++t)
         shade |= (uint32_t)(consumers_or(tid / kTile == t && escapes) && block_rays > kTile * t)
@@ -236,6 +282,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
       for (int t = 0; t < kTiles; ++t) shade |= (uint32_t)(block_rays > kTile * t) << t;
     }
     if (!kStubChain && tid == 0 && shade) *ctl = kCtlGo;
+    if constexpr (kRecord)
+      if (tid == 0) *s_passes += __popc(shade);
     // The loop is unrolled in the stubs and not in the production kernels:
     // so ptxas allocates every instantiation without spills at 240
     // registers (chip_smoke.py's ptxas phase), which neither choice alone did.
@@ -274,6 +322,18 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
     plen_out[p] = acc_len;
     if (lum2_out) lum2_out[p] = acc_l2;
   }
+  if constexpr (kRecord) {
+    const unsigned warp_esc = __reduce_add_sync(0xffffffffu, (unsigned)acc_esc);
+    if ((tid & 31) == 0) atomicAdd(s_escapes, (int)warp_esc);
+    consumers_sync();  // every store and every warp's escapes are in
+    if (tid == 0) {
+      long long* const rec = stamps + (long long)blockIdx.x * kStampWords;
+      rec[1] = global_ns();
+      rec[3] = (long long)min(block_rays, kRaysPerBlock) * n_samples;
+      rec[4] = *s_escapes;
+      rec[5] = *s_passes;
+    }
+  }
 }
 
 struct MegaArgs {
@@ -283,11 +343,25 @@ struct MegaArgs {
   float* rad;
   int* plen;
   float* lum2;
+  long long* stamps;  // the per-block records, or nullptr
 };
 
+using MegaKernel = void (*)(TraceParams, NifWg, const float*, const float*, const float*,
+                            const float*, const float*, const int*, const int*, const int*, int,
+                            int, int, int, float*, int*, float*, long long*);
+
+// The model's chain (net.int8, net.tf32).
+template <int kRng, int kStub, bool kRecord>
+MegaKernel mega_kernel(const NifWg& net) {
+  return net.int8   ? megastep_wg_kernel<kRng, kStub, 1, kRecord>
+         : net.tf32 ? megastep_wg_kernel<kRng, kStub, 4, kRecord>
+                    : megastep_wg_kernel<kRng, kStub, 2, kRecord>;
+}
+
 // Validates the plan (the chain's, and room for the scene's tables), then
-// launches the model's chain (net.int8, net.tf32) in RNG mode kRng: one
-// block of kWgThreads threads per kRaysPerBlock rays.
+// launches the model's chain in RNG mode kRng: one block of kWgThreads
+// threads per kRaysPerBlock rays; the recording kernel for a non-null
+// a.stamps (built for kStubNone alone: a stub's stamps are ignored).
 template <int kRng, int kStub>
 int launch_megastep(const TraceParams& prm, const NifWg& net, const MegaArgs& a,
                     cudaStream_t stream) {
@@ -296,12 +370,9 @@ int launch_megastep(const TraceParams& prm, const NifWg& net, const MegaArgs& a,
   if (!wg_valid(net) ||
       mega_tables_offset(net) + (int)tables_bytes(prm) + kWgAlignSlack > net.smem_bytes)
     return (int)cudaErrorInvalidValue;
-  void (*const kernel)(TraceParams, NifWg, const float*, const float*, const float*,
-                       const float*, const float*, const int*, const int*, const int*, int, int,
-                       int, int, float*, int*, float*) =
-      net.int8   ? megastep_wg_kernel<kRng, kStub, 1>
-      : net.tf32 ? megastep_wg_kernel<kRng, kStub, 4>
-                 : megastep_wg_kernel<kRng, kStub, 2>;
+  MegaKernel kernel = mega_kernel<kRng, kStub, false>(net);
+  if constexpr (kStub == kStubNone)
+    if (a.stamps) kernel = mega_kernel<kRng, kStub, true>(net);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, net.smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -309,7 +380,7 @@ int launch_megastep(const TraceParams& prm, const NifWg& net, const MegaArgs& a,
   if (blocks == 0) return 0;
   kernel<<<blocks, kWgThreads, net.smem_bytes, stream>>>(
       prm, net, a.sph, a.dsc, a.cols, a.rows, a.noise, a.pid, a.base, a.budgets, a.budget_block,
-      a.samples, a.n, a.env_skip, a.rad, a.plen, a.lum2);
+      a.samples, a.n, a.env_skip, a.rad, a.plen, a.lum2, a.stamps);
   return (int)cudaGetLastError();
 }
 

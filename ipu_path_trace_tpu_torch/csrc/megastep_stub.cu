@@ -29,7 +29,7 @@ extern "C" int pt_megastep_stub(const pt::TraceParams* prm, const pt::NifWg* wg,
                                 void* stream) {
   if (wg == nullptr) return (int)cudaErrorInvalidValue;
   const pt::MegaArgs a{sph, dsc, cols, rows, nullptr, pid, base, budgets,
-                       budget_block, samples, n, env_skip, rad, plen, lum2};
+                       budget_block, samples, n, env_skip, rad, plen, lum2, nullptr};
   cudaStream_t s = (cudaStream_t)stream;
   switch (stub) {
     case pt::kStubNif:

@@ -20,7 +20,11 @@ squared sample luminance, ``lum2``) and ``env_skip`` (the NIF chain
 skipped for tiles with no escape, ``env_skip_tile``: 128 rays, 64 for
 the f32 chain).
 For a CUDA tensor there is no fallback: a plan, build or launch that
-fails raises.  The measurement stubs of
+fails raises.  While tracing is on (utils/tracing.py: a render loop's
+channel is current and a profiler records) each launch also writes one
+record a CUDA block - its start and end on %globaltimer, its SM, its live
+and escaped lane-samples and its chain tile passes - into a buffer handed
+to the channel, which reduces it when the loop ends.  The measurement stubs of
 --device-timing (``stub``, utils/devtime.py) are the reference's:
 ``'nif'`` replaces every layer's product by ones (no bias) and decodes
 them, ``'trace'`` replaces each bounce by ``path_len += (rr < 2)`` (rays
@@ -39,6 +43,7 @@ import torch
 from ..core.scene import Scene
 from ..core.vecmath import Vec3
 from ..models.nif import NifModel
+from ..utils import tracing
 from . import _lib
 from .nif import (WG_RAYS, _elem, chain_name, model_tensors, nif_env_shade_plain, tile_rays,
                   wg_arg, wg_struct, wgmma_plan)
@@ -245,27 +250,36 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     if stub is not None and noise is not None:
         raise ValueError("megastep: the stub kernels are built for the Philox and Sobol "
                          "modes, not host noise")
-    prm = trace_params(scene, settings, seed=seed, device=dev, sobol=sobol,
-                       sobol_dims=sobol_dims, width=width, height=height,
-                       max_path_length=max_path_length, aa_noise_type=aa_noise_type)
-    wg = wg_arg(kernel_net(model, scene))
-    sph, dsc = pack_scene(scene, dev)
-    rad = torch.empty((3, n), dtype=torch.float32, device=dev)
-    plen = torch.empty(n, dtype=torch.int32, device=dev)
-    lum2 = torch.empty(n, dtype=torch.float32, device=dev) if with_stats else None
-    pid, base = (None, None) if sobol is None else sobol[:2]
-    lib = _lib.library()
-    common = (_lib.ptr(sph), _lib.ptr(dsc), _lib.ptr(cols), _lib.ptr(rows))
-    tail = (_lib.ptr(pid), _lib.ptr(base), _lib.ptr(budgets), budget_block, samples, n,
-            int(bool(env_skip)), _lib.ptr(rad), _lib.ptr(plen), _lib.ptr(lum2))
-    with torch.cuda.device(dev):  # the launch's shared-memory attribute, SM count and stream
-        if stub is None:
-            err = lib.pt_megastep(ctypes.byref(prm), wg, *common, _lib.ptr(noise), *tail,
-                                  _lib.stream(dev))
-        else:
-            err = lib.pt_megastep_stub(ctypes.byref(prm), wg, *common, *tail, STUBS[stub],
-                                       _lib.stream(dev))
-    _lib.check(err, "megastep" if stub is None else f"megastep stub '{stub}'")
+    with tracing.span("megastep_launch"):
+        prm = trace_params(scene, settings, seed=seed, device=dev, sobol=sobol,
+                           sobol_dims=sobol_dims, width=width, height=height,
+                           max_path_length=max_path_length, aa_noise_type=aa_noise_type)
+        wg = wg_arg(kernel_net(model, scene))
+        sph, dsc = pack_scene(scene, dev)
+        rad = torch.empty((3, n), dtype=torch.float32, device=dev)
+        plen = torch.empty(n, dtype=torch.int32, device=dev)
+        lum2 = torch.empty(n, dtype=torch.float32, device=dev) if with_stats else None
+        # The per-block record (csrc/megastep.cuh), only while tracing is
+        # on; zeroed, so a block that wrote none shows (tracing.launch_record).
+        stamps = None
+        if stub is None and tracing.tracing_on():
+            stamps = torch.zeros((-(-n // RAYS_PER_CUDA_BLOCK), tracing.STAMP_WORDS),
+                                 dtype=torch.int64, device=dev)
+        pid, base = (None, None) if sobol is None else sobol[:2]
+        lib = _lib.library()
+        common = (_lib.ptr(sph), _lib.ptr(dsc), _lib.ptr(cols), _lib.ptr(rows))
+        tail = (_lib.ptr(pid), _lib.ptr(base), _lib.ptr(budgets), budget_block, samples, n,
+                int(bool(env_skip)), _lib.ptr(rad), _lib.ptr(plen), _lib.ptr(lum2))
+        with torch.cuda.device(dev):  # the launch's shared-memory attribute, SM count, stream
+            if stub is None:
+                err = lib.pt_megastep(ctypes.byref(prm), wg, *common, _lib.ptr(noise), *tail,
+                                      _lib.ptr(stamps), _lib.stream(dev))
+            else:
+                err = lib.pt_megastep_stub(ctypes.byref(prm), wg, *common, *tail,
+                                           STUBS[stub], _lib.stream(dev))
+        _lib.check(err, "megastep" if stub is None else f"megastep stub '{stub}'")
+        if stamps is not None:
+            tracing.keep_launch(stamps, env_skip_tile(model))
     if stub is None:
         render_megastep.launches += 1
     else:

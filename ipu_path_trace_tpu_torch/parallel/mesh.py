@@ -45,6 +45,7 @@ from ..models.nif import NifModel
 from ..ops.megastep import BUDGET_BLOCK
 from ..ops.trace import philox4x32_10
 from ..render.params import RenderSettings, StaticConfig
+from ..utils.tracing import span
 
 # Counter word 1 of fold_seed's Philox draw ("mesh"): far from the sample
 # indices the kernels put there under the same key.
@@ -132,9 +133,10 @@ class Mesh:
         return list(dict.fromkeys(d for row in self.devices for d in row))
 
     def synchronize(self) -> None:
-        for d in self.distinct():
+        for k, d in enumerate(self.distinct()):
             if d.type == "cuda":
-                torch.cuda.synchronize(d)
+                with span(f"card_sync/{k}"):
+                    torch.cuda.synchronize(d)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape['pixels']}x{self.shape['samples']}, "
@@ -274,14 +276,16 @@ def _film_reduction(mesh: Mesh, ins: list, outs: list, lum2_in=None, lum2_out=No
     every replica's delta.  With one replica its output as it is."""
     if len(outs) == 1:
         return (tuple(outs), None if lum2_out is None else tuple(lum2_out))
-    totals = {f: _sum_replicas(mesh, [getattr(o, f) - getattr(w, f) for o, w in zip(outs, ins)])
-              for f in _SUMMED}
-    new = tuple(w._replace(**{f: getattr(w, f) + totals[f][k] for f in _SUMMED})
-                for k, w in enumerate(ins))
-    if lum2_out is None:
-        return new, None
-    dl = _sum_replicas(mesh, [o - w for o, w in zip(lum2_out, lum2_in)])
-    return new, tuple(w + dl[k] for k, w in enumerate(lum2_in))
+    with span("film_reduction"):
+        totals = {f: _sum_replicas(mesh, [getattr(o, f) - getattr(w, f)
+                                          for o, w in zip(outs, ins)])
+                  for f in _SUMMED}
+        new = tuple(w._replace(**{f: getattr(w, f) + totals[f][k] for f in _SUMMED})
+                    for k, w in enumerate(ins))
+        if lum2_out is None:
+            return new, None
+        dl = _sum_replicas(mesh, [o - w for o, w in zip(lum2_out, lum2_in)])
+        return new, tuple(w + dl[k] for k, w in enumerate(lum2_in))
 
 
 def _as_sharded(work, mesh: Mesh) -> Sharded:
@@ -306,12 +310,13 @@ def sharded_render_step(scene, settings: RenderSettings, cfg: StaticConfig, work
     work = _as_sharded(work, mesh)
     outs = []
     for i, row in enumerate(mesh.devices):
-        outs.append([
-            render_step(_on(scene, dev), settings, cfg, work.parts[i][j],
-                        None if seed is None else shard_seed(seed, i, j), _on(env, dev),
-                        noise=None if noise is None else noise[i][j], sobol_base=sobol_base,
-                        sample_axis_index=j)
-            for j, dev in enumerate(row)])
+        with span(f"shard_launch/{i}"):
+            outs.append([
+                render_step(_on(scene, dev), settings, cfg, work.parts[i][j],
+                            None if seed is None else shard_seed(seed, i, j), _on(env, dev),
+                            noise=None if noise is None else noise[i][j],
+                            sobol_base=sobol_base, sample_axis_index=j)
+                for j, dev in enumerate(row)])
     return Sharded(mesh, tuple(_film_reduction(mesh, list(work.parts[i]), outs[i])[0]
                                for i in range(len(outs))))
 
@@ -334,12 +339,14 @@ def sharded_adaptive_render_step(scene, settings: RenderSettings, cfg: StaticCon
     lum2 = lum2 if isinstance(lum2, Sharded) else shard_array(lum2, mesh)
     parts, l2_parts = [], []
     for i, row in enumerate(mesh.devices):
-        res = [adaptive_render_step(_on(scene, dev), settings, cfg, work.parts[i][j],
-                                    lum2.parts[i][j],
-                                    None if seed is None else shard_seed(seed, i, j),
-                                    _on(env, dev), noise=None if noise is None else noise[i][j],
-                                    block_size=block_size, sample_axis_index=j)
-               for j, dev in enumerate(row)]
+        with span(f"shard_launch/{i}"):
+            res = [adaptive_render_step(_on(scene, dev), settings, cfg, work.parts[i][j],
+                                        lum2.parts[i][j],
+                                        None if seed is None else shard_seed(seed, i, j),
+                                        _on(env, dev),
+                                        noise=None if noise is None else noise[i][j],
+                                        block_size=block_size, sample_axis_index=j)
+                   for j, dev in enumerate(row)]
         new, l2 = _film_reduction(mesh, list(work.parts[i]), [r[0] for r in res],
                                   list(lum2.parts[i]), [r[1] for r in res])
         parts.append(new)

@@ -23,6 +23,7 @@ import torch
 
 from ..core.records import WorkBatch
 from ..ops.megastep import BUDGET_BLOCK, LUM_B, LUM_G, LUM_R
+from ..utils.tracing import span
 from .params import RenderSettings, StaticConfig
 
 
@@ -113,9 +114,10 @@ def adaptive_render_step(scene, settings: RenderSettings, cfg: StaticConfig, wor
     min_spp, cap = adaptive_caps(cfg, spp)
     if noise is not None and noise.shape[0] < cap:
         raise ValueError(f"host noise must cover the budget cap ({cap} samples)")
-    budgets = compute_budgets(work.r, work.g, work.b, lum2, work.sample_count,
-                              block_size=block_size, samples_per_step=spp, min_spp=min_spp,
-                              max_spp=cap)
+    with span("compute_budgets"):
+        budgets = compute_budgets(work.r, work.g, work.b, lum2, work.sample_count,
+                                  block_size=block_size, samples_per_step=spp,
+                                  min_spp=min_spp, max_spp=cap)
     inc = budgets.repeat_interleave(block_size)[:work.u.shape[0]]
     ctx = None if noise is not None else make_qmc_ctx(work, cfg, settings)
     if ctx is not None and sample_axis_index:

@@ -62,8 +62,16 @@ tensor info of the scene and the env, ``--device-timing``
 (utils/devtime.py) before the loop, ``--profile-dir`` (a
 ``torch.profiler`` trace of the render loop, both threads, written as
 ``trace.json`` in Chrome's format), ``--metrics-file`` (one JSON line per
-step and a summary) and, on CUDA, one device-memory line after the first
-step.
+step and a summary: the rate of the samples this run rendered, and each
+span's count and seconds) and, on CUDA, one device-memory line after the
+first step.  ``execute`` makes its channel the current one for the loop,
+so the step's modules open spans on it: a step is ``ui_input``, then
+``ipu_render`` (``compute_budgets``, ``shard_launch/<i>``,
+``megastep_launch``, ``film_reduction``, then ``device_sync`` with
+``card_sync/<k>``, or ``device_fetch``), ``wait_for_host`` and
+``step_end``.  While a profiler records (``--profile-dir``, or an
+embedding program's) the channel keeps each span, and K3 writes its
+per-block records (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -229,6 +237,7 @@ class PathTracerApp:
         self._disk_norm = 0  # the film's normalisation not yet on disk (0: none)
         self._ckpt_step = 0  # the last step checkpointed
         self._rays = 0  # the last cleared buffer's path-length sum
+        self._rendered = 0  # samples a pixel the loop has rendered (its steps' samples_per_step)
         # The live render state: the CLI's values, then the remote UI's.
         self.state = {"exposure": config.exposure, "gamma": config.gamma, "fov": config.fov,
                       "env_rotation": config.env_map_rotation,
@@ -456,7 +465,9 @@ class PathTracerApp:
         log.info("Render started on %s (%s film)", self.device if self.mesh is None else self.mesh,
                  "device" if cfg.device_film else "host")
         host = AsyncTask()
-        with self._profiler() if cfg.profile_dir else contextlib.nullcontext() as prof:
+        self._rendered = 0
+        with (self._profiler() if cfg.profile_dir else contextlib.nullcontext() as prof,
+              self.trace.loop()):
             try:
                 if cfg.device_film:
                     self._device_film_steps(done + 1, steps, gen, host, work, lum2)
@@ -467,13 +478,16 @@ class PathTracerApp:
         elapsed = time.monotonic() - start
         if prof is not None:
             self._write_profile(prof)
-        rate = cfg.width * cfg.height * self.total_spp / elapsed
+        # The samples this run rendered: a stop or max_steps ends the loop
+        # before total_spp.
+        rate = cfg.width * cfg.height * self._rendered / elapsed
         chips = self.mesh.size if self.mesh is not None else 1
         log.info("Render finished: %.3f seconds (Samples/sec: %.4g)", elapsed, rate)
         log.info("Samples/sec/chip: %.4g", rate / chips)
         self._emit_metrics({"event": "summary", "elapsed_seconds": round(elapsed, 3),
                             "total_spp": int(self.total_spp),
-                            "samples_per_sec": round(rate, 1), "chips": chips})
+                            "samples_per_sec": round(rate, 1), "chips": chips,
+                            "spans": self.trace.report()})
         return self.film
 
     def _resume(self) -> tuple[int, WorkBatch | None, torch.Tensor | None]:
@@ -581,6 +595,7 @@ class PathTracerApp:
 
     def _after_step(self, step: int, first: int, steps: int, secs: float, **extra) -> None:
         cfg = self.cfg
+        self._rendered += self.samples_per_step
         rate = cfg.width * cfg.height * self.samples_per_step / secs
         self._emit_metrics({"step": step, "steps": steps, "seconds": round(secs, 4),
                             "samples_per_sec": round(rate, 1), **extra,
@@ -808,7 +823,9 @@ class PathTracerApp:
             if self._stop(done):
                 break
             t0 = time.monotonic()
-            status = self._ui_input(step, host)
+            self.trace.step = step
+            with self.trace.span("ui_input"):
+                status = self._ui_input(step, host)
             if status == "stop":
                 break
             if status == "restart":
@@ -816,7 +833,7 @@ class PathTracerApp:
                 self.balancer.clear_active_accumulators()
                 self._disk_norm = self._ckpt_step = sobol_base = done = 0
                 gen = torch.Generator().manual_seed(cfg.seed)
-                step = 1
+                step = self.trace.step = 1
             if self._settings_sig() != sig:
                 settings, sig = self.settings(), self._settings_sig()
             with self.trace.span("ipu_render"):
@@ -824,8 +841,8 @@ class PathTracerApp:
                     work_dev = self._upload(work.active)
                 out = self._render(settings, static, work_dev, step_seed(gen),
                                    sobol_base=sobol_base)
-                # The fetch waits for the device(s).
-                work.active = from_device_batch(self._whole(out, "cpu"))
+                with self.trace.span("device_fetch"):  # the fetch waits for the device(s)
+                    work.active = from_device_batch(self._whole(out, "cpu"))
             sobol_base += self.samples_per_step
             t1 = time.monotonic()
             with self.trace.span("wait_for_host"):
@@ -835,12 +852,13 @@ class PathTracerApp:
             rays = self._rays  # the step before's, as the reference's Rays/sec
             host.run(functools.partial(self._host_processing, step, steps, self._fingerprint(),
                                        dict(self.state), self._ui))
-            secs = time.monotonic() - t0
-            rate = cfg.width * cfg.height * self.samples_per_step / secs
-            log.info("Completed render step %d/%d in %.3f seconds (render+fetch %.3f, wait for "
-                     "host %.3f; Samples/sec %.3g) (Rays/sec %.3g)", step, steps, secs, t1 - t0,
-                     t2 - t1, rate, rays / secs)
-            self._after_step(step, first, steps, secs, rays_per_sec=round(rays / secs, 1))
+            with self.trace.span("step_end"):
+                secs = time.monotonic() - t0
+                rate = cfg.width * cfg.height * self.samples_per_step / secs
+                log.info("Completed render step %d/%d in %.3f seconds (render+fetch %.3f, wait "
+                         "for host %.3f; Samples/sec %.3g) (Rays/sec %.3g)", step, steps, secs,
+                         t1 - t0, t2 - t1, rate, rays / secs)
+                self._after_step(step, first, steps, secs, rays_per_sec=round(rays / secs, 1))
             done = step
             step += 1
         with self.trace.span("wait_for_host"):
@@ -939,7 +957,9 @@ class PathTracerApp:
             if self._stop(done):
                 break
             t0 = time.monotonic()
-            status = self._ui_input(step, host)
+            self.trace.step = step
+            with self.trace.span("ui_input"):
+                status = self._ui_input(step, host)
             if status == "stop":
                 break
             if status == "restart":
@@ -950,7 +970,7 @@ class PathTracerApp:
                 self._disk_norm = self._ckpt_step = done = 0
                 dirty = False
                 gen = torch.Generator().manual_seed(cfg.seed)
-                step = 1
+                step = self.trace.step = 1
             if self._settings_sig() != sig:
                 settings, sig = self.settings(), self._settings_sig()
             save = step % cfg.save_interval == 0 or step == steps
@@ -961,9 +981,12 @@ class PathTracerApp:
                 else:
                     work = self._render(settings, static, work, step_seed(gen))
                 if save:
-                    soa = self._fetch(work, lum2)  # the fetch waits for the device
+                    with self.trace.span("device_fetch"):  # the fetch waits for the device
+                        soa = self._fetch(work, lum2)
                 else:
-                    self._sync()  # the step's seconds are the device's, not the enqueue's
+                    # The step's seconds are the device's, not the enqueue's.
+                    with self.trace.span("device_sync"):
+                        self._sync()
             t1 = time.monotonic()
             with self.trace.span("wait_for_host"):
                 host.wait_for_completion()
@@ -983,12 +1006,13 @@ class PathTracerApp:
                 host.run(functools.partial(self._device_film_processing, step, soa,
                                            self._fingerprint(), dict(self.state), ui))
             dirty = not save
-            secs = time.monotonic() - t0
-            rate = cfg.width * cfg.height * self.samples_per_step / secs
-            log.info("Completed render step %d/%d in %.3f seconds (render%s %.3f, wait for host "
-                     "%.3f; Samples/sec %.3g)", step, steps, secs, "+fetch" if save else "",
-                     t1 - t0, t2 - t1, rate)
-            self._after_step(step, first, steps, secs)
+            with self.trace.span("step_end"):
+                secs = time.monotonic() - t0
+                rate = cfg.width * cfg.height * self.samples_per_step / secs
+                log.info("Completed render step %d/%d in %.3f seconds (render%s %.3f, wait for "
+                         "host %.3f; Samples/sec %.3g)", step, steps, secs,
+                         "+fetch" if save else "", t1 - t0, t2 - t1, rate)
+                self._after_step(step, first, steps, secs)
             done = step
             step += 1
         with self.trace.span("wait_for_host"):

@@ -187,6 +187,10 @@ QUICK_TESTS = {
     ("test_envbake.py", "test_app_wires_max_nif_batch_size"),
     # observability
     ("test_observability.py", "test_metrics_file_jsonl"),
+    # the port's tracing: kept spans, K3's launch records, the benchmark's readers
+    ("test_torch_tracing.py", "test_kept_spans_nest_and_share_the_step"),
+    ("test_torch_tracing.py", "test_launch_record_waves_and_fill"),
+    ("test_torch_trace_metrics.py", "test_idle_and_controller_readers"),
     # UI server / packetcomms / video
     ("test_ui.py", "test_state_updates"),
     ("test_ui.py", "test_preview_frame"),

@@ -207,19 +207,20 @@ def test_cli_log_level(tmp_path, caplog, level):
 
 
 def test_trace_channel_spans():
-    from ipu_path_trace_tpu_torch.utils.tracing import TraceChannel, trace_span
+    from ipu_path_trace_tpu_torch.utils.tracing import TraceChannel, span
 
     chan = TraceChannel("test")
     for _ in range(3):
         with chan.span("a"):
             pass
-    with trace_span(chan, "b"):
-        pass
-    with trace_span(None, "c"):  # no channel: no span
+    with chan.loop():  # the current channel takes the module-level spans
+        with span("b"):
+            pass
+    with span("c"):  # no current channel: no span
         pass
     report = chan.report()
     assert set(report) == {"a", "b"} and report["a"]["count"] == 3
-    assert chan.total("a") == report["a"]["total_s"] >= 0.0 and chan.total("c") == 0.0
+    assert report["a"]["total_s"] >= 0.0 and report["b"]["count"] == 1
 
 
 def test_tensor_info_of_an_int8_env(caplog):
