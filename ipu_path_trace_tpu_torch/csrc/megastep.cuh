@@ -24,7 +24,19 @@
 // returned, so every barrier of the loop is a named one over the 256
 // consumer threads (consumers_sync), never __syncthreads.  The blocks are
 // not persistent (one per 256 rays, one resident per SM by its shared
-// memory and registers) and the first fill is lazy: the producer streams
+// memory and registers).  Which 256 rays a block takes (its ray block):
+// without budgets, ray block blockIdx.x; with budgets, the launcher also
+// passes order, the ray blocks by budget heaviest first (ties in index
+// order, ops/megastep.py::block_order), and a ticket counter it zeroes on
+// the stream, and thread 0 of each block takes ticket t = atomicAdd and
+// publishes ray block order[t] in the control word's last int before the
+// role split.  So the blocks that start first take the longest budgets
+// whatever order the hardware hands out blockIdx in, and the short ones
+// fill in behind them (longest-processing-time-first): an adaptive
+// launch's last wave no longer waits on a heavy block that started late.
+// Every ray computes what it would under blockIdx.x (its noise is keyed by
+// its index p), so the outputs are the same bit for bit.  The first fill is
+// lazy: the producer streams
 // nothing until the consumers first ask for a tile (kCtlGo), then the
 // slice sequence tile after tile (wg_stream), and stops when the consumers
 // say the block is done (kCtlDone), so a block whose tiles are all skipped
@@ -34,11 +46,13 @@
 // flag.  The other modes are runtime arguments:
 //  * budgets (adaptive sampling): budgets[g] samples for the rays of
 //    budget block g (budget_block rays, a multiple of kRaysPerBlock, so a
-//    budget is uniform over a CUDA block, as the chain's block-wide
+//    budget is uniform over a ray block, as the chain's block-wide
 //    barriers and both warpgroups' consumption of every slice need).  It is
 //    the sample-loop bound, 0 included; with host noise the loop also stops
 //    at the noise's S rows, which gates rows >= budget to exact zeros as
-//    the TPU kernel's multiplicative gate does;
+//    the TPU kernel's multiplicative gate does.  A launch with budgets
+//    dispatches its ray blocks heaviest budget first (order and ticket,
+//    above); one without passes neither and maps blockIdx.x;
 //  * lum2 != nullptr (with_stats): the sum over samples of the squared
 //    Rec.709 luminance of each sample's radiance (direct + env);
 //  * env_skip: a wgmma tile (128 rays; 64 for tf32) whose escape weights
@@ -73,7 +87,8 @@
 //
 // The per-block record (stamps, nullable; ops/megastep.py passes a buffer
 // only while a traced render loop runs, utils/tracing.py): each block
-// writes kStampWords int64 - its start, read from %globaltimer at entry
+// writes kStampWords int64 at its ray block's row - its start, read from
+// %globaltimer at entry
 // before the role split, its end after its last store, its SM (%smid), the
 // live lane-samples it ran, the lane-samples that escaped (nonzero escape
 // weights) and the chain tile passes it ran (a tile env_skip skipped does
@@ -105,7 +120,8 @@ constexpr float kLumR = 0.2126f, kLumG = 0.7152f, kLumB = 0.0722f;
 
 // K3's tail of the chain's plan, at net.smem_uv: the block's u[256] and
 // v[256], the head's outputs [3][256] (network order), the control word
-// (WgCtl, 16 B), then the scene tables.
+// (WgCtl, 16 B: the control, the record's two tallies, the block's ray
+// block), then the scene tables.
 constexpr int kMegaUvBytes = 2 * kRaysPerBlock * 4;
 constexpr int kMegaOutBytes = 3 * kRaysPerBlock * 4;
 constexpr int kMegaCtlBytes = 16;
@@ -176,7 +192,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
     TraceParams prm, NifWg net, const float* __restrict__ sph_g, const float* __restrict__ dsc_g,
     const float* __restrict__ cols, const float* __restrict__ rows,
     const float* __restrict__ noise, const int* __restrict__ pid, const int* __restrict__ base,
-    const int* __restrict__ budgets, int budget_block, int samples, int n, int env_skip,
+    const int* __restrict__ budgets, const int* __restrict__ order, int* __restrict__ ticket,
+    int budget_block, int samples, int n, int env_skip,
     float* __restrict__ rad_out, int* __restrict__ plen_out, float* __restrict__ lum2_out,
     long long* __restrict__ stamps) {
   using Chain = NifChain<kOp>;
@@ -192,11 +209,17 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
   // (thread 0 alone) and escapes (summed at exit).
   volatile int* const s_passes = ctl + 1;
   int* const s_escapes = (int*)(ctl + 2);
+  // The block's ray block, written once by thread 0 before the barrier.
+  int* const s_block = (int*)(ctl + 3);
   float* const s_tables = (float*)(b.smem + mega_tables_offset(net));
-  if constexpr (kRecord) {
-    if (threadIdx.x == 0) {
-      stamps[(long long)blockIdx.x * kStampWords] = global_ns();
-      stamps[(long long)blockIdx.x * kStampWords + 2] = sm_id();
+  if (threadIdx.x == 0) {
+    long long start = 0;
+    if constexpr (kRecord) start = global_ns();
+    const int rb = order ? order[atomicAdd(ticket, 1)] : (int)blockIdx.x;
+    *s_block = rb;
+    if constexpr (kRecord) {
+      stamps[(long long)rb * kStampWords] = start;
+      stamps[(long long)rb * kStampWords + 2] = sm_id();
     }
   }
   wg_setup(net, b);
@@ -224,9 +247,10 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
   const MegaWgIo io{s_out, kRaysPerBlock};
 
   const int tid = threadIdx.x;
-  const int p = blockIdx.x * kRaysPerBlock + tid;
+  const int rb = *s_block;
+  const int p = rb * kRaysPerBlock + tid;
   const bool live = p < n;  // the ragged tail still joins every barrier
-  const int block_rays = n - blockIdx.x * kRaysPerBlock;  // past kRaysPerBlock: all live
+  const int block_rays = n - rb * kRaysPerBlock;  // past kRaysPerBlock: all live
   const float col = live ? cols[p] : 0.0f, row = live ? rows[p] : 0.0f;
   int pixel = 0;
   uint32_t seq0 = 0u;
@@ -237,7 +261,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
   const long long sample_stride = (long long)(4 + 4 * prm.max_path_length) * n;
   int n_samples = samples;
   if (budgets) {
-    const int bud = budgets[(blockIdx.x * kRaysPerBlock) / budget_block];
+    const int bud = budgets[(rb * kRaysPerBlock) / budget_block];
     n_samples = kRng == kRngHost ? min(bud, samples) : bud;
   }
   V3 acc = {0.0f, 0.0f, 0.0f};
@@ -327,7 +351,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
     if ((tid & 31) == 0) atomicAdd(s_escapes, (int)warp_esc);
     consumers_sync();  // every store and every warp's escapes are in
     if (tid == 0) {
-      long long* const rec = stamps + (long long)blockIdx.x * kStampWords;
+      long long* const rec = stamps + (long long)rb * kStampWords;
       rec[1] = global_ns();
       rec[3] = (long long)min(block_rays, kRaysPerBlock) * n_samples;
       rec[4] = *s_escapes;
@@ -339,6 +363,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
 struct MegaArgs {
   const float *sph, *dsc, *cols, *rows, *noise;
   const int *pid, *base, *budgets;
+  const int* order;  // the ray blocks heaviest budget first, or nullptr
+  int* ticket;       // one int the launch zeroes, with order
   int budget_block, samples, n, env_skip;
   float* rad;
   int* plen;
@@ -347,8 +373,9 @@ struct MegaArgs {
 };
 
 using MegaKernel = void (*)(TraceParams, NifWg, const float*, const float*, const float*,
-                            const float*, const float*, const int*, const int*, const int*, int,
-                            int, int, int, float*, int*, float*, long long*);
+                            const float*, const float*, const int*, const int*, const int*,
+                            const int*, int*, int, int, int, int, float*, int*, float*,
+                            long long*);
 
 // The model's chain (net.int8, net.tf32).
 template <int kRng, int kStub, bool kRecord>
@@ -361,12 +388,14 @@ MegaKernel mega_kernel(const NifWg& net) {
 // Validates the plan (the chain's, and room for the scene's tables), then
 // launches the model's chain in RNG mode kRng: one block of kWgThreads
 // threads per kRaysPerBlock rays; the recording kernel for a non-null
-// a.stamps (built for kStubNone alone: a stub's stamps are ignored).
+// a.stamps (built for kStubNone alone: a stub's stamps are ignored).  With
+// a.order it zeroes a.ticket on the stream first.
 template <int kRng, int kStub>
 int launch_megastep(const TraceParams& prm, const NifWg& net, const MegaArgs& a,
                     cudaStream_t stream) {
   if (a.budgets && (a.budget_block <= 0 || a.budget_block % kRaysPerBlock))
     return (int)cudaErrorInvalidValue;
+  if (a.order && (!a.budgets || !a.ticket)) return (int)cudaErrorInvalidValue;
   if (!wg_valid(net) ||
       mega_tables_offset(net) + (int)tables_bytes(prm) + kWgAlignSlack > net.smem_bytes)
     return (int)cudaErrorInvalidValue;
@@ -378,9 +407,11 @@ int launch_megastep(const TraceParams& prm, const NifWg& net, const MegaArgs& a,
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.n + kRaysPerBlock - 1) / kRaysPerBlock;
   if (blocks == 0) return 0;
+  if (a.order && (err = cudaMemsetAsync(a.ticket, 0, sizeof(int), stream)) != cudaSuccess)
+    return (int)err;
   kernel<<<blocks, kWgThreads, net.smem_bytes, stream>>>(
-      prm, net, a.sph, a.dsc, a.cols, a.rows, a.noise, a.pid, a.base, a.budgets, a.budget_block,
-      a.samples, a.n, a.env_skip, a.rad, a.plen, a.lum2, a.stamps);
+      prm, net, a.sph, a.dsc, a.cols, a.rows, a.noise, a.pid, a.base, a.budgets, a.order,
+      a.ticket, a.budget_block, a.samples, a.n, a.env_skip, a.rad, a.plen, a.lum2, a.stamps);
   return (int)cudaGetLastError();
 }
 

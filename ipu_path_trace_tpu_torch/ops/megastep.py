@@ -19,6 +19,15 @@ of ``csrc/nif_wgmma.cuh`` under ``megastep_wg_plan``; per-block sample
 squared sample luminance, ``lum2``) and ``env_skip`` (the NIF chain
 skipped for tiles with no escape, ``env_skip_tile``: 128 rays, 64 for
 the f32 chain).
+Which rays a CUDA block takes: a launch without budgets maps block b to
+rays 256 b.. 256 b + 255.  A launch with budgets dispatches its 256-ray
+blocks heaviest budget first: it sorts them on the device
+(``block_order``, no host sync) and passes that order with a ticket
+counter; each CUDA block takes the next ticket t and the rays of block
+``order[t]``, so the longest budgets start in the first wave and the
+short ones fill in behind them (``render_megastep.ordered_launches``
+counts these launches).  Each ray computes what it computes in index
+order, so the outputs are the same bit for bit.
 For a CUDA tensor there is no fallback: a plan, build or launch that
 fails raises.  While tracing is on (utils/tracing.py: a render loop's
 channel is current and a profiler records) each launch also writes one
@@ -156,6 +165,19 @@ def _check_budgets(budgets, budget_block: int, n: int, device) -> None:
                          f"{budget_block} rays")
 
 
+def block_order(budgets: torch.Tensor, n: int, budget_block: int = BUDGET_BLOCK) -> torch.Tensor:
+    """The order in which an adaptive K3 launch dispatches its 256-ray
+    blocks: by budget, highest first, ties in block index order (a stable
+    sort, so uniform budgets give the identity).  Block k has the budget of
+    group k x 256 // budget_block; the ragged last block, fewer than 256
+    rays, is one block.  (ceil(n / 256),) int32 on the budgets' device, in
+    torch ops alone (on a CUDA tensor: on its stream, with no sync)."""
+    blocks = -(-n // RAYS_PER_CUDA_BLOCK)
+    per_group = budget_block // RAYS_PER_CUDA_BLOCK
+    block_budget = budgets.repeat_interleave(per_group, output_size=len(budgets) * per_group)
+    return torch.sort(block_budget[:blocks], descending=True, stable=True).indices.to(torch.int32)
+
+
 def render_megastep_plain(scene: Scene, settings, model: NifModel, cols, rows, seed=None,
                           *, noise=None, width: int, height: int, max_path_length: int,
                           aa_noise_type: str = "normal", budgets=None,
@@ -265,11 +287,17 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
         if stub is None and tracing.tracing_on():
             stamps = torch.zeros((-(-n // RAYS_PER_CUDA_BLOCK), tracing.STAMP_WORDS),
                                  dtype=torch.int64, device=dev)
+        # Heaviest budget first (module docstring); the launcher zeroes the ticket.
+        order = ticket = None
+        if budgets is not None:
+            order = block_order(budgets, n, budget_block)
+            ticket = torch.empty(1, dtype=torch.int32, device=dev)
         pid, base = (None, None) if sobol is None else sobol[:2]
         lib = _lib.library()
         common = (_lib.ptr(sph), _lib.ptr(dsc), _lib.ptr(cols), _lib.ptr(rows))
-        tail = (_lib.ptr(pid), _lib.ptr(base), _lib.ptr(budgets), budget_block, samples, n,
-                int(bool(env_skip)), _lib.ptr(rad), _lib.ptr(plen), _lib.ptr(lum2))
+        tail = (_lib.ptr(pid), _lib.ptr(base), _lib.ptr(budgets), _lib.ptr(order),
+                _lib.ptr(ticket), budget_block, samples, n, int(bool(env_skip)), _lib.ptr(rad),
+                _lib.ptr(plen), _lib.ptr(lum2))
         with torch.cuda.device(dev):  # the launch's shared-memory attribute, SM count, stream
             if stub is None:
                 err = lib.pt_megastep(ctypes.byref(prm), wg, *common, _lib.ptr(noise), *tail,
@@ -282,10 +310,12 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
             tracing.keep_launch(stamps, env_skip_tile(model))
     if stub is None:
         render_megastep.launches += 1
+        render_megastep.ordered_launches += budgets is not None
     else:
         render_megastep.stub_launches[stub] += 1
     return MegaStepOut(Vec3.unstack(rad), plen, lum2)
 
 
 render_megastep.launches = 0  # the production kernels
+render_megastep.ordered_launches = 0  # those with budgets, dispatched heaviest first
 render_megastep.stub_launches = dict.fromkeys(STUBS, 0)

@@ -191,6 +191,9 @@ QUICK_TESTS = {
     ("test_torch_tracing.py", "test_kept_spans_nest_and_share_the_step"),
     ("test_torch_tracing.py", "test_launch_record_waves_and_fill"),
     ("test_torch_trace_metrics.py", "test_idle_and_controller_readers"),
+    # K3's dispatch of an adaptive launch, heaviest budget first
+    ("test_torch_megastep_order.py", "test_order_is_a_sorted_stable_permutation"),
+    ("test_torch_megastep_order.py", "test_ragged_last_group_is_one_block"),
     # UI server / packetcomms / video
     ("test_ui.py", "test_state_updates"),
     ("test_ui.py", "test_preview_frame"),
