@@ -414,9 +414,13 @@ PT_HD TraceResult no_result() {
 // the escape stay zero.  The raygen direction and the other three
 // uniforms enter the comparison times zero, which nvcc cannot fold
 // without fast-math, so none of that work is deleted.
-template <bool kStubBounce = false, class Noise>
+//
+// kCount (K3's recording kernel) also writes to *iters the bounce
+// iterations the ray ran: a ray that ends at bounce b, by the roulette
+// or otherwise, ran b + 1.
+template <bool kStubBounce = false, bool kCount = false, class Noise>
 PT_HD TraceResult trace_ray(const TraceParams& prm, const float* sph, const float* dsc,
-                           float col, float row, const Noise& noise) {
+                           float col, float row, const Noise& noise, int* iters = nullptr) {
   V3 o, d;
   ray_begin(prm, col, row, noise, o, d);
   TraceResult res = no_result();
@@ -430,6 +434,13 @@ PT_HD TraceResult trace_ray(const TraceParams& prm, const float* sph, const floa
     return res;
   }
   V3 tp = {1.0f, 1.0f, 1.0f};
+  if constexpr (kCount) {
+    int b = 0;
+    while (b < prm.max_path_length && ray_bounce(prm, sph, dsc, noise, b++, o, d, tp, res)) {
+    }
+    *iters = b;
+    return res;
+  }
   for (int b = 0; b < prm.max_path_length; ++b)
     if (!ray_bounce(prm, sph, dsc, noise, b, o, d, tp, res)) break;
   return res;

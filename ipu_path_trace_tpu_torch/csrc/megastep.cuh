@@ -92,11 +92,25 @@
 // before the role split, its end after its last store, its SM (%smid), the
 // live lane-samples it ran, the lane-samples that escaped (nonzero escape
 // weights) and the chain tile passes it ran (a tile env_skip skipped does
-// not count).  The record is a template parameter (kRecord), like the
+// not count), and three of the trace: thread 0's %globaltimer from each
+// sample's start to the consumers' barrier that ends its trace, summed
+// (the trace phase's ns); the lane-iterations the warps held, summed over
+// warps and samples as 32 x the warp's most bounce iterations (a warp runs
+// until its longest path ends); and the bounce iterations the lanes ran
+// (trace_ray<.., kCount>).  The record is a template parameter (kRecord), like the
 // stubs: launch_megastep picks the recording kernel for a non-null
 // pointer, and the kernel without it compiles exactly as before the record
-// existed.  In the recording kernel the escape tally is one register and
-// thread 0 counts the tile passes in the control word's second int.
+// existed.  In the recording kernel the escape tally is one register,
+// summed into the record (zeroed by the launcher) at exit; thread 0 counts
+// the tile passes in the control word's second int and the trace's ns in
+// one register; after each sample's trace each warp adds its most and its
+// summed iterations to the control word's third and fourth ints (the
+// fourth held the ray block, which every consumer has read by then).  The
+// trace's three are 32-bit: exact while a block traces under 4.29 s and a
+// launch takes under 1.6 M samples.  Held as registers across the sample
+// loop, they spilled the int8 chain's recording kernels; added to the
+// record in global memory every sample, the barrier that ends the trace
+// waited on the atomics.
 //
 // The measurement stubs of --device-timing (utils/devtime.py) are a
 // template parameter, so the production kernels (kStubNone, built by
@@ -120,15 +134,16 @@ constexpr float kLumR = 0.2126f, kLumG = 0.7152f, kLumB = 0.0722f;
 
 // K3's tail of the chain's plan, at net.smem_uv: the block's u[256] and
 // v[256], the head's outputs [3][256] (network order), the control word
-// (WgCtl, 16 B: the control, the record's two tallies, the block's ray
-// block), then the scene tables.
+// (WgCtl, 16 B: the control, the record's tile passes and lane-iterations,
+// the block's ray block, then the record's bounces), then the scene tables.
 constexpr int kMegaUvBytes = 2 * kRaysPerBlock * 4;
 constexpr int kMegaOutBytes = 3 * kRaysPerBlock * 4;
 constexpr int kMegaCtlBytes = 16;
 constexpr int kWgAlignSlack = 1024;  // the plan's slack for the 1024-byte alignment
 // The per-block record's int64 words (utils/tracing.py STAMP_WORDS): start
-// and end (ns), SM, live lane-samples, escaped lane-samples, tile passes.
-constexpr int kStampWords = 6;
+// and end (ns), SM, live lane-samples, escaped lane-samples, tile passes,
+// trace ns, trace lane-iterations, trace bounces.
+constexpr int kStampWords = 9;
 
 __device__ __forceinline__ long long global_ns() {
   unsigned long long t;
@@ -206,9 +221,10 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
   float* const s_out = s_v + kRaysPerBlock;
   volatile int* const ctl = (volatile int*)(s_out + 3 * kRaysPerBlock);
   // The record's block-wide tallies, beside the control word: tile passes
-  // (thread 0 alone) and escapes (summed at exit).
+  // (thread 0 alone), the trace's lane-iterations and bounces.
   volatile int* const s_passes = ctl + 1;
-  int* const s_escapes = (int*)(ctl + 2);
+  unsigned* const s_lane_iters = (unsigned*)(ctl + 2);
+  unsigned* const s_bounces = (unsigned*)(ctl + 3);
   // The block's ray block, written once by thread 0 before the barrier.
   int* const s_block = (int*)(ctl + 3);
   float* const s_tables = (float*)(b.smem + mega_tables_offset(net));
@@ -227,7 +243,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
     *ctl = kCtlIdle;
     if constexpr (kRecord) {
       *s_passes = 0;
-      *s_escapes = 0;
+      *s_lane_iters = 0;
     }
   }
   load_tables(prm, sph_g, dsc_g, s_tables);
@@ -268,23 +284,34 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
   int acc_len = 0;
   float acc_l2 = 0.0f;
   int acc_esc = 0;  // the record's escaped lane-samples (a dead lane's weights are zero)
+  unsigned trace_ns = 0;  // thread 0: the record's trace-phase ns
+  if constexpr (kRecord) {
+    consumers_sync();  // every consumer has read the ray block: its int takes the bounces
+    if (tid == 0) *s_bounces = 0;
+  }
 
   for (int s = 0; s < n_samples; ++s) {
+    if constexpr (kRecord)
+      if (tid == 0) trace_ns -= (unsigned)global_ns();
     TraceResult r;
     r.radiance = r.esc_dir = r.esc_w = V3{0.f, 0.f, 0.f};
     r.path_len = 0;
+    int iters = 0;
     if (live) {
       constexpr bool kStubBounce = (kStub & kStubTrace) != 0;
       if constexpr (kRng == kRngHost)
-        r = trace_ray<kStubBounce>(prm, sph, dsc, col, row,
-                                   HostNoise{noise + s * sample_stride + p, (long long)n});
+        r = trace_ray<kStubBounce, kRecord>(
+            prm, sph, dsc, col, row, HostNoise{noise + s * sample_stride + p, (long long)n},
+            &iters);
       else if constexpr (kRng == kRngSobol)
-        r = trace_ray<kStubBounce>(prm, sph, dsc, col, row,
-                                   SobolNoiseK3(sobol_noise(prm, pixel, seq0 + (uint32_t)s,
-                                                            (uint32_t)p, (uint32_t)s)));
+        r = trace_ray<kStubBounce, kRecord>(
+            prm, sph, dsc, col, row,
+            SobolNoiseK3(sobol_noise(prm, pixel, seq0 + (uint32_t)s, (uint32_t)p, (uint32_t)s)),
+            &iters);
       else
-        r = trace_ray<kStubBounce>(prm, sph, dsc, col, row,
-                                   PhiloxNoise{prm.seed0, prm.seed1, (uint32_t)p, (uint32_t)s});
+        r = trace_ray<kStubBounce, kRecord>(
+            prm, sph, dsc, col, row, PhiloxNoise{prm.seed0, prm.seed1, (uint32_t)p, (uint32_t)s},
+            &iters);
     }
     acc_len += r.path_len;
     equirect_uv(r.esc_dir.x, r.esc_dir.y, r.esc_dir.z, prm.azimuth, &s_u[tid], &s_v[tid]);
@@ -305,9 +332,18 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
 #pragma unroll
       for (int t = 0; t < kTiles; ++t) shade |= (uint32_t)(block_rays > kTile * t) << t;
     }
+    if constexpr (kRecord)  // every lane's trace ended before these barriers
+      if (tid == 0) trace_ns += (unsigned)global_ns();
     if (!kStubChain && tid == 0 && shade) *ctl = kCtlGo;
-    if constexpr (kRecord)
+    if constexpr (kRecord) {
       if (tid == 0) *s_passes += __popc(shade);
+      const unsigned most = __reduce_max_sync(0xffffffffu, (unsigned)iters);
+      const unsigned sum = __reduce_add_sync(0xffffffffu, (unsigned)iters);
+      if ((tid & 31) == 0) {
+        atomicAdd(s_lane_iters, 32u * most);
+        atomicAdd(s_bounces, sum);
+      }
+    }
     // The loop is unrolled in the stubs and not in the production kernels:
     // so ptxas allocates every instantiation without spills at 240
     // registers (chip_smoke.py's ptxas phase), which neither choice alone did.
@@ -347,15 +383,17 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
     if (lum2_out) lum2_out[p] = acc_l2;
   }
   if constexpr (kRecord) {
+    long long* const rec = stamps + (long long)rb * kStampWords;
     const unsigned warp_esc = __reduce_add_sync(0xffffffffu, (unsigned)acc_esc);
-    if ((tid & 31) == 0) atomicAdd(s_escapes, (int)warp_esc);
-    consumers_sync();  // every store and every warp's escapes are in
+    if ((tid & 31) == 0) atomicAdd((unsigned long long*)&rec[4], (unsigned long long)warp_esc);
+    consumers_sync();  // every store, every warp's escapes and the last sample's tallies are in
     if (tid == 0) {
-      long long* const rec = stamps + (long long)rb * kStampWords;
       rec[1] = global_ns();
       rec[3] = (long long)min(block_rays, kRaysPerBlock) * n_samples;
-      rec[4] = *s_escapes;
       rec[5] = *s_passes;
+      rec[6] = trace_ns;
+      rec[7] = *s_lane_iters;
+      rec[8] = *s_bounces;
     }
   }
 }

@@ -32,8 +32,9 @@ For a CUDA tensor there is no fallback: a plan, build or launch that
 fails raises.  While tracing is on (utils/tracing.py: a render loop's
 channel is current and a profiler records) each launch also writes one
 record a CUDA block - its start and end on %globaltimer, its SM, its live
-and escaped lane-samples and its chain tile passes - into a buffer handed
-to the channel, which reduces it when the loop ends.  The measurement stubs of
+and escaped lane-samples, its chain tile passes, and its trace phase's
+time, lane-iterations and bounces - into a buffer handed to the channel,
+which reduces it when the loop ends.  The measurement stubs of
 --device-timing (``stub``, utils/devtime.py) are the reference's:
 ``'nif'`` replaces every layer's product by ones (no bias) and decodes
 them, ``'trace'`` replaces each bounce by ``path_len += (rr < 2)`` (rays

@@ -45,8 +45,12 @@ from .logging import TRACE, logger
 
 # The words of one block's record, int64 (csrc/megastep.cuh kStampWords):
 # start and end (%globaltimer, ns), the SM, the live lane-samples, the
-# lane-samples that escaped, the chain tile passes it ran.
-STAMP_WORDS = 6
+# lane-samples that escaped, the chain tile passes it ran; the trace
+# phase's ns (thread 0, each sample's start to the barrier that ends its
+# trace), the lane-iterations its warps held in the bounce loop (32 x the
+# warp's most bounces, a warp and a sample) and the bounce iterations its
+# lanes ran.
+STAMP_WORDS = 9
 ANCHOR = "clock_anchor"
 
 
@@ -76,6 +80,9 @@ class LaunchRecord(NamedTuple):
     tile_rays: int  # rays of one chain tile (128; 64 for the f32 chain)
     escape_share: float  # escapes / lane_samples
     chain_useful_share: float  # escapes / (tile_passes x tile_rays)
+    trace_busy: float  # sum of the blocks' trace-phase time
+    trace_lane_iters: int
+    trace_bounces: int
 
 
 def concurrency(starts: np.ndarray, ends: np.ndarray) -> int:
@@ -97,7 +104,7 @@ def launch_record(stamps: np.ndarray, *, device: int = 0, step: int = 0, launch:
     ok = (stamps[:, 0] > 0) & (stamps[:, 1] >= stamps[:, 0])
     s = stamps[ok]
     start, end = s[:, 0], s[:, 1]
-    lanes, esc, passes = (int(s[:, k].sum()) for k in (3, 4, 5))
+    lanes, esc, passes, trace_ns, lane_iters, bounces = (int(s[:, k].sum()) for k in range(3, 9))
     slots = concurrency(start, end)
     span = 1e-9 * float(end.max() - start.min()) if len(s) else 0.0
     busy = 1e-9 * float((end - start).sum())
@@ -108,7 +115,8 @@ def launch_record(stamps: np.ndarray, *, device: int = 0, step: int = 0, launch:
         tail=1e-9 * float(end.max() - start.max()) if len(s) else 0.0,
         lane_samples=lanes, escapes=esc, tile_passes=passes, tile_rays=tile_rays,
         escape_share=esc / lanes if lanes else 0.0,
-        chain_useful_share=esc / (passes * tile_rays) if passes else 0.0)
+        chain_useful_share=esc / (passes * tile_rays) if passes else 0.0,
+        trace_busy=1e-9 * trace_ns, trace_lane_iters=lane_iters, trace_bounces=bounces)
 
 
 _current: TraceChannel | None = None

@@ -72,6 +72,8 @@ WAIVED_QUICK = {
     # Loads the shipped 6x320 urban-alley NIF asset and re-scores its
     # PSNR against the generator output: ~90 s of pure reconstruct.
     "test_shipped_assets.py",
+    # Card tests alone (K3 on the Cornell box): they skip without CUDA.
+    "test_torch_megastep_cornell.py",
 }
 
 # Individual fast representatives (file, test base name — all params):
@@ -194,6 +196,10 @@ QUICK_TESTS = {
     # K3's dispatch of an adaptive launch, heaviest budget first
     ("test_torch_megastep_order.py", "test_order_is_a_sorted_stable_permutation"),
     ("test_torch_megastep_order.py", "test_ragged_last_group_is_one_block"),
+    # the smallpt Cornell box against the benchmark's reference; K3's trace counters
+    ("test_torch_cornell.py", "test_scene_file_is_smallpts_table"),
+    ("test_torch_cornell.py", "test_paths_are_the_references_bit_for_bit"),
+    ("test_torch_trace_counters.py", "test_readers_read_the_trace_counters"),
     # UI server / packetcomms / video
     ("test_ui.py", "test_state_updates"),
     ("test_ui.py", "test_preview_frame"),
