@@ -43,7 +43,8 @@ Phases, one line each:
                 either scene; the SASS phase (4c) holds every tf32
                 instantiation (K2, K4, K3's) to HGMMA on tf32 only;
   5. K3       - megastep kernel vs its plain version, host noise, 256x256,
-                4 samples, bf16 and int8 (bit for bit);
+                4 samples, bf16 and int8 (path lengths bit for bit, int8
+                radiance within SUM_ORDER_REL);
   5b. modes   - K1 in Owen-Sobol mode (12 and 4 + 4L dims, bit for bit) and
                 K3, bf16 and int8, in Sobol mode, with per-block budgets and
                 the statistics (hardware and host noise), with the env-skip,
@@ -145,8 +146,8 @@ Phases, one line each:
                 its plain version (PSNR_GAP_DB), a fused 1104x1000 8-spp
                 render with --assets on it (K3; finite pixels); (d) 50
                 epochs of QAT (models/quant.qat_finetune) from the shipped
-                bf16 asset, K4 and K3 int8 on the result bit for bit against
-                their plain versions, the asset written and its int8 load
+                bf16 asset, K4 (bit for bit) and K3 int8 (as phase 5) on the
+                result against their plain versions, the asset written and its int8 load
                 through runtime/app.parse_env_assets equal to quantize_nif of
                 the stored weights with the fine-tune's grids;
   7. full frame - at the main path's shapes (1104x1000, a ragged last
@@ -264,7 +265,10 @@ prints no result.  Tolerances are the reference's own:
     of an ulp and the log decode exponentiates the gap);
   * the int8 chain (K2, K3, K4 and K8's int8 variants) bit for bit: its
     integer sums are exact in any order and its f32 epilogue rounds where
-    the plain version rounds (--fmad=false), on the same encode;
+    the plain version rounds (--fmad=false), on the same encode; K3 adds
+    those bit-exact samples into each ray's sums in another order (its
+    escape queue), so its radiance and sqrt(lum2) are held to
+    SUM_ORDER_REL of the plain version's;
   * the overlap probes' chains (no log decode) to the bf16 budget, their
     ALU chain to rtol 1e-5 on all but 5e-3 of the lanes (the x > 1 select);
   * K8's bf16 chain (random He-scaled weights, no decode) within K8's own
@@ -278,7 +282,8 @@ prints no result.  Tolerances are the reference's own:
     and 1.43 on the wgmma tile; the fp8 tensor cores' own sums (QGMMA,
     and cuBLAS's fp8 chain: probes/fp8_qgmma.py) are far coarser and do not
     meet it (PERF.md), so the fp8 variants run exact on bf16;
-  * the new modes of K1 and K3 bit for bit, except K3's bf16 radiance and
+  * the new modes of K1 and K3 bit for bit, except K3's radiance and lum2
+    with the int8 chain (SUM_ORDER_REL, above) and its bf16 radiance and
     the square root of its lum2 (whose relative error is that of the
     samples' luminance): median 5e-3 and max 8e-2 on all but at most one
     lane in 10^4, and every lane below 0.25.  From 256x256 up, a lane of
@@ -322,6 +327,14 @@ NIF_MEDIAN, NIF_MAX = 5e-3, 8e-2
 # The bf16 chain's rounding tail: past 8e-2 on about one lane in 10^5, in
 # every RNG mode (Philox included), at its worst 0.13 on one evaluation.
 NIF_TAIL_FRACTION, NIF_TAIL_MAX = 1e-4, 0.25
+# K3 adds each ray's samples in another order than its plain version: the
+# escape queue adds a sample's direct radiance at once and its env term
+# when its tile is shaded, perhaps after later samples'.  With the int8
+# chain every direct and env term is the plain version's bit for bit, so
+# the sums of S <= MAIN_SPS samples' nonnegative terms differ by at most
+# (3S - 1) 2^-24 of themselves (2S terms in one order against S rounded
+# pairs in another); 4S 2^-24 leaves room for the luminance's own sums.
+SUM_ORDER_REL = MAIN_SPS * 2.0 ** -22
 # K8's fp8 chains against their plain version (measured on the H100:
 # median 0, 8.4e-6 (mma.sync) and 1.7e-5 (the bf16 wgmma tile) of the
 # outputs above 1e-2, max 1.43; module docstring).
@@ -544,9 +557,9 @@ def trace_exact(name, got, ref) -> float:
 
 def mode_check(name, got, ref, int8: bool) -> float:
     """K3 in a new mode against its plain version: path lengths bit for
-    bit; radiance and sqrt(lum2) bit for bit with the int8 chain, within
-    the bf16 NIF budget, but for the chain's rounding tail, with the bf16
-    chain."""
+    bit; radiance and sqrt(lum2) within the reordered sums' rounding
+    (SUM_ORDER_REL) with the int8 chain, within the bf16 NIF budget, but
+    for the chain's rounding tail, with the bf16 chain."""
     pairs = [(got.radiance.stack(), ref.radiance.stack())]
     stats_ok = (got.lum2 is None) == (ref.lum2 is None)
     if ref.lum2 is not None and got.lum2 is not None:
@@ -558,7 +571,7 @@ def mode_check(name, got, ref, int8: bool) -> float:
         rel = rel_err(a, b)
         med, mx = max(med, float(rel.median())), max(mx, float(rel.max()))
         tail = max(tail, float((rel > NIF_MAX).any(dim=0).float().mean()))
-    close = (all(torch.equal(a, b) for a, b in pairs) if int8
+    close = (all(sum_order_close(a, b) for a, b in pairs) if int8
              else med < NIF_MEDIAN and tail <= NIF_TAIL_FRACTION and mx < NIF_TAIL_MAX)
     phase(name, stats_ok and finite and close and torch.equal(got.path_len, ref.path_len),
           path_len_equal=torch.equal(got.path_len, ref.path_len), median_rel=f"{med:.2e}",
@@ -872,17 +885,23 @@ def apply_check(name, model, u, v) -> float:
     return err
 
 
+def sum_order_close(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Every element of a within SUM_ORDER_REL of b's (zeros exactly)."""
+    return bool(((a - b).abs() <= SUM_ORDER_REL * b.abs()).all())
+
+
 def megastep_check(name, got, ref, int8: bool) -> float:
-    """K3 against its plain version: with the int8 chain bit for bit; with
-    the bf16 chain the flip rule on the path-length sums, the NIF budget on
-    the radiance of the other lanes."""
+    """K3 against its plain version: with the int8 chain the path lengths
+    bit for bit and the radiance within the reordered sums' rounding
+    (SUM_ORDER_REL); with the bf16 chain the flip rule on the path-length
+    sums, the NIF budget on the radiance of the other lanes."""
     flipped = got.path_len != ref.path_len
     frac = float(flipped.float().mean())
     a, b = got.radiance.stack()[:, ~flipped], ref.radiance.stack()[:, ~flipped]
     med, mx = nif_rel(a, b)
     err = float((a - b).abs().max())
-    equal = torch.equal(got.path_len, ref.path_len) and torch.equal(got.radiance.stack(),
-                                                                     ref.radiance.stack())
+    equal = torch.equal(got.path_len, ref.path_len) and sum_order_close(got.radiance.stack(),
+                                                                         ref.radiance.stack())
     ok = equal if int8 else frac < FLIP_FRACTION and med < NIF_MEDIAN and mx < NIF_MAX
     phase(name, ok and bool(torch.isfinite(got.radiance.stack()).all()), equal=equal,
           flipped_fraction=f"{frac:.2e}", median_rel=f"{med:.2e}", max_rel=f"{mx:.2e}",

@@ -17,11 +17,11 @@ extern "C" int pt_megastep(const pt::TraceParams* prm, const pt::NifWg* wg, cons
                            const float* dsc, const float* cols, const float* rows,
                            const float* noise, const int* pid, const int* base,
                            const int* budgets, const int* order, int* ticket, int budget_block,
-                           int samples, int n, int env_skip, float* rad, int* plen, float* lum2,
+                           int samples, int n, float* rad, int* plen, float* lum2,
                            long long* stamps, void* stream) {
   if (wg == nullptr) return (int)cudaErrorInvalidValue;
   const pt::MegaArgs a{sph, dsc, cols, rows, noise, pid, base, budgets, order, ticket,
-                       budget_block, samples, n, env_skip, rad, plen, lum2, stamps};
+                       budget_block, samples, n, rad, plen, lum2, stamps};
   cudaStream_t s = (cudaStream_t)stream;
   if (noise) return pt::launch_megastep<pt::kRngHost, pt::kStubNone>(*prm, *wg, a, s);
   if (pid) return pt::launch_megastep<pt::kRngSobol, pt::kStubNone>(*prm, *wg, a, s);

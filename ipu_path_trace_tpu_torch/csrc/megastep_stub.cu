@@ -25,11 +25,11 @@ extern "C" int pt_megastep_stub(const pt::TraceParams* prm, const pt::NifWg* wg,
                                 const float* sph, const float* dsc, const float* cols,
                                 const float* rows, const int* pid, const int* base,
                                 const int* budgets, const int* order, int* ticket,
-                                int budget_block, int samples, int n, int env_skip, float* rad,
-                                int* plen, float* lum2, int stub, void* stream) {
+                                int budget_block, int samples, int n, float* rad, int* plen,
+                                float* lum2, int stub, void* stream) {
   if (wg == nullptr) return (int)cudaErrorInvalidValue;
   const pt::MegaArgs a{sph, dsc, cols, rows, nullptr, pid, base, budgets, order, ticket,
-                       budget_block, samples, n, env_skip, rad, plen, lum2, nullptr};
+                       budget_block, samples, n, rad, plen, lum2, nullptr};
   cudaStream_t s = (cudaStream_t)stream;
   switch (stub) {
     case pt::kStubNif:

@@ -65,9 +65,9 @@
 // a fixed list of tiles (wg_tiles; K2, K4 and K8 through nif_wg_tiles, whose
 // K8 Io hands precomputed features in place of the encode; K6 puts its own
 // features and adds its ALU value after the head; K7 runs its loop's
-// iterations as passes of the chain over one tile); K3 decides per sample
-// which tiles to shade and streams them through wg_stream (megastep.cuh
-// says how).
+// iterations as passes of the chain over one tile); K3 shades the tiles of
+// its escape queue as they fill and streams them through wg_stream
+// (megastep.cuh says how).
 //
 // Why: the mma.sync chains that came first ran 64-ray tiles whose warps load
 // their B fragments from L2 with 4-byte __ldg's, so each 64-ray tile reads
@@ -1604,7 +1604,7 @@ struct WgProducer {
 enum WgCtl { kCtlIdle = 0, kCtlGo = 1, kCtlDone = 2 };
 
 // K3's producer: nothing until the consumers first ask for a tile (a block
-// whose tiles are all skipped reads no weights), then the slice sequence
+// with no escape to shade reads no weights), then the slice sequence
 // over and over, one tile's slices after another, as far as the ring lets
 // it run ahead, until the consumers say they are done; then it drains.
 // Every tile walks the same sequence, so the consumers take whole tiles

@@ -208,9 +208,9 @@ def library() -> ctypes.CDLL:
     lib.pt_env_shade.argtypes = [wg, _P, _P, ctypes.c_float, _I, _P, _P]
     lib.pt_nif_apply.argtypes = [wg, _P, _P, _I, _P, _P]
     lib.pt_megastep.argtypes = [ctypes.POINTER(TraceParams), wg, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+                                _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
     lib.pt_megastep_stub.argtypes = [ctypes.POINTER(TraceParams), wg, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P]
+                                     _P, _P, _I, _I, _I, _P, _P, _P, _I, _P]
     lib.pt_probe_mxu.argtypes = [wg, _P, _I, _P, _P]
     lib.pt_probe_alu.argtypes = [_P, _I, _I, _P, _P]
     lib.pt_probe_both.argtypes = [wg, _P, _I, _I, _P, _P]

@@ -15,10 +15,13 @@ chain (a bf16 ``NifModel``), the f32 chain on TF32 ``wgmma`` (an f32
 ``NifModel``, ``--partials-type float``) or the int8 chain
 (``QuantNifModel``), all ``megastep_wg_kernel`` on the ``wgmma`` chains
 of ``csrc/nif_wgmma.cuh`` under ``megastep_wg_plan``; per-block sample
-``budgets`` (adaptive sampling), ``with_stats`` (the per-record sum of
-squared sample luminance, ``lum2``) and ``env_skip`` (the NIF chain
-skipped for tiles with no escape, ``env_skip_tile``: 128 rays, 64 for
-the f32 chain).
+``budgets`` (adaptive sampling) and ``with_stats`` (the per-record sum of
+squared sample luminance, ``lum2``).  Each CUDA block queues the escapes
+of its samples and runs the NIF chain on full tiles of them (128 rays,
+64 for the f32 chain: ``env_skip_tile``), the last partial tile after
+its last sample; a ray that does not escape is never shaded.  So
+``env_skip`` (the reference's skip of a tile with no escape) is taken
+and changes nothing.
 Which rays a CUDA block takes: a launch without budgets maps block b to
 rays 256 b.. 256 b + 255.  A launch with budgets dispatches its 256-ray
 blocks heaviest budget first: it sorts them on the device
@@ -32,15 +35,16 @@ For a CUDA tensor there is no fallback: a plan, build or launch that
 fails raises.  While tracing is on (utils/tracing.py: a render loop's
 channel is current and a profiler records) each launch also writes one
 record a CUDA block - its start and end on %globaltimer, its SM, its live
-and escaped lane-samples, its chain tile passes, and its trace phase's
+and escaped lane-samples, the queue's tiles it shaded, and its trace phase's
 time, lane-iterations and bounces - into a buffer handed to the channel,
 which reduces it when the loop ends.  The measurement stubs of
 --device-timing (``stub``, utils/devtime.py) are the reference's:
 ``'nif'`` replaces every layer's product by ones (no bias) and decodes
 them, ``'trace'`` replaces each bounce by ``path_len += (rr < 2)`` (rays
-never die, radiance and escapes stay zero; the chain still runs on the
-zero escapes), ``'both'`` does both.  Their kernels are built for the
-Philox and Sobol modes (``csrc/megastep_stub.cu``).
+never die, radiance and escapes stay zero; every live lane is queued,
+so the chain still runs on the zero escapes), ``'both'`` does both.
+Their kernels are built for the Philox and Sobol modes
+(``csrc/megastep_stub.cu``).
 """
 
 from __future__ import annotations
@@ -66,16 +70,20 @@ from .trace import (TraceOut, check_mode, pack_scene, sample_rows, trace_params,
 # block, whose NIF chain needs one budget for all its rays: block-wide
 # barriers, and both consumer warpgroups taking every weight slice.
 BUDGET_BLOCK = 2048
-RAYS_PER_CUDA_BLOCK = 256  # csrc/megastep.cuh kRaysPerBlock: two 128-ray wgmma tiles
+RAYS_PER_CUDA_BLOCK = 256  # csrc/megastep.cuh kRaysPerBlock: a ray per consumer thread
 # Rays per env-skip tile of the bf16 and int8 chains, the guard's
 # granularity, at which render/wavefront.dead_block_fraction measures:
 # their wgmma tile (env_skip_tile gives the model's).
 ENV_SKIP_TILE = WG_RAYS
 # The kernel's tail of the chain's shared-memory plan
-# (csrc/megastep.cuh kMegaUvBytes, kMegaOutBytes, kMegaCtlBytes): the
-# block's (u, v), the head's 3 outputs per ray, the control word; the
-# scene's tables follow.
-MEGA_TAIL_BYTES = (2 + 3) * RAYS_PER_CUDA_BLOCK * 4 + 16
+# (csrc/megastep.cuh kMegaQueueBytes, kMegaCountBytes, kMegaCtlBytes): the
+# escape queue of QUEUE_ENTRIES - each entry's (u, v), escape weights and
+# direct luminance as f32, and its owner, one byte - the eight consumer
+# warps' counts of a sample's entries and the control word; the scene's
+# tables follow.  The queue holds what is left after shading (under a
+# 128-ray tile) and a sample's entries (at most 256).
+QUEUE_ENTRIES = WG_RAYS + RAYS_PER_CUDA_BLOCK
+MEGA_TAIL_BYTES = QUEUE_ENTRIES * ((2 + 3 + 1) * 4 + 1) + 8 * 4 + 16
 
 # The measurement stubs (csrc/megastep.cuh StubMode).
 STUBS = {"nif": 1, "trace": 2, "both": 3}
@@ -107,11 +115,13 @@ def env_skip_tile(model: NifModel) -> int:
 def megastep_wg_plan(model: NifModel, scene: Scene) -> dict:
     """The kernel's shared-memory plan: the ``wgmma`` chain's
     (ops/nif.wgmma_plan, bf16, tf32 or int8) with K3's tail from
-    ``smem_uv`` on - the block's (u, v), the head's outputs and the control
-    word (MEGA_TAIL_BYTES), then the scene's tables at ``smem_tables``,
-    16-byte aligned - and as many ring stages as then fit (at most 4; 3
-    bf16 and tf32 and 4 int8 for the canonical net and the default scene).
-    Raises ValueError, naming the limit, where not even two stages fit."""
+    ``smem_uv`` on - the escape queue, the warps' counts and the control
+    word (MEGA_TAIL_BYTES, 9,648 B), then the scene's tables at
+    ``smem_tables``, 16-byte aligned - and as many ring stages as then fit
+    (at most 4).  For the canonical 6x320 net that is 3 bf16 and tf32 and
+    4 int8 with every scene of ``assets/scenes/``; 3 bf16 stages leave
+    room for 528 B of tables (11 spheres), 2 for 41,488 B.  Raises
+    ValueError, naming the limit, where not even two stages fit."""
     tables = -(-table_bytes(scene) // 16) * 16
     plan = wgmma_plan(model, MEGA_TAIL_BYTES + tables,
                       f"the megastep's {chain_name(model)} chain with {tables} B of scene "
@@ -189,7 +199,7 @@ def render_megastep_plain(scene: Scene, settings, model: NifModel, cols, rows, s
 
     ``budgets`` bound each block's sample loop (lanes past their budget
     add nothing; with host noise the loop also stops at its S rows).
-    ``env_skip`` changes nothing here: the kernel's skip is exact.
+    ``env_skip`` changes nothing here, nor in the kernel (module docstring).
     ``stub`` replaces the trace, the chain or both (module docstring)."""
     del env_skip
     if cols.is_cuda:
@@ -297,8 +307,8 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
         lib = _lib.library()
         common = (_lib.ptr(sph), _lib.ptr(dsc), _lib.ptr(cols), _lib.ptr(rows))
         tail = (_lib.ptr(pid), _lib.ptr(base), _lib.ptr(budgets), _lib.ptr(order),
-                _lib.ptr(ticket), budget_block, samples, n, int(bool(env_skip)), _lib.ptr(rad),
-                _lib.ptr(plen), _lib.ptr(lum2))
+                _lib.ptr(ticket), budget_block, samples, n, _lib.ptr(rad), _lib.ptr(plen),
+                _lib.ptr(lum2))
         with torch.cuda.device(dev):  # the launch's shared-memory attribute, SM count, stream
             if stub is None:
                 err = lib.pt_megastep(ctypes.byref(prm), wg, *common, _lib.ptr(noise), *tail,

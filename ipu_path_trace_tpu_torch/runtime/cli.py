@@ -97,11 +97,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Worklist order: primary-hit-sorted or row-major.")
     p.add_argument("--env-skip", nargs="?", const="on", default="auto",
                    choices=("auto", "on", "off"),
-                   help="Skip the NIF env-light chain for kernel sub-tiles whose paths "
-                        "all died without escaping (exact). 'auto' (default) probes the "
-                        "scene's dead sub-tile fraction at build time and enables the "
-                        "skip only when it clears the guard cost; a bare --env-skip "
-                        "forces it on, '--env-skip off' forces it off.")
+                   help="The reference's skip of the NIF env-light chain for kernel "
+                        "sub-tiles whose paths all died without escaping. The fused "
+                        "megastep shades escapes alone (its escape queue), so the flag "
+                        "changes neither the result nor the work. 'auto' (default) probes "
+                        "the scene's dead sub-tile fraction at build time; a bare "
+                        "--env-skip forces it on, '--env-skip off' forces it off.")
     p.add_argument("--scene", default="",
                    help="JSON scene description (spheres/discs with colour, emission, "
                         "material); default: the reference's built-in scene. See "

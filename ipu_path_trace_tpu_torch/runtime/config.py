@@ -41,10 +41,11 @@ class Config:
     # worklist (in place of --layout) and a re-deal of each step's records
     # by path length (runtime/worklist.py LoadBalancer).  Host film only.
     enable_load_balancing: bool = False
-    # Dead-block env-skip: the megastep skips the NIF chain for sub-tiles
-    # whose escape weights are all zero (exact).  "auto" measures the
-    # fraction of such sub-tiles with a two-sample probe over the real
-    # worklist and turns the skip on at >= 2% (runtime/app.py
+    # Dead-block env-skip: the reference's megastep skips the NIF chain for
+    # sub-tiles whose escape weights are all zero (exact); K3 shades escapes
+    # alone (csrc/megastep.cuh's queue), so the flag changes nothing there.
+    # "auto" measures the fraction of such sub-tiles with a two-sample probe
+    # over the real worklist and turns the skip on at >= 2% (runtime/app.py
     # PathTracerApp.resolve_env_skip); "on"/"off" force it.
     env_skip: str = "auto"
     # The NIF's weight type, as the reference's --partials-type: "half" bf16

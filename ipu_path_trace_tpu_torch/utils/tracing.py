@@ -45,7 +45,7 @@ from .logging import TRACE, logger
 
 # The words of one block's record, int64 (csrc/megastep.cuh kStampWords):
 # start and end (%globaltimer, ns), the SM, the live lane-samples, the
-# lane-samples that escaped, the chain tile passes it ran; the trace
+# lane-samples that escaped, the escape queue's tiles it shaded; the trace
 # phase's ns (thread 0, each sample's start to the barrier that ends its
 # trace), the lane-iterations its warps held in the bounce loop (32 x the
 # warp's most bounces, a warp and a sample) and the bounce iterations its

@@ -74,6 +74,9 @@ WAIVED_QUICK = {
     "test_shipped_assets.py",
     # Card tests alone (K3 on the Cornell box): they skip without CUDA.
     "test_torch_megastep_cornell.py",
+    # Card tests alone (K3's escape queue against its plain version): they
+    # skip without CUDA.
+    "test_torch_megastep_queue.py",
 }
 
 # Individual fast representatives (file, test base name — all params):

@@ -130,7 +130,10 @@ def test_cpu_launch_is_the_plain_version():
 # --- on the card -----------------------------------------------------------
 
 # chip_smoke.py::mode_check's limits for the bf16 chain against its plain
-# version; the int8 chain matches bit for bit.
+# version; the int8 chain matches each sample's terms bit for bit, and K3's
+# escape queue adds them in another order, so its sums agree to
+# chip_smoke.py's SUM_ORDER_REL (4S 2^-24 for S samples).
+SUM_ORDER_REL = CAP * 2.0 ** -22
 NIF_MEDIAN, NIF_MAX = 5e-3, 8e-2
 NIF_TAIL_FRACTION, NIF_TAIL_MAX = 1e-4, 0.25
 
@@ -190,9 +193,9 @@ def _index_order(monkeypatch):
 def test_ordered_launch_matches_plain(cuda, monkeypatch, asset, mode):
     """The adversarial budgets (the last 2048-ray group at 8 samples, the
     others at 1) at 256x256 with the statistics: the kernel against its
-    plain version (path lengths bit for bit; radiance and sqrt(lum2) bit
-    for bit with int8, within chip_smoke's bf16 limits with bf16); two
-    launches, and a launch in index order, bit-identical."""
+    plain version (path lengths bit for bit; radiance and sqrt(lum2)
+    within SUM_ORDER_REL with int8, within chip_smoke's bf16 limits with
+    bf16); two launches, and a launch in index order, bit-identical."""
     w, h = 256, 256
     model = _model(asset, cuda)
     cols, rows = _frame(w, h, cuda)
@@ -216,7 +219,7 @@ def test_ordered_launch_matches_plain(cuda, monkeypatch, asset, mode):
     pairs = [(got.radiance.stack(), ref.radiance.stack()), (got.lum2.sqrt()[None],
                                                             ref.lum2.sqrt()[None])]
     if asset == NIF_INT8:
-        assert all(torch.equal(a, b) for a, b in pairs)
+        assert all(bool(((a - b).abs() <= SUM_ORDER_REL * b.abs()).all()) for a, b in pairs)
         return
     for a, b in pairs:
         assert bool(torch.isfinite(a).all())

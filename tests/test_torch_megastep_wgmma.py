@@ -12,17 +12,18 @@ the kernel is given and what its geometry computes:
     follows the scene's table bytes by formula, and a scene whose tables
     leave no room for 2 stages raises, naming the limit;
   * the budget contract: a budget block is whole CUDA blocks, and a CUDA
-    block two 128-ray wgmma tiles;
+    block's 256 rays two 128-ray wgmma tiles;
   * the chain selector: a bf16 model's NifWg and an int8 model's NifWg,
     each with K3's plan; any other struct is refused;
-  * the env-skip tile: 128 rays for both chains, as the app's auto probe
-    logs it;
+  * the env-skip tile (the queue's tile): 128 rays for both chains, as
+    the app's auto probe logs it;
   * the kernel's arithmetic from its operands - per 256-ray block its
-    budget of samples, per sample the trace and then the two 128-ray tiles
-    through the chain of the swizzled slices (test_torch_nif_wgmma), a tile
-    skipped where no ray of it escapes or none is live - against the
-    reference composition (tests/test_megastep.py::_xla_twin) with that
-    test's tolerance, and with the env-skip on equal to off bit for bit.
+    budget of samples, per sample the trace, the escapes of the block's
+    samples queued and shaded 128 at a time through the chain of the
+    swizzled slices (test_torch_nif_wgmma), the last tile partial -
+    against the reference composition (tests/test_megastep.py::_xla_twin)
+    with that test's tolerance, equal bit for bit to shading sample by
+    sample with the env-skip, in ceil(escapes / 128) tiles a block.
 """
 
 import json
@@ -59,8 +60,10 @@ SCENES = {"default": default_scene, "enclosed": lambda: scene_from_dict(ENCLOSED
           **{p.stem: (lambda p=p: load_scene(str(p)))
              for p in sorted((ASSETS / "scenes").glob("*.json"))}}
 LIMIT = 232_448  # shared memory a block may use (csrc/nif_wgmma.cuh kWgSmemLimit)
-# csrc/megastep.cuh: (u, v) of 256 rays, 3 x 256 head outputs, the control word.
-TAIL = 2 * 256 * 4 + 3 * 256 * 4 + 16
+# csrc/megastep.cuh: the escape queue's 384 entries ((u, v), escape weights and
+# direct luminance as f32, a one-byte owner), the eight warps' counts, the
+# control word.
+TAIL = 384 * (2 + 3 + 1) * 4 + 384 + 8 * 4 + 16
 
 
 def _load(name):
@@ -107,18 +110,18 @@ def test_plan_fits_a_block(asset, scene_name):
 
 
 def test_canonical_default_plan_bytes():
-    """The plan csrc/megastep.cuh's comment states: 3 stages, 227,712 B."""
+    """The plan csrc/megastep.cuh's comment states: 3 stages, 232,224 B."""
     plan = megastep.megastep_wg_plan(_load(CANONICAL), default_scene())
     assert megastep.table_bytes(default_scene()) == 300
     assert (plan["stages"], plan["smem_uv"], plan["smem_tables"], plan["smem_bytes"]) == (
-        3, 221_248, 226_384, 227_712)
+        3, 221_248, 230_896, 232_224)
 
 
-@pytest.mark.parametrize("count, stages", [(1, 3), (105, 3), (106, 2), (958, 2), (959, None),
+@pytest.mark.parametrize("count, stages", [(1, 3), (11, 3), (12, 2), (864, 2), (865, None),
                                            (1000, None)])
 def test_stages_follow_the_tables(count, stages):
-    """Stages by formula: 3 while the tables take at most 5,040 B (105
-    spheres, 5,040 B), 2 up to 46,000 B (958 spheres, 45,984 B), and past
+    """Stages by formula: 3 while the tables take at most 528 B (11
+    spheres, 528 B), 2 up to 41,488 B (864 spheres, 41,472 B), and past
     that the plan raises, naming the limit."""
     model, scene = _load(CANONICAL), _spheres(count)
     if stages is None:
@@ -165,7 +168,7 @@ def test_f32_model_is_refused():
     where it does not fit) and refuses weights of any other type."""
     model = nif.load_nif_assets(str(ASSETS / CANONICAL), torch.float32)[0]
     net = megastep.kernel_net(model, default_scene())
-    assert (net.tf32, net.int8, net.smem_bytes) == (1, 0, 227_712)
+    assert (net.tf32, net.int8, net.smem_bytes) == (1, 0, 232_224)
     with pytest.raises(ValueError, match="bf16, f32 or int8"):
         megastep.kernel_net(nif.load_nif_assets(str(ASSETS / CANONICAL), torch.float16)[0],
                             default_scene())
@@ -205,60 +208,89 @@ def test_cli_probe_uses_the_chains_tile(tmp_path, caplog, asset, flags, tile):
 
 
 def _k3_tiles(model, scene, settings, cols, rows, noise, budgets=None, budget_block=256,
-              env_skip=False):
+              queue=True):
     """The bf16 K3's arithmetic on the CPU, from its operands: per 256-ray
-    block its budget of samples (all S without budgets); per sample the
-    plain trace on the host noise, then each block's two 128-ray tiles
-    through the chain of the swizzled slices, a tile skipped where none of
-    its rays is live or (env_skip) none escapes; direct + the bgr -> rgb
-    env term times the escape weights, summed.  (3, P) and (P,)."""
+    block its budget of samples (all S without budgets), per sample the
+    plain trace on the host noise.  With ``queue`` (the kernel): the
+    block's escapes (escape weights not all zero) queued over its samples
+    in sample and lane order and shaded 128 at a time through the chain of
+    the swizzled slices, the last partial tile after the last sample, its
+    rows past the queue at (u, v) = 0; without (the kernel before the
+    queue, its env-skip on): each sample's two 128-ray tiles, a tile
+    skipped where none of its rays is live or escapes.  Each sample's
+    radiance, direct + the bgr -> rgb env term times the escape weights,
+    summed in sample order (the kernel adds a sample's direct and env
+    terms apart, in another order).  (3, P), (P,) and the tiles each
+    block ran."""
     p = cols.shape[0]
     blocks = -(-p // 256)
-    rad = torch.zeros(3, blocks * 256)
-    plen = torch.zeros(blocks * 256, dtype=torch.int64)
-    lane_budget = (torch.full((blocks * 256,), noise.shape[0]) if budgets is None else
-                   torch.minimum(budgets.repeat_interleave(budget_block)[:blocks * 256],
-                                 torch.tensor(noise.shape[0])))
+    pad = blocks * 256 - p
+    block_budget = (torch.full((blocks,), noise.shape[0]) if budgets is None else
+                    torch.minimum(budgets.repeat_interleave(budget_block // 256)[:blocks],
+                                  torch.tensor(noise.shape[0])))
+    u, v, esc_w, direct, plen = [], [], [], [], []
     for s in range(noise.shape[0]):
         st = trace.trace_sample(scene, settings, cols, rows, noise=noise[s], width=W, height=H,
                                 max_path_length=MAXLEN)
-        u, v = equirect_from_dir(st.esc_dir, settings.azimuth)
-        pad = blocks * 256 - p
-        u, v = (torch.nn.functional.pad(x, (0, pad)) for x in (u, v))
-        esc_w = torch.nn.functional.pad(st.esc_w.stack(), (0, pad))
-        direct = torch.nn.functional.pad(st.radiance.stack(), (0, pad))
-        env = torch.zeros(3, blocks * 256)
-        for t0 in range(0, blocks * 256, 128):
-            tile = slice(t0, t0 + 128)
-            if t0 >= p or (env_skip and not esc_w[:, tile].any()):
-                continue
-            out = _chain_from_slices(model, u[tile], v[tile])  # (128, 3) network order
-            env[:, tile] = esc_w[:, tile] * out.flip(1).t()
-        on = s < lane_budget
-        rad += torch.where(on, direct + env, torch.zeros(()))
-        plen += torch.where(on, torch.nn.functional.pad(st.path_len, (0, pad)), 0)
-    return rad[:, :p], plen[:p]
+        su, sv = equirect_from_dir(st.esc_dir, settings.azimuth)
+        u.append(torch.nn.functional.pad(su, (0, pad)))
+        v.append(torch.nn.functional.pad(sv, (0, pad)))
+        esc_w.append(torch.nn.functional.pad(st.esc_w.stack(), (0, pad)))
+        direct.append(torch.nn.functional.pad(st.radiance.stack(), (0, pad)))
+        plen.append(torch.nn.functional.pad(st.path_len, (0, pad)))
+    u, v, esc_w, direct, plen = (torch.stack(x) for x in (u, v, esc_w, direct, plen))
+    escapes = esc_w.abs().sum(dim=1) != 0  # (S, lanes)
+    env = torch.zeros_like(direct)
+    tiles = torch.zeros(blocks, dtype=torch.int64)
+
+    def shade(s_idx, lane):  # one tile of (sample, lane) rows
+        uu, vv = torch.zeros(128), torch.zeros(128)
+        uu[:len(lane)], vv[:len(lane)] = u[s_idx, lane], v[s_idx, lane]
+        out = _chain_from_slices(model, uu, vv)[:len(lane)]  # network order
+        env[s_idx, :, lane] = esc_w[s_idx, :, lane] * out.flip(1)
+
+    for b in range(blocks):
+        budget = int(block_budget[b])
+        if queue:
+            s_idx, lane = escapes[:budget, 256 * b:256 * (b + 1)].nonzero(as_tuple=True)
+            for t0 in range(0, len(lane), 128):
+                shade(s_idx[t0:t0 + 128], 256 * b + lane[t0:t0 + 128])
+                tiles[b] += 1
+            continue
+        for s in range(budget):
+            for t0 in range(256 * b, 256 * (b + 1), 128):
+                if t0 < p and escapes[s, t0:t0 + 128].any():
+                    shade(torch.full((128,), s), torch.arange(t0, t0 + 128))
+                    tiles[b] += 1
+    on = (torch.arange(noise.shape[0])[:, None] < block_budget.repeat_interleave(256)[None])
+    rad = torch.zeros(3, blocks * 256)
+    for s in range(noise.shape[0]):
+        rad += torch.where(on[s], direct[s] + env[s], torch.zeros(()))
+    plen = torch.where(on, plen, 0).sum(dim=0)
+    return rad[:, :p], plen[:p], tiles
 
 
 @pytest.mark.parametrize("asset", BF16_ASSETS)
 def test_k3_tiles_match_the_reference(asset):
-    """The kernel's tiles and operands, with the env-skip on, compute the
-    reference composition (JAX) within tests/test_megastep.py's budget,
-    on 576 rays: three CUDA blocks, the last with one live tile."""
+    """The kernel's queue, tiles and operands compute the reference
+    composition (JAX) within tests/test_megastep.py's budget, on 576 rays:
+    three CUDA blocks, the last with 64 live rays."""
     scene, cfg, settings, _, cols, rows, noise = _setup()
     params = jnif.load_nif_assets(str(ASSETS / asset), jnp.bfloat16)[0]
     ref_rad, ref_plen = _xla_twin(scene, cfg, settings, params, cols, rows, noise)
     model = nif.params_from_jax(params)
-    rad, plen = _k3_tiles(model, default_scene(), RenderSettings.make(samples_per_step=SAMPLES),
-                          torch.from_numpy(np.array(cols)), torch.from_numpy(np.array(rows)),
-                          torch.from_numpy(noise), env_skip=True)
+    rad, plen, _ = _k3_tiles(model, default_scene(), RenderSettings.make(samples_per_step=SAMPLES),
+                             torch.from_numpy(np.array(cols)), torch.from_numpy(np.array(rows)),
+                             torch.from_numpy(noise))
     assert_matches_twin(rad.numpy(), plen.numpy(), ref_rad, ref_plen)
 
 
 @pytest.mark.parametrize("scene_name", ["default", "enclosed"])
 def test_k3_tiles_skip_and_budgets_exact(scene_name):
-    """Budgets of 0, 1 and 3 in one launch, at a ragged 576 rays: the
-    env-skip on equals off bit for bit (a skipped tile adds exact zeros),
+    """Budgets of 0, 1 and 3 in one launch, at a ragged 576 rays: the queue
+    equals shading sample by sample with the env-skip bit for bit (each
+    sample's terms are the same rows of the same chain, summed in sample
+    order), runs ceil(escapes / 128) tiles a block and fewer than before,
     budget 0 leaves zeros, and the result is the plain megastep's
     (ops/megastep.render_megastep_plain, itself held to the JAX package)
     within the bf16 budget, the path lengths exactly."""
@@ -269,8 +301,8 @@ def test_k3_tiles_skip_and_budgets_exact(scene_name):
     cols, rows = torch.from_numpy(np.array(cols)), torch.from_numpy(np.array(rows))
     noise = torch.from_numpy(noise)
     budgets = torch.tensor([0, 1, 3], dtype=torch.int32)
-    on = _k3_tiles(model, scene, settings, cols, rows, noise, budgets, env_skip=True)
-    off = _k3_tiles(model, scene, settings, cols, rows, noise, budgets, env_skip=False)
+    on = _k3_tiles(model, scene, settings, cols, rows, noise, budgets)
+    off = _k3_tiles(model, scene, settings, cols, rows, noise, budgets, queue=False)
     assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
     assert not on[0][:, :256].any() and not on[1][:256].any()
     ref = megastep.render_megastep_plain(scene, settings, model, cols, rows, noise=noise,
@@ -280,5 +312,13 @@ def test_k3_tiles_skip_and_budgets_exact(scene_name):
     got, want = on[0], ref.radiance.stack()
     rel = (got - want).abs() / (want.abs() + 1e-2 * want.abs().max())
     assert float(rel.median()) < 5e-3 and float(rel.max()) < 8e-2
+    escapes = torch.zeros(3, dtype=torch.int64)
+    for s in range(SAMPLES):
+        st = trace.trace_sample(scene, settings, cols, rows, noise=noise[s], width=W, height=H,
+                                max_path_length=MAXLEN)
+        esc = torch.nn.functional.pad(st.esc_w.stack().abs().sum(dim=0) != 0, (0, 3 * 256 - 576))
+        escapes += esc.reshape(3, 256).sum(dim=1) * (s < budgets)
+    assert torch.equal(on[2], -(-escapes // 128)) and bool((on[2] <= off[2]).all())
     if scene_name == "enclosed":
         assert torch.equal(got, want)  # nothing escapes: the trace alone, bit for bit
+        assert not on[2].any()

@@ -156,9 +156,9 @@ def test_unsupported_shapes_raise(widths, embed, head, match):
 
 
 @pytest.mark.parametrize("chain, plan_k2, plan_k3", [
-    ("bf16", (4, 24_576, 215_104), 219_520),
-    ("int8", (4, 12_288, 157_760), 162_176),
-    ("f32", (2, 49_152, 215_104), 219_520),
+    ("bf16", (4, 24_576, 215_104), 224_032),
+    ("int8", (4, 12_288, 157_760), 166_688),
+    ("f32", (2, 49_152, 215_104), 224_032),
 ])
 def test_wide_plan_384(chain, plan_k2, plan_k3):
     """A 6x384 net (six 64-wide chunks a hidden layer) fits every chain's
