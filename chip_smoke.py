@@ -33,29 +33,27 @@ Phases, one line each:
                 (probes/tf32_chain.py): K2 on a 1104x1000 sample's escapes
                 and 65,573 numpy-seeded ones, K4 on the 1104x1000 lattice,
                 a bake chunk and 65,573 points, K3 at 1104x1000 (8 samples)
-                and at a ragged 65,317 lanes with budgets 0/1/8, the
-                statistics and the env-skip, each against its plain f32
+                and at a ragged 65,317 lanes with budgets 0/1/8 and the
+                statistics, each against its plain f32
                 version (TF32 off) by the reference's f32 rule (max of
                 |out - ref| / (|ref| + 1e-2 max|ref|) < 1.5e-2; K3 also
                 < 5e-3 flipped lanes), its median and max printed beside the
                 bf16 kernel's against the same plain f32 chain, and smaller
-                in both; K3's env-skip on the 64-ray tile changes nothing on
-                either scene; the SASS phase (4c) holds every tf32
+                in both; the SASS phase (4c) holds every tf32
                 instantiation (K2, K4, K3's) to HGMMA on tf32 only;
   5. K3       - megastep kernel vs its plain version, host noise, 256x256,
                 4 samples, bf16 and int8 (path lengths bit for bit, int8
                 radiance within SUM_ORDER_REL);
   5b. modes   - K1 in Owen-Sobol mode (12 and 4 + 4L dims, bit for bit) and
                 K3, bf16 and int8, in Sobol mode, with per-block budgets and
-                the statistics (hardware and host noise), with the env-skip,
-                and with all of them at once, vs their plain versions at
-                256x256; and K3 with the env-skip on and off on the enclosed
-                scene (nothing escapes), which must agree bit for bit; then
-                K3, bf16 and int8, at a ragged 65,317 lanes (the last CUDA
-                block has one live 128-ray tile) with budgets of 0, 1 and 8
-                in one launch, the statistics and the env-skip, Philox and
-                host noise, and on the enclosed scene skip on = off bit for
-                bit;
+                the statistics (hardware and host noise), and with all of
+                them at once, vs their plain versions at 256x256; and K3 on
+                the enclosed scene (nothing escapes, so no tile is shaded)
+                against its plain version; then K3, bf16 and int8, at a
+                ragged 65,317 lanes (the last CUDA block has one live
+                128-ray tile) with budgets of 0, 1 and 8 in one launch and
+                the statistics, Philox and host noise, and on the enclosed
+                scene;
   5c. stubs   - K3's measurement stubs 'nif', 'trace' and 'both', bf16 and
                 int8, Philox and Sobol, vs their plain versions at 256x256:
                 'trace'/'both' exactly (radiance 0, path lengths S x L),
@@ -67,16 +65,15 @@ Phases, one line each:
                 asset with --nif-precision int8 fused and unfused;
                 --nif-mode baked (bf16, then int8); --device-film (saving
                 every step, then only at the last); --device-film --adaptive;
-                --sampler sobol fused and unfused; --env-skip on (the open
-                default scene); --scene <enclosed> (--env-skip auto must
-                resolve on; on the default scene off); and the int8 asset
+                --sampler sobol fused and unfused; --scene <enclosed>; and
+                the int8 asset
                 with --device-film --adaptive --sampler sobol; and
                 --enable-load-balancing (the reference's shuffle and
                 per-step re-deal) fused; --partials-type float fused,
                 unfused and --nif-mode baked (the tf32 K3, K2 and K4).  Every
                 kernel's launch counter is set to 0 just before each run and
-                read just after (a fused run's auto env-skip probe launches
-                K1 twice), and so is each call counter of the native host
+                read just after (a fused run launches K3 alone), and so is
+                each call counter of the native host
                 runtime and of its plain versions; the app's log (each
                 step's, save's, wait's and bake's seconds) goes to stdout.
                 The device-film frames must equal
@@ -123,8 +120,8 @@ Phases, one line each:
                 assets/urban_alley_synth_nif_int8 (the int8 runs launch K3
                 on its QAT grids after it) and interactive_samples 16 (each
                 restarts: the progress returns to step 1), stop, exit 0;
-                each run's launches (K1 twice for the env-skip probe, K3,
-                K4 for the guides), native film, tone map and JPEG calls
+                each run's launches (K3, K4 for the guides, no K1), native
+                film, tone map and JPEG calls
                 and no plain call; the codec make_encoder picks; then the
                 guides' sky albedo from K4 against the plain version (the
                 bf16 tail rule), the on-card denoised preview against
@@ -158,15 +155,13 @@ Phases, one line each:
                 Sobol and host-noise mode at 1104x1000 and at a ragged
                 65,317 lanes, then each kernel and its plain version timed
                 (CUDA events, after warm-up; K1 also alone, one prepared
-                launch back to back, beside its wrapper), K3 with
-                the env-skip on and off on both scenes (on the enclosed one
-                the skip must take K3 under a quarter of its time), and the
-                adaptive step against the uniform one; K3's stubs vs their
+                launch back to back, beside its wrapper), K3 on the enclosed
+                scene beside the open one (no escape, so no chain: under a
+                quarter of its time, bf16 and int8), and the adaptive step against the uniform one; K3's stubs vs their
                 plain versions (as phase 5c), then timed beside them (the
                 'trace' stub less the skeleton is the chain alone, a
                 cross-check of the split's env); repeated K1 launches (three
-                modes) and K3 launches (bf16 Philox, env-skip, host noise;
-                int8 Sobol with budgets and statistics) under
+                modes) and K3 launches (bf16 Philox, host noise; int8 Sobol with budgets and statistics) under
                 torch.cuda.set_sync_debug_mode("error"), which must raise
                 for no launch (and must raise for the control, the fov
                 computed anew); --device-timing's unfused
@@ -244,7 +239,7 @@ Phases, one line each:
                 spp and steps of 32, each with finite, well-formed fields;
                 fused_bench, phase_bench, megastep_split (every chain and
                 stub), host_roundtrip_bench, coherent_layout_probe,
-                envskip_bench (the enclosed scene all dead) and
+                envskip_bench (the enclosed scene all dead, K3 timed) and
                 scene_scale_bench (every count, bf16) at 1104x1000 with few
                 repetitions; each count's grid_scene through K3 against its
                 plain version (host noise, 16x16); the three figure tools,
@@ -314,6 +309,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from port_bench.counts import PEAK_BYTES, PEAK_OPS
+
 ROOT = Path(__file__).resolve().parent
 ASSET = "assets/urban_alley_synth_nif"
 INT8_ASSET = "assets/urban_alley_synth_nif_int8"  # the canonical 6x320 after QAT
@@ -375,8 +372,8 @@ ADAPTIVE_MIN = 2  # below --samples-per-step 8, so the controller's budgets vary
 # K3 bf16's ragged check: 255 full CUDA blocks of 256 rays, then 37 rays (one
 # live 128-ray tile, one dead).
 RAGGED_K3 = 255 * 256 + 37
-# The camera inside an emissive diffuse shell: no path escapes, so every
-# NIF sub-tile of K3 skips the chain (tests/test_megastep.py:129-135).
+# The camera inside an emissive diffuse shell: no path escapes, so no block
+# of K3 queues an escape or shades a tile (tests/test_megastep.py:129-135).
 ENCLOSED_SCENE = {"objects": [
     {"type": "sphere", "center": [0.0, 0.0, 0.0], "radius": 50.0, "colour": [0.5, 0.5, 0.5],
      "material": "diffuse", "emission": [0.2, 0.2, 0.2]},
@@ -384,12 +381,9 @@ ENCLOSED_SCENE = {"objects": [
      "material": "specular"},
 ]}
 
-# Published H100 SXM peaks at a 700 W limit (NVIDIA's data sheet, dense):
-# the bound of a kernel is the larger of its bytes over the memory rate
-# and its operations over the peak of their type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp8": 1979e12, "tf32": 495e12,
-                  "f32": 67e12}
+# The bound of a kernel is the larger of its bytes over the memory rate
+# and its operations over the peak of their type: the H100 SXM's peaks of
+# port_bench/counts.py (PEAK_BYTES, PEAK_OPS).
 # The NIF chain's multiply-adds per ray: 48x320 + 2 x 320x320 + 368x320
 # + 2 x 320x320 + 320x3 (the canonical 6x320 net, E = 12; the probes'
 # LAYERS are the same products).
@@ -420,11 +414,6 @@ class LogLines(logging.Handler):
 
     def emit(self, record):
         self.lines.append(record.getMessage())
-
-    def env_skip_auto(self) -> str | None:
-        """'on'/'off' as the auto env-skip probe resolved, None if none ran."""
-        got = [ln.rsplit("-> ", 1)[1] for ln in self.lines if ln.startswith("--env-skip auto")]
-        return got[-1] if got else None
 
     def phase_splits(self) -> list[dict]:
         """Each 'Device phase timing [<device>]: step=...' message of
@@ -583,8 +572,8 @@ def mode_check(name, got, ref, int8: bool) -> float:
 def least_ms(nbytes: float, ops: dict[str, float]) -> tuple[float, str]:
     """The least time (ms) for moving nbytes and doing ops[type] of each
     type, and which of the two bounds it."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = sum(n / PEAK_OPS[k] for k, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1550,13 +1539,13 @@ def mesh_phase(out_dir: Path, smi: str, dev, counters, plains, app_log, main_lum
     # (c) the CLI on a 1x1 mesh, each run beside its mesh-less twin of phase 6
     t0 = time.monotonic()
     steps = MAIN_SPP // MAIN_SPS
-    fused_want = [2, 0, steps, 0]  # the env-skip probe's two K1 launches, K3 a step
+    fused_want = [0, 0, steps, 0]  # K3 a step
     runs = [("mesh 1x1 fused", [], True, fused_want, "main fused"),
             ("mesh 1x1 device film", ["--device-film"], True, fused_want, "device film"),
             ("mesh 1x1 unfused", [], False, [MAIN_SPP, MAIN_SPP, 0, 0], "main unfused"),
             ("mesh 1x1 baked", ["--nif-mode", "baked"], True, [MAIN_SPP, 0, 0, bake_chunks],
              "main baked"),
-            ("mesh 1x1 device timing", ["--device-timing"], True, [2, 0, steps + 3, 0], None)]
+            ("mesh 1x1 device timing", ["--device-timing"], True, [0, 0, steps + 3, 0], None)]
     for name, flags, fused, want, twin in runs:
         png = out_dir / f"{name.replace(' ', '_')}.png"
         app_log.lines.clear()
@@ -1744,7 +1733,7 @@ def study_phase(out_dir: Path, smi: str, dev, counters, plains) -> dict:
     study("envskip_bench", envskip_bench, full + ["--spp", "64", "--samples", "2", "--reps", "1"],
           "envskip_bench.json",
           lambda d: d["scenes"]["enclosed"]["dead_block_fraction"] == 1.0
-          and finite(*(r["speedup"] for r in d["scenes"].values())))
+          and finite(*(r["k3_ms_per_sample"] for r in d["scenes"].values())))
     study("scene_scale_bench", scene_scale_bench,
           full + ["--chains", "bf16", "--spp", "64", "--min-seconds", "0.3"],
           "scene_scale_bench.json",
@@ -1856,8 +1845,8 @@ def main() -> None:
 
     def mode_checks(tag, cols, rows, kw, settings, seed, noise):
         """Phase 5b's checks at one shape: K1 Sobol, then K3's modes with
-        both chains (host noise covers the budgets), then env-skip on
-        against off on the enclosed scene."""
+        both chains (host noise covers the budgets), then K3 on the enclosed
+        scene."""
         sob = sobol_ctx(cols, rows, kw["width"])
         for dims in (SOBOL_DIMS, 4 + 4 * kw["max_path_length"]):
             err["trace_sobol"] = max(err.get("trace_sobol", 0.0), trace_exact(
@@ -1872,9 +1861,8 @@ def main() -> None:
         modes = [("sobol", "sobol", dict(seed=seed, **sobol)),
                  ("budgets+stats", "budgets_stats", dict(seed=seed, **stats)),
                  ("budgets+stats host-noise", "budgets_stats", dict(noise=noise, **stats)),
-                 ("env-skip", "env_skip", dict(seed=seed, env_skip=True)),
-                 ("sobol+budgets+stats+env-skip", "sobol_budgets_stats",
-                  dict(seed=seed, env_skip=True, **sobol, **stats))]
+                 ("sobol+budgets+stats", "sobol_budgets_stats",
+                  dict(seed=seed, **sobol, **stats))]
         ecols, erows = grid(kw["width"], kw["height"], enclosed)
         for m in (model, q8):
             int8 = is_int8(m)
@@ -1886,30 +1874,27 @@ def main() -> None:
                     megastep.render_megastep(scene, settings, m, cols, rows, **args, **kw),
                     megastep.render_megastep_plain(scene, settings, m, cols, rows, **args, **kw),
                     int8))
-            on, off = (megastep.render_megastep(enclosed, settings, m, ecols, erows, seed,
-                                                env_skip=skip, with_stats=True, **kw)
-                       for skip in (True, False))
-            phase(f"K3 {label8}env-skip on = off, enclosed {tag}",
-                  all(torch.equal(as_tensor(a), as_tensor(b)) for a, b in zip(on, off))
-                  and float((on.radiance.stack() > 0.0).float().mean()) > 0.99)
-            key = f"{prefix}_env_skip_enclosed"
+            got = megastep.render_megastep(enclosed, settings, m, ecols, erows, seed,
+                                           with_stats=True, **kw)
+            key = f"{prefix}_enclosed"
             err[key] = max(err.get(key, 0.0), mode_check(
-                f"K3 {label8}env-skip enclosed {tag}", on,
+                f"K3 {label8}enclosed {tag}", got,
                 megastep.render_megastep_plain(enclosed, settings, m, ecols, erows, seed,
-                                               env_skip=True, with_stats=True, **kw),
+                                               with_stats=True, **kw),
                 int8))
+            phase(f"K3 {label8}enclosed {tag} lit by the trace",
+                  float((got.radiance.stack() > 0.0).float().mean()) > 0.99)
 
     def ragged_checks(cols, rows, kw, settings, seed, noise):
         """K3, bf16 and int8, at a ragged n whose last CUDA block has one
-        live 128-ray tile, with budgets of 0, 1 and 8 in one launch, the
-        statistics and the env-skip (Philox and host noise); on the
-        enclosed scene skip on = off bit for bit."""
+        live 128-ray tile, with budgets of 0, 1 and 8 in one launch and the
+        statistics (Philox and host noise), and on the enclosed scene."""
         n = RAGGED_K3
         rc, rr = cols[:n].contiguous(), rows[:n].contiguous()
         budgets = torch.from_numpy(gen.choice([0, 1, 8], -(-n // megastep.BUDGET_BLOCK))
                                    .astype(np.int32)).to(dev)
         rnoise = noise[:, :, :n].contiguous()
-        common = dict(budgets=budgets, with_stats=True, env_skip=True)
+        common = dict(budgets=budgets, with_stats=True)
         ecols, erows = grid(kw["width"], kw["height"], enclosed)
         ec, er = ecols[:n].contiguous(), erows[:n].contiguous()
         for m in (model, q8):
@@ -1918,21 +1903,14 @@ def main() -> None:
             for label, args in (("philox", dict(seed=seed, **common)),
                                 ("host-noise", dict(noise=rnoise, **common))):
                 err[key] = max(err.get(key, 0.0), mode_check(
-                    f"K3 {label8}ragged {n} {label} budgets 0/1/8+stats+env-skip",
+                    f"K3 {label8}ragged {n} {label} budgets 0/1/8+stats",
                     megastep.render_megastep(scene, settings, m, rc, rr, **args, **kw),
                     megastep.render_megastep_plain(scene, settings, m, rc, rr, **args, **kw),
                     int8))
-            on, off = (megastep.render_megastep(enclosed, settings, m, ec, er, seed,
-                                                budgets=budgets, with_stats=True, env_skip=skip,
-                                                **kw)
-                       for skip in (True, False))
-            ref = megastep.render_megastep_plain(enclosed, settings, m, ec, er, seed,
-                                                 budgets=budgets, with_stats=True, **kw)
-            phase(f"K3 {label8}ragged {n} env-skip on = off, enclosed, budgets 0/1/8",
-                  all(torch.equal(as_tensor(a), as_tensor(b)) for a, b in zip(on, off)),
-                  budgets=sorted(set(budgets.tolist())))
+            got, ref = (fn(enclosed, settings, m, ec, er, seed, **common, **kw)
+                        for fn in (megastep.render_megastep, megastep.render_megastep_plain))
             err[key] = max(err[key], mode_check(
-                f"K3 {label8}ragged {n} env-skip enclosed budgets 0/1/8+stats", on, ref, int8))
+                f"K3 {label8}ragged {n} enclosed budgets 0/1/8+stats", got, ref, int8))
 
     def stub_checks(tag, cols, rows, kw, settings, seed):
         """Phase 5c: K3's stubs in the three chains and both hardware RNG
@@ -2081,7 +2059,7 @@ def main() -> None:
             megastep.render_megastep_plain(scene, settings, m, cols, rows, noise=noise3_t,
                                            **kw), is_int8(m))
 
-    # 5b. the Sobol, budget/statistics and env-skip modes -------------------
+    # 5b. the Sobol and budget/statistics modes, the enclosed scene ---------
     mode_checks("256x256", cols, rows, kw, settings, (13, 14), noise3_t)
     ragged_checks(cols, rows, kw, settings, (13, 14), noise3_t)
 
@@ -2104,40 +2082,34 @@ def main() -> None:
     adaptive = ["--device-film", "--adaptive", "--adaptive-min", str(ADAPTIVE_MIN)]
     sobol_flags = ["--sampler", "sobol"]
     f32_flags = ["--partials-type", "float"]
-    # A fused NIF run resolves the default --env-skip auto with a probe of
-    # two K1 launches; the unfused and baked runs have no skip to resolve.
-    probe = 2
-    fused_want = [probe, 0, steps, 0]
+    fused_want = [0, 0, steps, 0]  # a fused NIF run launches K3 alone
     # (name, asset, flags, fused, launches of trace, env shade, megastep, nif
-    # apply, what --env-skip auto resolves to: "on", "off" or None = no probe)
+    # apply)
     runs = [
-        ("main fused", ASSET, [], True, fused_want, "off"),
-        ("main unfused", ASSET, [], False, [MAIN_SPP, MAIN_SPP, 0, 0], None),
-        ("main int8 fused", INT8_ASSET, int8_flags, True, fused_want, "off"),
-        ("main int8 unfused", INT8_ASSET, int8_flags, False, [MAIN_SPP, MAIN_SPP, 0, 0], None),
-        ("main baked", ASSET, ["--nif-mode", "baked"], True, [MAIN_SPP, 0, 0, bake_chunks],
-         None),
+        ("main fused", ASSET, [], True, fused_want),
+        ("main unfused", ASSET, [], False, [MAIN_SPP, MAIN_SPP, 0, 0]),
+        ("main int8 fused", INT8_ASSET, int8_flags, True, fused_want),
+        ("main int8 unfused", INT8_ASSET, int8_flags, False, [MAIN_SPP, MAIN_SPP, 0, 0]),
+        ("main baked", ASSET, ["--nif-mode", "baked"], True, [MAIN_SPP, 0, 0, bake_chunks]),
         ("main baked int8", INT8_ASSET, int8_flags + ["--nif-mode", "baked"], True,
-         [MAIN_SPP, 0, 0, bake_chunks], None),
-        ("device film", ASSET, ["--device-film"], True, fused_want, "off"),
+         [MAIN_SPP, 0, 0, bake_chunks]),
+        ("device film", ASSET, ["--device-film"], True, fused_want),
         # Fetched and saved at the last step only: what the device film saves.
         ("device film save-interval 2", ASSET, ["--device-film", "--save-interval", "2"], True,
-         fused_want, "off"),
-        ("device film adaptive", ASSET, adaptive, True, fused_want, "off"),
-        ("sobol fused", ASSET, sobol_flags, True, fused_want, "off"),
-        ("sobol unfused", ASSET, sobol_flags, False, [MAIN_SPP, MAIN_SPP, 0, 0], None),
-        ("env-skip on open scene", ASSET, ["--env-skip", "on"], True, [0, 0, steps, 0], None),
-        ("enclosed scene", ASSET, ["--scene", str(enclosed_json)], True, fused_want, "on"),
+         fused_want),
+        ("device film adaptive", ASSET, adaptive, True, fused_want),
+        ("sobol fused", ASSET, sobol_flags, True, fused_want),
+        ("sobol unfused", ASSET, sobol_flags, False, [MAIN_SPP, MAIN_SPP, 0, 0]),
+        ("enclosed scene", ASSET, ["--scene", str(enclosed_json)], True, fused_want),
         ("int8 device film adaptive sobol", INT8_ASSET, int8_flags + adaptive + sobol_flags,
-         True, fused_want, "off"),
+         True, fused_want),
         # The reference's shuffle and per-step re-deal (host task), fused.
-        ("load balancing", ASSET, ["--enable-load-balancing"], True, fused_want, "off"),
-        # --partials-type float: the f32 chain on tf32 wgmma in K3, K2 and K4
-        # (the auto env-skip probe measures at its 64-ray tile).
-        ("f32 fused", ASSET, f32_flags, True, fused_want, "off"),
-        ("f32 unfused", ASSET, f32_flags, False, [MAIN_SPP, MAIN_SPP, 0, 0], None),
+        ("load balancing", ASSET, ["--enable-load-balancing"], True, fused_want),
+        # --partials-type float: the f32 chain on tf32 wgmma in K3, K2 and K4.
+        ("f32 fused", ASSET, f32_flags, True, fused_want),
+        ("f32 unfused", ASSET, f32_flags, False, [MAIN_SPP, MAIN_SPP, 0, 0]),
         ("f32 baked", ASSET, f32_flags + ["--nif-mode", "baked"], True,
-         [MAIN_SPP, 0, 0, bake_chunks], None),
+         [MAIN_SPP, 0, 0, bake_chunks]),
     ]
     lum, launches, frames, wall, step_s, save_s, wait_s = {}, {}, {}, {}, {}, {}, {}
     routes = {}  # each CLI run's native and plain host-runtime calls
@@ -2147,7 +2119,7 @@ def main() -> None:
                         format="  app: %(asctime)s %(message)s")
     app_log = LogLines()
     logging.getLogger().addHandler(app_log)
-    for name, asset, flags, fused, want, want_skip in runs:
+    for name, asset, flags, fused, want in runs:
         png = out_dir / f"{name.replace(' ', '_')}.png"
         argv = ["-w", str(MAIN_W), "-H", str(MAIN_H), "-s", str(MAIN_SPP),
                 "--samples-per-step", str(MAIN_SPS), "--assets", str(ROOT / asset),
@@ -2174,11 +2146,10 @@ def main() -> None:
         step_s[name] = app_log.seconds("Completed render step")
         save_s[name] = app_log.seconds("Saved images")
         wait_s[name] = app_log.waits()
-        skip = app_log.env_skip_auto()
-        phase(name, rc == 0 and got == want and not any(plain_cuda) and skip == want_skip
+        phase(name, rc == 0 and got == want and not any(plain_cuda)
               and bool(np.isfinite(hdr).all()) and hdr.shape == (MAIN_H, MAIN_W, 3),
               launches_trace_shade_megastep_apply=got, plain_runs_on_cuda=plain_cuda,
-              env_skip_auto=skip, mean_luminance=f"{mean:.6f}", mc_se=f"{se:.2e}",
+              mean_luminance=f"{mean:.6f}", mc_se=f"{se:.2e}",
               mpaths_per_s_incl_setup=f"{MAIN_W * MAIN_H * MAIN_SPP / secs / 1e6:.2f}",
               wall_s=f"{secs:.2f}")
 
@@ -2296,7 +2267,7 @@ def main() -> None:
     phase("device timing split", rc == 0 and split_ok, **{k: f"{v:.4f}" for k, v in split.items()
                                                          if k.endswith("_ms")})
     # The split runs the 'nif' stub and the skeleton ('both'), as the reference.
-    phase("device timing launches", got == [probe, 0, steps + timed, 0]
+    phase("device timing launches", got == [0, 0, steps + timed, 0]
           and stub_got == {"nif": timed, "trace": 0, "both": timed},
           launches_trace_shade_megastep_apply=got, stub_launches=stub_got)
     lines = [json.loads(ln) for ln in metrics_file.read_text().splitlines()]
@@ -2341,7 +2312,7 @@ def main() -> None:
         **{f"megastep_stub_{k}": v for k, v in stub_got.items()}}
     split32 = (app_log.phase_splits() or [{}])[-1]
     parts = [split32.get(k, 0.0) for k in ("env_ms", "trace_ms", "overhead_ms")]
-    phase("f32 device timing", rc == 0 and got == [probe, 0, steps + timed, 0]
+    phase("f32 device timing", rc == 0 and got == [0, 0, steps + timed, 0]
           and stub_got == {"nif": timed, "trace": 0, "both": timed} and not any(plain_cuda)
           and all(x > 0 for x in parts)
           and abs(sum(parts) - split32.get("step_ms", 0.0)) <= 2e-3,
@@ -2383,7 +2354,7 @@ def main() -> None:
     spans_ok = all(f"tpu_path_tracer/{n}" in canon_prof["span_names"] for n in (
         "ipu_render", "wait_for_host", "accumulate_framebuffers", "clear_accumulators",
         "save_images"))
-    phase("canonical 300-spp run", rc == 0 and got == [probe, 0, canon_steps, 0]
+    phase("canonical 300-spp run", rc == 0 and got == [0, 0, canon_steps, 0]
           and len(lines) == canon_steps + 1 and spans_ok and canon_prof["busy_share"] is not None,
           launches_trace_shade_megastep_apply=got, host_thread_spans=spans_ok)
 
@@ -2475,7 +2446,7 @@ def main() -> None:
         int8_ok = (r["int8_launches_after_swap"] or 0) > 0 if "int8" in name else True
         ok = (r["rc"] == 0 and not r["alive"] and r["previews"] and r["exposure_no_restart"]
               and r["fov_restart"] and r["load_nif_restart"] and r["samples_16_restart"]
-              and got["megastep"] > 0 and got["nif_apply"] > 0 and got["trace"] == probe
+              and got["megastep"] > 0 and got["nif_apply"] > 0 and got["trace"] == 0
               and got["env_shade"] == 0 and not any(r["plain_runs_on_cuda"])
               and film_calls > 0 and calls["tonemap"] > 0 and not any(plain_calls)
               and (calls["jpeg_scan"] > 0) == mjpeg and (r["frames_ok"] or not mjpeg)
@@ -2631,10 +2602,7 @@ def main() -> None:
             ("megastep_sobol", model, scene, cols, rows, sobol, sobol),
             ("megastep_budgets_stats", model, scene, cols, rows,
              dict(budgets=eights, with_stats=True), dict(budgets=ones, with_stats=True)),
-            ("megastep_env_skip", model, scene, cols, rows, dict(env_skip=True),
-             dict(env_skip=True)),
-            ("megastep_env_skip_enclosed", model, enclosed, ecols, erows, dict(env_skip=True),
-             dict(env_skip=True)),
+            ("megastep_enclosed", model, enclosed, ecols, erows, {}, {}),
             ("megastep_int8_sobol_budgets_stats", q8, scene, cols, rows,
              dict(budgets=eights, with_stats=True, **sobol),
              dict(budgets=ones, with_stats=True, **sobol))):
@@ -2642,19 +2610,17 @@ def main() -> None:
               lambda: megastep.render_megastep(sc, settings, m, c, r, seed, **k_args, **kw),
               lambda: megastep.render_megastep_plain(sc, one, m, c, r, seed, **p_args, **kw),
               3, 2, k_per=MAIN_SPS)
-    # The env-skip guard: its cost where nearly every sub-tile escapes,
-    # and its saving where none does (there K3 is the trace alone, so
-    # 1 - on/off is the NIF chain's share of K3).
-    guard = {}
-    for tag, sc, c, r in (("open", scene, cols, rows), ("enclosed", enclosed, ecols, erows)):
-        for m, suffix in ((model, ""), (q8, " int8")):
-            on, off = versus(
-                lambda: megastep.render_megastep(sc, settings, m, c, r, seed, env_skip=True, **kw),
-                lambda: megastep.render_megastep(sc, settings, m, c, r, seed, **kw), 3, 3)
-            guard[tag + suffix] = (on / MAIN_SPS, off / MAIN_SPS)
-            print(f"[timing] K3{suffix} env-skip on vs off, {tag} scene: {on / MAIN_SPS:.3f} vs "
-                  f"{off / MAIN_SPS:.3f} ms per full-frame sample ({on / off - 1:+.2%})",
-                  flush=True)
+    # K3 where no ray escapes against the open scene: the enclosed scene's
+    # blocks queue nothing and shade no tile, so K3 is the trace alone and
+    # 1 - enclosed/open is the NIF chain's share of K3.
+    enclosed_ms = {}
+    for m, chain in ((model, "bf16"), (q8, "int8")):
+        closed, opened = versus(
+            lambda: megastep.render_megastep(enclosed, settings, m, ecols, erows, seed, **kw),
+            lambda: megastep.render_megastep(scene, settings, m, cols, rows, seed, **kw), 3, 3)
+        enclosed_ms[chain] = (closed / MAIN_SPS, opened / MAIN_SPS)
+        print(f"[timing] K3 {chain} enclosed vs open scene: {closed / MAIN_SPS:.3f} vs "
+              f"{opened / MAIN_SPS:.3f} ms per full-frame sample", flush=True)
     # K3's stubs at the main path's shapes (bf16, Philox), as the device
     # timing launches them; the 'trace' stub (the chain with the bounce
     # stubbed) less the skeleton is the chain alone, beside the split's env.
@@ -2708,8 +2674,6 @@ def main() -> None:
                                                      noise=host_noise[0], **kw)),
         ("K3 bf16 philox", lambda: megastep.render_megastep(scene, settings, model, cols, rows,
                                                             seed, **kw)),
-        ("K3 bf16 env-skip", lambda: megastep.render_megastep(scene, settings, model, cols, rows,
-                                                              seed, env_skip=True, **kw)),
         ("K3 bf16 host-noise", lambda: megastep.render_megastep(scene, settings, model, cols,
                                                                 rows, noise=host_noise, **kw)),
         ("K3 int8 sobol budgets stats", lambda: megastep.render_megastep(
@@ -2779,10 +2743,10 @@ def main() -> None:
               f"the port)", flush=True)
         del codes
 
-    for suffix in ("", " int8"):
-        on, off = guard["enclosed" + suffix]
-        phase(f"K3{suffix} env-skip fires on the enclosed scene", on < 0.25 * off,
-              on_ms=f"{on:.3f}", off_ms=f"{off:.3f}", chain_share=f"{1 - on / off:.2%}")
+    for chain, (closed, opened) in enclosed_ms.items():
+        phase(f"K3 {chain} shades no tile on the enclosed scene", closed < 0.25 * opened,
+              enclosed_ms=f"{closed:.3f}", open_ms=f"{opened:.3f}",
+              chain_share=f"{1 - closed / opened:.2%}")
     # The adaptive step against the uniform one, from the state of one
     # cold (uniform) and one adaptive step of the device film.
     static = StaticConfig(width=MAIN_W, height=MAIN_H, max_path_length=kw["max_path_length"],
@@ -2996,7 +2960,7 @@ def main() -> None:
     # K3 bf16 on the same chain, each mode per 1104x1000 sample, beside the
     # unfused step (K1 + K2), the library chain and the device timing split.
     k3_modes = {k: times[f"megastep{k and '_' + k}"][0] for k in (
-        "", "sobol", "budgets_stats", "env_skip", "env_skip_enclosed")}
+        "", "sobol", "budgets_stats", "enclosed")}
     print(f"[wgmma] K3 bf16 per 1104x1000 sample: "
           + ", ".join(f"{k or 'philox'} {v:.4f} ms" for k, v in k3_modes.items())
           + f"; int8 K3 {times['megastep_int8'][0]:.4f} ms; K2 bf16 {times['env_shade'][0]:.4f} ms;"
@@ -3089,8 +3053,7 @@ def main() -> None:
         "megastep_sobol": least_ms(k3_bytes + n + bf16_w, {"bf16": chain, "f32": trace_ops}),
         "megastep_budgets_stats": least_ms(k3_bytes + n / 2 + bf16_w,
                                         {"bf16": chain, "f32": trace_ops}),
-        "megastep_env_skip": least_ms(k3_bytes + bf16_w, {"bf16": chain, "f32": trace_ops}),
-        "megastep_env_skip_enclosed": least_ms(k3_bytes, {"f32": enclosed_ops}),
+        "megastep_enclosed": least_ms(k3_bytes, {"f32": enclosed_ops}),
         "megastep_int8_sobol_budgets_stats": least_ms(k3_bytes + 1.5 * n + int8_w,
                                                    {"int8": chain, "f32": trace_ops}),
         # The stubbed chain does no products but still encodes every ray;
@@ -3162,10 +3125,7 @@ def main() -> None:
         ("megastep_sobol", "csrc/megastep.cuh", k3, launches["sobol fused"]["megastep"]),
         ("megastep_budgets_stats", "csrc/megastep.cuh", k3,
          launches["device film adaptive"]["megastep"]),
-        ("megastep_env_skip", "csrc/megastep.cuh", k3,
-         launches["env-skip on open scene"]["megastep"]),
-        ("megastep_env_skip_enclosed", "csrc/megastep.cuh", k3,
-         launches["enclosed scene"]["megastep"]),
+        ("megastep_enclosed", "csrc/megastep.cuh", k3, launches["enclosed scene"]["megastep"]),
         ("megastep_int8_sobol_budgets_stats", "csrc/megastep.cuh", k5,
          launches["int8 device film adaptive sobol"]["megastep"]),
         # This slice: K3's stubs with the launches of the --device-timing
@@ -3196,7 +3156,7 @@ def main() -> None:
         {**report, "nvidia_smi": smi, "build_seconds": build_s, "ptxas": ptxas,
          "main_launches": launches, "main_luminance": lum, "main_wall_s": wall,
          "main_step_s": step_s, "main_save_s": save_s, "main_wait_s": wait_s,
-         "host_calls": routes, "canonical_300": canonical, "env_skip_on_off_ms": guard,
+         "host_calls": routes, "canonical_300": canonical, "enclosed_vs_open_ms": enclosed_ms,
          "adaptive_vs_uniform_step_ms": times["adaptive_step"], "device_timing": split,
          "device_timing_unfused": unfused, "profile": prof, "probe_ms": probe_ms,
          "times_ms": times, "bounds_ms": bounds, "max_abs_err": err,

@@ -44,11 +44,10 @@
 // tile runs partly empty, every escape of every sample is shaded once, and
 // a lane without an escape, which a shaded tile gave 0 * out = 0, is not
 // queued: a block whose rays never escape runs no tile and reads no
-// weights (the TPU kernel's _env_contrib guard; ops/megastep.py takes the
-// env_skip flag and passes nothing).  A row's chain does
-// not depend on the row or tile that holds it, so each env term is the
-// one shading sample by sample gives; a ray's f32 sums add the direct and
-// env terms of its samples in another order.  The barriers of a pass: the
+// weights (the TPU kernel's _env_contrib guard, on every tile).  A row's
+// chain does not depend on the row or tile that holds it, so each env term
+// is the one shading sample by sample gives; a ray's f32 sums add the
+// direct and env terms of its samples in another order.  The barriers of a pass: the
 // trace's end (the counts are in), the entries' (every lane has read the
 // counts, so the next sample may write them), and after the tiles, if any
 // ran, their stores'.  The next appends overwrite shaded slots only after
@@ -481,6 +480,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) megastep_wg_kernel(
   }
 }
 
+// K3's launch arguments past the TraceParams and the NifWg, as pt_megastep
+// takes them (megastep.cu); ops/_lib.py::MegaArgs mirrors them field for
+// field.  The launcher unpacks them into the kernel's parameters.
 struct MegaArgs {
   const float *sph, *dsc, *cols, *rows, *noise;
   const int *pid, *base, *budgets;
@@ -534,5 +536,12 @@ int launch_megastep(const TraceParams& prm, const NifWg& net, const MegaArgs& a,
       a.ticket, a.budget_block, a.samples, a.n, a.rad, a.plen, a.lum2, a.stamps);
   return (int)cudaGetLastError();
 }
+
+// launch_megastep with measurement stub kStubNif, kStubTrace or kStubBoth,
+// in Sobol mode for a non-null a.pid, else Philox (megastep_stub.cu, their
+// own translation unit); the stubs take no host noise and ignore a.stamps.
+// cudaErrorInvalidValue for any other stub or with a.noise.
+int launch_megastep_stub(const TraceParams& prm, const NifWg& net, const MegaArgs& a, int stub,
+                         cudaStream_t stream);
 
 }  // namespace pt

@@ -9,36 +9,30 @@
 // wg_tile_stub (nif_wgmma.cuh) and trace_ray (common.cuh).
 #include "megastep.cuh"
 
+namespace pt {
 namespace {
 
 template <int kStub>
-int launch_stub(const pt::TraceParams* prm, const pt::NifWg* wg, const pt::MegaArgs& a,
-                cudaStream_t s) {
-  return a.pid ? pt::launch_megastep<pt::kRngSobol, kStub>(*prm, *wg, a, s)
-               : pt::launch_megastep<pt::kRngPhilox, kStub>(*prm, *wg, a, s);
+int launch_stub(const TraceParams& prm, const NifWg& net, const MegaArgs& a, cudaStream_t s) {
+  return a.pid ? launch_megastep<kRngSobol, kStub>(prm, net, a, s)
+               : launch_megastep<kRngPhilox, kStub>(prm, net, a, s);
 }
 
 }  // namespace
 
-// The arguments of pt_megastep without host noise, and the stub mode.
-extern "C" int pt_megastep_stub(const pt::TraceParams* prm, const pt::NifWg* wg,
-                                const float* sph, const float* dsc, const float* cols,
-                                const float* rows, const int* pid, const int* base,
-                                const int* budgets, const int* order, int* ticket,
-                                int budget_block, int samples, int n, float* rad, int* plen,
-                                float* lum2, int stub, void* stream) {
-  if (wg == nullptr) return (int)cudaErrorInvalidValue;
-  const pt::MegaArgs a{sph, dsc, cols, rows, nullptr, pid, base, budgets, order, ticket,
-                       budget_block, samples, n, rad, plen, lum2, nullptr};
-  cudaStream_t s = (cudaStream_t)stream;
+int launch_megastep_stub(const TraceParams& prm, const NifWg& net, const MegaArgs& a, int stub,
+                         cudaStream_t s) {
+  if (a.noise) return (int)cudaErrorInvalidValue;
   switch (stub) {
-    case pt::kStubNif:
-      return launch_stub<pt::kStubNif>(prm, wg, a, s);
-    case pt::kStubTrace:
-      return launch_stub<pt::kStubTrace>(prm, wg, a, s);
-    case pt::kStubBoth:
-      return launch_stub<pt::kStubBoth>(prm, wg, a, s);
+    case kStubNif:
+      return launch_stub<kStubNif>(prm, net, a, s);
+    case kStubTrace:
+      return launch_stub<kStubTrace>(prm, net, a, s);
+    case kStubBoth:
+      return launch_stub<kStubBoth>(prm, net, a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace pt

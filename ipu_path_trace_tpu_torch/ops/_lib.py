@@ -192,6 +192,18 @@ class NifWg(ctypes.Structure):
     )
 
 
+class MegaArgs(ctypes.Structure):
+    """csrc/megastep.cuh::MegaArgs, K3's launch arguments past the
+    TraceParams and the NifWg."""
+
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "sph", "dsc", "cols", "rows", "noise", "pid", "base", "budgets", "order", "ticket")]
+        + [(n, ctypes.c_int) for n in ("budget_block", "samples", "n")]
+        + [(n, ctypes.c_void_p) for n in ("rad", "plen", "lum2", "stamps")]
+    )
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -207,10 +219,8 @@ def library() -> ctypes.CDLL:
     wg = ctypes.POINTER(NifWg)
     lib.pt_env_shade.argtypes = [wg, _P, _P, ctypes.c_float, _I, _P, _P]
     lib.pt_nif_apply.argtypes = [wg, _P, _P, _I, _P, _P]
-    lib.pt_megastep.argtypes = [ctypes.POINTER(TraceParams), wg, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
-    lib.pt_megastep_stub.argtypes = [ctypes.POINTER(TraceParams), wg, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _P, _I, _I, _I, _P, _P, _P, _I, _P]
+    lib.pt_megastep.argtypes = [ctypes.POINTER(TraceParams), wg, ctypes.POINTER(MegaArgs), _I,
+                                _P]
     lib.pt_probe_mxu.argtypes = [wg, _P, _I, _P, _P]
     lib.pt_probe_alu.argtypes = [_P, _I, _I, _P, _P]
     lib.pt_probe_both.argtypes = [wg, _P, _I, _I, _P, _P]
@@ -219,8 +229,8 @@ def library() -> ctypes.CDLL:
     lib.pt_error_string.argtypes = [_I]
     lib.pt_error_string.restype = ctypes.c_char_p
     for fn in (lib.pt_trace, lib.pt_env_shade, lib.pt_nif_apply, lib.pt_megastep,
-               lib.pt_megastep_stub, lib.pt_probe_mxu, lib.pt_probe_alu, lib.pt_probe_both,
-               lib.pt_probe_loop, lib.pt_quant_probe):
+               lib.pt_probe_mxu, lib.pt_probe_alu, lib.pt_probe_both, lib.pt_probe_loop,
+               lib.pt_quant_probe):
         fn.restype = ctypes.c_int
     return lib
 

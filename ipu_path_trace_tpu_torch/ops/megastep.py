@@ -18,10 +18,9 @@ of ``csrc/nif_wgmma.cuh`` under ``megastep_wg_plan``; per-block sample
 ``budgets`` (adaptive sampling) and ``with_stats`` (the per-record sum of
 squared sample luminance, ``lum2``).  Each CUDA block queues the escapes
 of its samples and runs the NIF chain on full tiles of them (128 rays,
-64 for the f32 chain: ``env_skip_tile``), the last partial tile after
-its last sample; a ray that does not escape is never shaded.  So
-``env_skip`` (the reference's skip of a tile with no escape) is taken
-and changes nothing.
+64 for the f32 chain: ``chain_tile``), the last partial tile after its
+last sample; a ray that does not escape is never shaded, so the
+reference's skip of a tile with no escape has nothing left to skip.
 Which rays a CUDA block takes: a launch without budgets maps block b to
 rays 256 b.. 256 b + 255.  A launch with budgets dispatches its 256-ray
 blocks heaviest budget first: it sorts them on the device
@@ -71,10 +70,6 @@ from .trace import (TraceOut, check_mode, pack_scene, sample_rows, trace_params,
 # barriers, and both consumer warpgroups taking every weight slice.
 BUDGET_BLOCK = 2048
 RAYS_PER_CUDA_BLOCK = 256  # csrc/megastep.cuh kRaysPerBlock: a ray per consumer thread
-# Rays per env-skip tile of the bf16 and int8 chains, the guard's
-# granularity, at which render/wavefront.dead_block_fraction measures:
-# their wgmma tile (env_skip_tile gives the model's).
-ENV_SKIP_TILE = WG_RAYS
 # The kernel's tail of the chain's shared-memory plan
 # (csrc/megastep.cuh kMegaQueueBytes, kMegaCountBytes, kMegaCtlBytes): the
 # escape queue of QUEUE_ENTRIES - each entry's (u, v), escape weights and
@@ -106,9 +101,10 @@ def table_bytes(scene: Scene) -> int:
     return 4 * (12 * scene.num_spheres + 15 * scene.num_discs)
 
 
-def env_skip_tile(model: NifModel) -> int:
-    """Rays per env-skip tile of the model's chain in K3: its wgmma tile,
-    128 rays for bf16 and int8, 64 for the f32 chain on tf32."""
+def chain_tile(model: NifModel) -> int:
+    """Rays per tile of the model's chain in K3, the escape queue's tile:
+    its wgmma tile, 128 rays for bf16 and int8, 64 for the f32 chain on
+    tf32."""
     return tile_rays(_elem(model))
 
 
@@ -193,15 +189,13 @@ def render_megastep_plain(scene: Scene, settings, model: NifModel, cols, rows, s
                           *, noise=None, width: int, height: int, max_path_length: int,
                           aa_noise_type: str = "normal", budgets=None,
                           budget_block: int = BUDGET_BLOCK, with_stats: bool = False,
-                          env_skip: bool = False, sobol=None,
-                          sobol_dims: int = 0, stub: str | None = None) -> MegaStepOut:
+                          sobol=None, sobol_dims: int = 0,
+                          stub: str | None = None) -> MegaStepOut:
     """Plain PyTorch version of the megastep: trace + env shade per sample.
 
     ``budgets`` bound each block's sample loop (lanes past their budget
     add nothing; with host noise the loop also stops at its S rows).
-    ``env_skip`` changes nothing here, nor in the kernel (module docstring).
     ``stub`` replaces the trace, the chain or both (module docstring)."""
-    del env_skip
     if cols.is_cuda:
         render_megastep_plain.cuda_runs += 1
     n = cols.shape[0]
@@ -250,8 +244,7 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
                     noise=None, width: int, height: int, max_path_length: int,
                     aa_noise_type: str = "normal", budgets=None,
                     budget_block: int = BUDGET_BLOCK, with_stats: bool = False,
-                    env_skip: bool = False, sobol=None, sobol_dims: int = 0,
-                    stub: str | None = None) -> MegaStepOut:
+                    sobol=None, sobol_dims: int = 0, stub: str | None = None) -> MegaStepOut:
     """Render ``settings.samples_per_step`` samples (hardware mode, seed
     words ``seed``), ``noise.shape[0]`` samples (host noise) or
     ``budgets[g]`` samples for the rays of budget block g (``budgets``:
@@ -266,8 +259,7 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
     _check_budgets(budgets, budget_block, n, cols.device)
     kw = dict(width=width, height=height, max_path_length=max_path_length,
               aa_noise_type=aa_noise_type, budgets=budgets, budget_block=budget_block,
-              with_stats=with_stats, env_skip=env_skip, sobol=sobol, sobol_dims=sobol_dims,
-              stub=stub)
+              with_stats=with_stats, sobol=sobol, sobol_dims=sobol_dims, stub=stub)
     if cols.device.type == "cpu":
         return render_megastep_plain(scene, settings, model, cols, rows, seed,
                                      noise=noise, **kw)
@@ -304,21 +296,17 @@ def render_megastep(scene: Scene, settings, model: NifModel, cols, rows, seed=No
             order = block_order(budgets, n, budget_block)
             ticket = torch.empty(1, dtype=torch.int32, device=dev)
         pid, base = (None, None) if sobol is None else sobol[:2]
-        lib = _lib.library()
-        common = (_lib.ptr(sph), _lib.ptr(dsc), _lib.ptr(cols), _lib.ptr(rows))
-        tail = (_lib.ptr(pid), _lib.ptr(base), _lib.ptr(budgets), _lib.ptr(order),
-                _lib.ptr(ticket), budget_block, samples, n, _lib.ptr(rad), _lib.ptr(plen),
-                _lib.ptr(lum2))
+        ptrs = dict(sph=sph, dsc=dsc, cols=cols, rows=rows, noise=noise, pid=pid, base=base,
+                    budgets=budgets, order=order, ticket=ticket, rad=rad, plen=plen, lum2=lum2,
+                    stamps=stamps)
+        args = _lib.MegaArgs(budget_block=budget_block, samples=samples, n=n,
+                             **{k: _lib.ptr(t) for k, t in ptrs.items()})
         with torch.cuda.device(dev):  # the launch's shared-memory attribute, SM count, stream
-            if stub is None:
-                err = lib.pt_megastep(ctypes.byref(prm), wg, *common, _lib.ptr(noise), *tail,
-                                      _lib.ptr(stamps), _lib.stream(dev))
-            else:
-                err = lib.pt_megastep_stub(ctypes.byref(prm), wg, *common, *tail,
-                                           STUBS[stub], _lib.stream(dev))
+            err = _lib.library().pt_megastep(ctypes.byref(prm), wg, ctypes.byref(args),
+                                             STUBS.get(stub, 0), _lib.stream(dev))
         _lib.check(err, "megastep" if stub is None else f"megastep stub '{stub}'")
         if stamps is not None:
-            tracing.keep_launch(stamps, env_skip_tile(model))
+            tracing.keep_launch(stamps, chain_tile(model))
     if stub is None:
         render_megastep.launches += 1
         render_megastep.ordered_launches += budgets is not None

@@ -11,7 +11,7 @@ keeps row order; the seed-142 shuffle is the load balancer's.  For each,
 at 1104x1000 and 300 spp with ``assets/nif_w192e16`` through
 ``render_step`` (K3): the ms a sample (CUDA events over at least
 ``--min-seconds``, 10) and the dead fraction - (tile, sample) pairs with
-no escape, at K3's env-skip tile and at the JAX kernel's 2048-lane block
+no escape, at K3's chain tile and at the JAX kernel's 2048-lane block
 (``envskip_bench.escape_stats``, ``--samples`` 4).
 
     python3 -m ipu_path_trace_tpu_torch.probes.coherent_layout_probe --out DIR [assets] \\
@@ -58,20 +58,20 @@ def layouts(scene, wl: np.ndarray, width: int, height: int) -> tuple[dict, dict]
 def run(args) -> dict:
     from ..core.records import make_worklist
     from ..core.scene import default_scene
-    from ..ops.megastep import env_skip_tile
+    from ..ops.megastep import chain_tile
     from ..render.params import RenderSettings, StaticConfig
 
     dev = _study.device_of(args.device, "coherent_layout_probe")
     smi = _study.card(dev)
     env = _study.load_env(args.assets, dev)
-    tile = env_skip_tile(env.model)
+    tile = chain_tile(env.model)
     scene = default_scene(dev)
     w, h = args.width, args.height
     cfg = StaticConfig(width=w, height=h)
     settings = RenderSettings.make(samples_per_step=args.spp)
     orders, frac = layouts(scene, make_worklist(w, h), w, h)
     print(f"primary-hit class fractions: {frac}", file=sys.stderr, flush=True)
-    out = {"frame": [w, h], "spp": args.spp, "skip_tile": tile, "block": BLOCK,
+    out = {"frame": [w, h], "spp": args.spp, "chain_tile": tile, "block": BLOCK,
            "class_fractions": frac, "layouts": {}, "device": smi}
     for name, wl in orders.items():
         row = measure(scene, env, cfg, wl, args.spp, args.min_seconds, dev)
@@ -79,7 +79,7 @@ def run(args) -> dict:
         _, dead = escape_stats(scene, settings, cfg, work.u.to(torch.float32),
                                work.v.to(torch.float32), _study.base(args.seed, 42),
                                args.samples, (tile, BLOCK))
-        row.update(dead_fraction_skip_tile=dead[tile], dead_fraction_block=dead[BLOCK])
+        row.update(dead_fraction_chain_tile=dead[tile], dead_fraction_block=dead[BLOCK])
         out["layouts"][name] = row
         print(f"[{name:8s}] {row['mpaths_per_s']:.1f} Mpaths/s ({row['ms_per_sample']:.4f} ms/"
               f"sample), dead {dead[tile]:.4f} at {tile} rays, {dead[BLOCK]:.4f} at {BLOCK} "

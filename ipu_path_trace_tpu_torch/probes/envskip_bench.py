@@ -1,28 +1,31 @@
-"""The env-skip: how often it can fire, and what it buys in K3.
+"""How often the reference's env-skip could fire, and K3's time per scene.
 
-Counterpart of ``scripts/envskip_bench.py``.  K3's env-skip
-(``StaticConfig.env_skip``) leaves out the NIF chain for a tile of rays
-none of which escapes in a sample; the win depends on the scene.  Per
-scene (the default, ``mirror_hall``, ``glass_caustic`` and an enclosed
-one - the default spheres inside a giant emissive diffuse shell, from
-which no path escapes), on the coherent worklist at 1104x1000, with the
-synthetic 6x320 NIF (``models/nif.make_synthetic_nif(0)``, bf16):
+Counterpart of ``scripts/envskip_bench.py``.  The reference's megastep
+skips the NIF chain for a block of rays none of which escapes in a
+sample.  K3 has no such skip to switch: it queues each block's escapes
+and shades only those (ops/megastep.py), so a block without escapes runs
+no chain.  Per scene (the default, ``mirror_hall``, ``glass_caustic``
+and an enclosed one - the default spheres inside a giant emissive
+diffuse shell, from which no path escapes), on the coherent worklist at
+1104x1000, with the synthetic 6x320 NIF
+(``models/nif.make_synthetic_nif(0)``, bf16):
 
   1. escape statistics from the trace (K1 on the card; ``--samples`` 8
      Philox samples): the per-lane escape fraction, and the fraction of
      (block, sample) pairs with no escape - at the JAX kernel's 2048-lane
      block (``dead_block_fraction``, the figure to hold against
-     ``docs/ENVSKIP.json``) and at K3's own skip tile
-     (``ops/megastep.env_skip_tile``: 128 rays for bf16 and int8, 64 for
-     tf32; ``dead_block_fraction_skip_tile``);
-  2. K3's ms a sample with the skip on and off at 300 spp (CUDA events,
-     ``--reps`` launches after a warm one).
+     ``docs/ENVSKIP.json``) and at K3's chain tile
+     (``ops/megastep.chain_tile``: 128 rays for bf16 and int8, 64 for
+     tf32; ``dead_block_fraction_chain_tile``);
+  2. K3's ms a sample at 300 spp (CUDA events, ``--reps`` launches after
+     a warm one).
 
     python3 -m ipu_path_trace_tpu_torch.probes.envskip_bench --out DIR \\
         [--samples 8] [--reps 2] [--stats-only] [--width 1104 --height 1000] \\
         [--spp 300] [--device cuda|cpu]
 
-writes ``DIR/envskip_bench.json`` with the keys of the JAX record.
+writes ``DIR/envskip_bench.json``: the JAX record's keys, and each scene's
+escape and dead-block fractions under the JAX record's names.
 """
 
 from __future__ import annotations
@@ -88,7 +91,15 @@ def escape_stats(scene, settings, cfg, cols, rows, seed, n_samples: int,
     return esc / n_samples, {b: d / n_samples for b, d in dead.items()}
 
 
-def k3_ms(scene, settings, model, cols, rows, cfg, env_skip: bool, reps: int, dev) -> float:
+def dead_block_fraction(scene, settings, cfg, cols, rows, seed, n_samples: int,
+                        block_size: int) -> float:
+    """The fraction of (``block_size``-lane block, sample) pairs with no
+    escape over ``n_samples`` Philox samples (``escape_stats``)."""
+    return escape_stats(scene, settings, cfg, cols, rows, seed, n_samples,
+                        (block_size,))[1][block_size]
+
+
+def k3_ms(scene, settings, model, cols, rows, cfg, reps: int, dev) -> float:
     """K3's ms a sample at ``settings.samples_per_step`` samples a launch."""
     from ..ops.megastep import render_megastep
     from ..utils.devtime import time_per_call
@@ -96,24 +107,24 @@ def k3_ms(scene, settings, model, cols, rows, cfg, env_skip: bool, reps: int, de
     i = iter(range(1 << 30))
     fn = lambda: render_megastep(  # noqa: E731
         scene, settings, model, cols, rows, (next(i), 3), width=cfg.width, height=cfg.height,
-        max_path_length=cfg.max_path_length, aa_noise_type=cfg.aa_noise_type, env_skip=env_skip)
+        max_path_length=cfg.max_path_length, aa_noise_type=cfg.aa_noise_type)
     return time_per_call(fn, reps, dev) / settings.samples_per_step * 1e3
 
 
 def run(args) -> dict:
     from ..models.nif import make_params, make_synthetic_nif
-    from ..ops.megastep import env_skip_tile
+    from ..ops.megastep import chain_tile
     from ..render.params import RenderSettings, StaticConfig
 
     dev = _study.device_of(args.device, "envskip_bench")
     smi = _study.card(dev)
     weights, meta = make_synthetic_nif(0)  # the canonical 6x320 arch
     model = make_params(weights, meta, torch.bfloat16, dev)
-    tile = env_skip_tile(model)
+    tile = chain_tile(model)
     cfg = StaticConfig(width=args.width, height=args.height)
     settings = RenderSettings.make(samples_per_step=args.spp)
     out = {"shape": f"{args.width}x{args.height}", "spp": args.spp, "block": BLOCK,
-           "skip_tile": tile, "samples": args.samples, "scenes": {}, "device": smi}
+           "chain_tile": tile, "samples": args.samples, "scenes": {}, "device": smi}
     for name in SCENES:
         scene = load(name, dev)
         wl, _ = _study.coherent_worklist(scene, args.width, args.height)
@@ -122,12 +133,10 @@ def run(args) -> dict:
         esc, dead = escape_stats(scene, settings, cfg, cols, rows, _study.base(args.seed, 42),
                                  args.samples, (BLOCK, tile))
         row = {"escape_fraction": round(esc, 4), "dead_block_fraction": round(dead[BLOCK], 4),
-               "dead_block_fraction_skip_tile": round(dead[tile], 4)}
+               "dead_block_fraction_chain_tile": round(dead[tile], 4)}
         if not args.stats_only:
-            on = k3_ms(scene, settings, model, cols, rows, cfg, True, args.reps, dev)
-            off = k3_ms(scene, settings, model, cols, rows, cfg, False, args.reps, dev)
-            row.update(ms_per_sample_skip_on=round(on, 4), ms_per_sample_skip_off=round(off, 4),
-                       speedup=round(off / on, 4))
+            row["k3_ms_per_sample"] = round(
+                k3_ms(scene, settings, model, cols, rows, cfg, args.reps, dev), 4)
         out["scenes"][name] = row
         print(f"{name}: {json.dumps(row)}", flush=True)
     return out

@@ -8,16 +8,14 @@ K2 on one Philox sample's escapes of the default scene at 1104x1000 and
 on 65,573 numpy-seeded escapes (a ragged last tile); K4 on the 1104x1000
 (u, v) lattice, one bake chunk of 10 rows of 4096 and 65,573 numpy-seeded
 points; K3 at 1104x1000 (Philox, 8 samples) and at a ragged 65,317 lanes
-with budgets 0/1/8, the statistics and the env-skip.  Each kernel is held
+with budgets 0/1/8 and the statistics.  Each kernel is held
 to the reference's f32 rule against its plain f32 version (TF32 off in
 PyTorch): rel = |out - ref| / (|ref| + 1e-2 max|ref|), max < 1.5e-2
 (tests/test_nif_pallas.py); K3 also keeps its flipped-lane fraction
 (path lengths that differ) under 5e-3 and is measured on the other lanes.
 The bf16 kernel on the same inputs (the asset in bf16) is measured against
 the same plain f32 chain; the tf32 route must be closer in median and in
-max, or it would not be the reference's f32 mode.  K3's env-skip on the
-f32 chain's 64-ray tile must change nothing, on the default scene and on
-the enclosed one (exact zeros only).
+max, or it would not be the reference's f32 mode.
 
 Then each tf32 kernel is timed (CUDA events) beside its bf16 twin, its
 plain f32 version and the library chain of the same products (cuBLAS f32
@@ -101,7 +99,6 @@ def run(dev: torch.device) -> dict:
     """The checks and times above on ``dev``; the launches of the tf32
     kernels are counted by the wrappers as ever."""
     from ..core.scene import default_scene
-    from ..core.scenefile import scene_from_dict
     from ..models.nif import load_nif_assets
     from ..ops import megastep, nif, trace
     from ..render.params import RenderSettings
@@ -114,11 +111,6 @@ def run(dev: torch.device) -> dict:
         f32 = load_nif_assets(str(ASSET), torch.float32, dev)[0]
         bf16 = load_nif_assets(str(ASSET), torch.bfloat16, dev)[0]
         scene = default_scene(dev)
-        enclosed = scene_from_dict({"objects": [
-            {"type": "sphere", "center": [0.0, 0.0, 0.0], "radius": 50.0,
-             "colour": [0.5, 0.5, 0.5], "material": "diffuse", "emission": [0.2, 0.2, 0.2]},
-            {"type": "sphere", "center": [0.0, -0.5, -3.0], "radius": 0.5,
-             "colour": [0.8, 0.3, 0.3], "material": "specular"}]}, dev)
         gen = np.random.default_rng(2026)
         settings = RenderSettings.make(samples_per_step=SAMPLES)
         kw = dict(width=WIDTH, height=HEIGHT, max_path_length=MAX_PATH)
@@ -154,14 +146,14 @@ def run(dev: torch.device) -> dict:
                           (f"ragged {RAGGED_N}", ru, rv)):
             checks.append(_check(f"K4 tf32 {tag}", nif.nif_apply_t(f32, u, v),
                                  nif.nif_apply_t(bf16, u, v), nif.nif_apply_t_plain(f32, u, v)))
-        # K3: the full frame, Philox; then ragged with budgets 0/1/8, the
-        # statistics and the env-skip.
+        # K3: the full frame, Philox; then ragged with budgets 0/1/8 and the
+        # statistics.
         n = RAGGED_K3
         budgets = torch.from_numpy(gen.choice([0, 1, 8], -(-n // megastep.BUDGET_BLOCK))
                                    .astype(np.int32)).to(dev)
-        ragged = dict(budgets=budgets, with_stats=True, env_skip=True)
+        ragged = dict(budgets=budgets, with_stats=True)
         for tag, c, r, extra in ((f"philox {WIDTH}x{HEIGHT} {SAMPLES} samples", cols, rows, {}),
-                                 (f"ragged {n} budgets 0/1/8+stats+env-skip",
+                                 (f"ragged {n} budgets 0/1/8+stats",
                                   cols[:n].contiguous(), rows[:n].contiguous(), ragged)):
             got, twin, ref = (megastep.render_megastep(scene, settings, m, c, r, SEED, **extra,
                                                        **kw)
@@ -178,16 +170,6 @@ def run(dev: torch.device) -> dict:
                 row["ok"] = row["ok"] and lum["ok"]
                 row["lum2_tf32_max"], row["lum2_bf16_max"] = lum["tf32_max"], lum["bf16_max"]
             checks.append(row)
-        # The env-skip on the 64-ray tile: exact, on both scenes.
-        ecols, erows = grid(enclosed)
-        for tag, sc, c, r in (("default scene", scene, cols, rows),
-                              ("enclosed scene", enclosed, ecols, erows)):
-            on, off = (megastep.render_megastep(sc, settings, f32, c, r, SEED, env_skip=skip,
-                                                with_stats=True, **kw) for skip in (True, False))
-            same = all(torch.equal(a.stack() if hasattr(a, "stack") else a,
-                                   b.stack() if hasattr(b, "stack") else b)
-                       for a, b in zip(on, off))
-            checks.append({"name": f"K3 tf32 env-skip on = off, {tag}", "ok": same})
 
         # Times per unit of the main path: a 1104x1000 sample (K2, K3), a
         # bake chunk (K4); the library chains on the f32 and bf16 weights.

@@ -9,8 +9,8 @@ of three chunks in the bf16 and int8 chains (csrc/nif_wgmma.cuh
 each).  On a 6x384 net from ``models/nif.make_synthetic_nif`` (seeded;
 the int8 twin quantised on the default lattice, the f32 one the same
 weights in f32): K3 bf16, int8 and tf32 at a ragged 65,317 lanes (the last
-CUDA block's rays end mid-tile) with budgets 0/1/8, the statistics and
-the env-skip; K2 and K4 bf16, int8 and tf32 at a ragged 65,573 lanes.
+CUDA block's rays end mid-tile) with budgets 0/1/8 and the statistics;
+K2 and K4 bf16, int8 and tf32 at a ragged 65,573 lanes.
 Each is held to the port's budgets: int8 bit for bit; bf16 the NIF budget
 (median 5e-3, max 8e-2; K3 with the chain's rounding tail: at most one
 lane in 10^4 past 8e-2, none past 0.25, and the flipped path lengths
@@ -117,7 +117,7 @@ def checks(dev: torch.device) -> list[dict]:
                                .astype(np.int32)).to(dev)
     settings = RenderSettings.make(samples_per_step=SAMPLES)
     kw = dict(width=WIDTH, height=HEIGHT, max_path_length=MAX_PATH, budgets=budgets,
-              with_stats=True, env_skip=True)
+              with_stats=True)
     esc_dir, esc_w = _escapes(gen, RAGGED_N, dev)
     u, v = torch.from_numpy(gen.uniform(0.0, 1.0, (2, RAGGED_N)).astype(np.float32)).to(dev)
     out = []
@@ -137,7 +137,7 @@ def checks(dev: torch.device) -> list[dict]:
                 got = megastep.render_megastep(scene, settings, m, c3, r3, SEED, **kw)
                 ref = megastep.render_megastep_plain(scene, settings, m, c3, r3, SEED, **kw)
                 flipped = got.path_len != ref.path_len
-                name = f"K3 {tag} ragged {n} budgets 0/1/8+stats+env-skip"
+                name = f"K3 {tag} ragged {n} budgets 0/1/8+stats"
                 row = compare(name, ch, got.radiance.stack(), ref.radiance.stack(), flipped,
                               tail=True)
                 lum = compare(name, ch, got.lum2.sqrt()[None], ref.lum2.sqrt()[None], flipped,

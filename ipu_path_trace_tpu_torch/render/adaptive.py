@@ -127,7 +127,7 @@ def adaptive_render_step(scene, settings: RenderSettings, cfg: StaticConfig, wor
         scene, settings, env.model, work.u.to(torch.float32), work.v.to(torch.float32), seed,
         noise=noise, width=cfg.width, height=cfg.height, max_path_length=cfg.max_path_length,
         aa_noise_type=cfg.aa_noise_type, budgets=budgets, budget_block=block_size,
-        with_stats=True, env_skip=cfg.env_skip, **kw)
+        with_stats=True, **kw)
     new_work = WorkBatch(
         u=work.u, v=work.v,
         r=work.r + out.radiance.x, g=work.g + out.radiance.y, b=work.b + out.radiance.z,

@@ -27,7 +27,6 @@ class StaticConfig(NamedTuple):
     megastep_stub: str = ""  # "nif" | "trace" | "both": the megastep's measurement stubs
     adaptive_min: int = 8  # adaptive sampling: per-block budget floor (render/adaptive.py)
     adaptive_max_factor: float = 16.0  # budget cap = factor * samples_per_step
-    env_skip: bool = False  # the reference's dead-tile skip; K3's queue shades escapes alone
     sampler: str = "prng"  # "prng" (Philox) or "sobol" (render/qmc.py prefix)
     sobol_dims: int = 12  # leading dims on the Sobol sequence (camera 4 + 4 per bounce)
 

@@ -230,32 +230,6 @@ def step_noise(gen: torch.Generator, n: int, cfg: StaticConfig, samples: int,
     return torch.stack([sample_noise(gen, n, cfg, device, qmc_ctx, s) for s in range(samples)])
 
 
-def dead_block_fraction(scene: Scene, settings: RenderSettings, cfg: StaticConfig, cols, rows,
-                        seed: tuple[int, int], n_samples: int, block_size: int) -> float:
-    """Fraction of ``block_size``-lane blocks of the worklist whose escape
-    weights are all zero, averaged over ``n_samples`` Philox samples: the
-    criterion of the megastep's env-skip guard, at its granularity for
-    the model's chain (ops/megastep.env_skip_tile: its wgmma tile, 128
-    rays for bf16 and int8 and 64 for f32, which tiles the worklist from
-    lane 0).  The trace is
-    ops/trace.trace_sample: the kernel on CUDA (which equals its plain
-    version bit for bit), the plain version on the CPU.  The ragged tail counts as escaping
-    nothing, as the kernel's masked lanes do."""
-    from ..ops.trace import trace_sample
-
-    n = cols.shape[0]
-    nblk = -(-n // block_size)
-    total = 0.0
-    for s in range(n_samples):
-        st = trace_sample(scene, settings, cols, rows, seed, sample_index=s,
-                          width=cfg.width, height=cfg.height,
-                          max_path_length=cfg.max_path_length, aa_noise_type=cfg.aa_noise_type)
-        escapes = (st.esc_w.stack() != 0.0).any(dim=0)
-        escapes = torch.nn.functional.pad(escapes, (0, nblk * block_size - n))
-        total += float((~escapes.reshape(nblk, block_size).any(dim=1)).float().mean())
-    return total / max(1, n_samples)
-
-
 def _check_ported(cfg: StaticConfig) -> None:
     """Refuse the reference's XLA-path switches, as the CLI does: the port
     always runs its kernels, and takes explicit host noise (``noise=``) in
@@ -307,7 +281,7 @@ def render_step(scene: Scene, settings: RenderSettings, cfg: StaticConfig, work:
         kw.update(_kernel_sobol(cfg, ctx))
     if cfg.use_fused_step and isinstance(env, NifEnv):
         out = render_megastep(scene, settings, env.model, cols, rows, seed, noise=noise,
-                              env_skip=cfg.env_skip, stub=cfg.megastep_stub or None, **kw)
+                              stub=cfg.megastep_stub or None, **kw)
         rad, plen = out.radiance, out.path_len
     else:
         rad = Vec3.zeros((n,), device=cols.device)

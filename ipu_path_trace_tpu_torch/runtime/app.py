@@ -1,9 +1,8 @@
 """The progressive render loop, headless or under the remote UI.
 
 Counterpart of ``ipu_path_trace_tpu/runtime/app.py``: build the worklist
-(coherent, raster, or the load balancer's shuffle), resolve
-``--env-skip``, then per step run ``render_step`` (or
-``adaptive_render_step``) on the device while a host task
+(coherent, raster, or the load balancer's shuffle), then per step run
+``render_step`` (or ``adaptive_render_step``) on the device while a host task
 (runtime/async_task.py) post-processes the step before.
 
 With ``--ipus N`` (N > 1) or a ``--mesh-shape`` the step is sharded over
@@ -99,12 +98,11 @@ from ..film.imageio import load_hdr_image, save_images
 from ..models.envlight import ConstantEnv, NifEnv, TextureEnv, bake_nif_env
 from ..models.nif import analyse_nif, load_nif_assets
 from ..models.quant import quantize_nif
-from ..ops.megastep import env_skip_tile
 from ..parallel.mesh import (Replicated, Sharded, gather_work, make_mesh, replicate, shard_array,
                              shard_work, sharded_adaptive_render_step, sharded_render_step)
 from ..render.adaptive import adaptive_render_step
 from ..render.params import RenderSettings, StaticConfig
-from ..render.wavefront import dead_block_fraction, render_step
+from ..render.wavefront import render_step
 from ..utils.devtime import log_phase_split, measure_phases
 from ..utils.introspect import log_tensor_info
 from ..utils.tracing import TraceChannel
@@ -205,12 +203,6 @@ def parse_env_assets(assets: str, device: torch.device, nif_precision: str = "au
 
 
 class PathTracerApp:
-    # Auto --env-skip: turn the skip on when at least this fraction of the
-    # megastep's NIF sub-tiles have no escape, measured over this many
-    # samples (the reference's breakeven rule and threshold).
-    AUTO_ENV_SKIP_THRESHOLD = 0.02
-    AUTO_ENV_SKIP_PROBE_SAMPLES = 2
-
     def __init__(self, config: Config):
         self.cfg = config
         self.device = resolve_device(config.device)
@@ -229,7 +221,6 @@ class PathTracerApp:
         self.balancer: LoadBalancer | None = None
         self.worklist: np.ndarray | None = None  # the initial layout
         self.total_spp = 0
-        self.env_skip = config.env_skip == "on"
         self.trace = TraceChannel("tpu_path_tracer")
         self.stop_requested = False  # set by the CLI's signal handler
         # The loop's state shared with the host task; the main thread reads
@@ -334,36 +325,6 @@ class PathTracerApp:
                              "budget controller lives in the fused megastep")
         log_tensor_info("scene", self.scene)
         log_tensor_info("env", self.env)
-        with self.trace.span("resolve_env_skip"):
-            self.env_skip = self.resolve_env_skip()
-
-    def resolve_env_skip(self) -> bool:
-        """--env-skip as the megastep's flag.  "auto" traces
-        AUTO_ENV_SKIP_PROBE_SAMPLES Philox samples over the real ordered
-        worklist (K1 on CUDA, its plain version on the CPU), measures the
-        fraction of NIF tiles with no escape - the skip guard's own
-        criterion, at the tile of the model's chain (the 128-ray wgmma
-        tile of bf16 and int8, the f32 chain's 64) - and turns the skip on at
-        AUTO_ENV_SKIP_THRESHOLD.  No
-        probe runs when the fused NIF megastep, the only kernel with the
-        skip, will not."""
-        cfg = self.cfg
-        if cfg.env_skip != "auto":
-            return cfg.env_skip == "on"
-        if not (cfg.use_fused_step and isinstance(self.env, NifEnv)):
-            return False
-        cols = torch.from_numpy(self.worklist["u"].astype(np.float32)).to(self.device)
-        rows = torch.from_numpy(self.worklist["v"].astype(np.float32)).to(self.device)
-        tile = env_skip_tile(self.env.model)  # the skip's tile in the model's chain
-        t0 = time.monotonic()
-        frac = dead_block_fraction(self.scene, self.settings(), self.static_config(), cols, rows,
-                                   step_seed(torch.Generator().manual_seed(cfg.seed)),
-                                   self.AUTO_ENV_SKIP_PROBE_SAMPLES, tile)
-        skip = frac >= self.AUTO_ENV_SKIP_THRESHOLD
-        log.info("--env-skip auto: dead-block fraction %.4f at block %d (threshold %.3f, "
-                 "probe %.1fs) -> %s", frac, tile, self.AUTO_ENV_SKIP_THRESHOLD,
-                 time.monotonic() - t0, "on" if skip else "off")
-        return skip
 
     def local_samples(self, samples_per_step: int) -> int:
         """Each sample replica's share of a step's samples on a mesh."""
@@ -399,7 +360,7 @@ class PathTracerApp:
                             use_fused_step=cfg.use_fused_step,
                             adaptive_min=cfg.adaptive_min,
                             adaptive_max_factor=cfg.adaptive_max_factor,
-                            env_skip=self.env_skip, sampler=cfg.sampler,
+                            sampler=cfg.sampler,
                             sobol_dims=cfg.sobol_dims)
 
     def _sync(self) -> None:

@@ -98,11 +98,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--env-skip", nargs="?", const="on", default="auto",
                    choices=("auto", "on", "off"),
                    help="The reference's skip of the NIF env-light chain for kernel "
-                        "sub-tiles whose paths all died without escaping. The fused "
-                        "megastep shades escapes alone (its escape queue), so the flag "
-                        "changes neither the result nor the work. 'auto' (default) probes "
-                        "the scene's dead sub-tile fraction at build time; a bare "
-                        "--env-skip forces it on, '--env-skip off' forces it off.")
+                        "sub-tiles whose paths all died without escaping. Accepted and "
+                        "without effect: the fused megastep shades escaping rays only "
+                        "(its escape queue), so every setting renders the same image "
+                        "with the same work.")
     p.add_argument("--scene", default="",
                    help="JSON scene description (spheres/discs with colour, emission, "
                         "material); default: the reference's built-in scene. See "

@@ -42,11 +42,9 @@ class Config:
     # by path length (runtime/worklist.py LoadBalancer).  Host film only.
     enable_load_balancing: bool = False
     # Dead-block env-skip: the reference's megastep skips the NIF chain for
-    # sub-tiles whose escape weights are all zero (exact); K3 shades escapes
-    # alone (csrc/megastep.cuh's queue), so the flag changes nothing there.
-    # "auto" measures the fraction of such sub-tiles with a two-sample probe
-    # over the real worklist and turns the skip on at >= 2% (runtime/app.py
-    # PathTracerApp.resolve_env_skip); "on"/"off" force it.
+    # sub-tiles whose escape weights are all zero (exact).  K3 shades
+    # escaping rays only (csrc/megastep.cuh's queue), so every value renders
+    # the same; the option is parsed, validated and fingerprinted alone.
     env_skip: str = "auto"
     # The NIF's weight type, as the reference's --partials-type: "half" bf16
     # (the bf16 chain), "float" f32 (the f32 chain, tf32 wgmma on the card).

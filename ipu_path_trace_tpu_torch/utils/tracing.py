@@ -7,15 +7,11 @@ PVTI tracepoints).  Each span also opens a
 spans appear in a profiler trace beside the kernels they enqueue, on
 Kineto's clock.  Without an active profiler that is a no-op.
 
-A channel always keeps each span name's (count, total seconds)
-(``report``).  Tracing is on while a torch profiler records in the
-process (``profiling``: the app's ``--profile-dir``, whose profiler
-records every thread, or an embedding program's profiler).  Then
-the channel also keeps every span (``kept``: name, start, end, appended
-as it closes, so spans of several threads do not clash) and one clock
-anchor per traced loop: a zero-length ``<channel>/clock_anchor`` range
-with the channel's clock (``time.perf_counter``) read at the same instant
-(``anchor``), which maps every kept time onto the profiler trace.
+A channel keeps each span name's (count, total seconds) (``report``).
+Tracing is on while a torch profiler records in the process
+(``profiling``: the app's ``--profile-dir``, whose profiler records every
+thread, or an embedding program's profiler); a span's own times are its
+range in the profiler's trace.
 
 ``TraceChannel.loop()`` makes a channel current for a render loop
 (``runtime/app.py::execute``); module code opens spans on it with the
@@ -51,13 +47,6 @@ from .logging import TRACE, logger
 # warp's most bounces, a warp and a sample) and the bounce iterations its
 # lanes ran.
 STAMP_WORDS = 9
-ANCHOR = "clock_anchor"
-
-
-class SpanRecord(NamedTuple):
-    name: str
-    t0: float  # time.perf_counter() seconds
-    t1: float
 
 
 class LaunchRecord(NamedTuple):
@@ -162,27 +151,23 @@ def keep_launch(stamps: torch.Tensor, tile_rays: int) -> None:
 
 class TraceChannel:
     """A named channel of spans: (count, total seconds) per span name,
-    and while tracing is on the spans themselves (module docstring)."""
+    and while tracing is on a profiler range per span (module docstring)."""
 
     def __init__(self, name: str):
         self.name = name
         self.spans: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])
-        self.kept: list[SpanRecord] = []
-        self.anchor: float | None = None  # perf_counter at the clock_anchor range
         self.step = 0  # set by the loop before each step (for K3's records)
         self._pending: list[tuple[int, int, int, torch.Tensor, int]] = []
 
     @contextlib.contextmanager
     def span(self, span_name: str):
         # The clock is read just inside the profiler range and the
-        # bookkeeping done outside it, so a kept span and its range (and
-        # the anchor and its range) differ by the range's entry and exit.
-        # Without any profiler in the process the range records nothing
-        # (and costs more than the rest of the span), so none is opened.
-        keep = profiling()
+        # bookkeeping done outside it.  Without any profiler in the process
+        # the range records nothing (and costs more than the rest of the
+        # span), so none is opened.
         t0 = t1 = 0.0
         try:
-            with (torch.profiler.record_function(f"{self.name}/{span_name}") if keep
+            with (torch.profiler.record_function(f"{self.name}/{span_name}") if profiling()
                   else contextlib.nullcontext()):
                 t0 = time.perf_counter()
                 try:
@@ -194,8 +179,6 @@ class TraceChannel:
             acc = self.spans[span_name]
             acc[0] += 1
             acc[1] += dt
-            if keep:  # one append: atomic between threads
-                self.kept.append(SpanRecord(span_name, t0, t1))
             logger().log(TRACE, "span %s/%s: %.3fms", self.name, span_name, dt * 1e3)
 
     def report(self) -> dict[str, dict]:
@@ -213,15 +196,11 @@ class TraceChannel:
     def loop(self):
         """Make this the current channel for a render loop, and the
         previous one again on exit.  A traced loop (a profiler recording
-        at its start) starts with nothing kept and sets its clock anchor.
-        On exit the K3 buffers are copied and reduced to
-        ``LaunchRecord``s."""
+        at its start) clears the last traced loop's K3 records.  On exit
+        the K3 buffers are copied and reduced to ``LaunchRecord``s."""
         global _current
         if profiling():
-            self.kept.clear()
             _launches.clear()
-            with torch.profiler.record_function(f"{self.name}/{ANCHOR}"):
-                self.anchor = time.perf_counter()
         self.step = 0
         prev, _current = _current, self
         try:

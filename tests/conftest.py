@@ -193,7 +193,7 @@ QUICK_TESTS = {
     # observability
     ("test_observability.py", "test_metrics_file_jsonl"),
     # the port's tracing: kept spans, K3's launch records, the benchmark's readers
-    ("test_torch_tracing.py", "test_kept_spans_nest_and_share_the_step"),
+    ("test_torch_tracing.py", "test_spans_nest_in_the_profiler_trace"),
     ("test_torch_tracing.py", "test_launch_record_waves_and_fill"),
     ("test_torch_trace_metrics.py", "test_idle_and_controller_readers"),
     # K3's dispatch of an adaptive launch, heaviest budget first

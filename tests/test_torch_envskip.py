@@ -1,32 +1,33 @@
-"""The dead-block env-skip in the port (the megastep's ``env_skip``, the
-auto probe ``render/wavefront.dead_block_fraction`` and
-``runtime/app.PathTracerApp.resolve_env_skip``) and the ``--scene``
-loader (core/scenefile.py), against the JAX package.
+"""The reference's dead-block env-skip in the port, and the ``--scene``
+loader (core/scenefile.py) against the JAX package.
 
-As tests/test_megastep.py::test_megastep_env_skip_exact: on the enclosed
-scene (the camera inside an emissive diffuse shell: nothing escapes) the
-skip must be bit-exact, on the open default scene within 1e-6.  The
-scene loader must build the reference's arrays from the same JSON.
+K3 shades escaping rays only (its escape queue), so the port has no skip
+to switch: ``--env-skip`` auto, on and off parse, run no probe and render
+the film a run without the flag renders, on the enclosed scene (the
+camera inside an emissive diffuse shell: nothing escapes) and on the open
+default scene.  The env-skip study's dead-block fraction
+(probes/envskip_bench.py) counts the (block, sample) pairs with no
+escape.  The scene loader must build the reference's arrays from the
+same JSON.
 """
 
+import dataclasses
 import json
 import logging
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from ipu_path_trace_tpu.core.scenefile import scene_from_dict as jscene_from_dict
-from ipu_path_trace_tpu.models.nif import make_params, make_synthetic_nif
 from ipu_path_trace_tpu_torch.core.records import to_device_batch
 from ipu_path_trace_tpu_torch.core.scene import default_scene
 from ipu_path_trace_tpu_torch.core.scenefile import load_scene, scene_from_dict
-from ipu_path_trace_tpu_torch.models.nif import params_from_jax
-from ipu_path_trace_tpu_torch.ops import megastep, trace
+from ipu_path_trace_tpu_torch.ops import nif, trace
+from ipu_path_trace_tpu_torch.probes.envskip_bench import dead_block_fraction
 from ipu_path_trace_tpu_torch.render.params import RenderSettings, StaticConfig
-from ipu_path_trace_tpu_torch.render.wavefront import dead_block_fraction
 from ipu_path_trace_tpu_torch.runtime import cli
+from ipu_path_trace_tpu_torch.runtime.checkpoint import load_checkpoint
 from ipu_path_trace_tpu_torch.runtime.worklist import coherent_order, create_tracing_jobs
 
 W, H = 24, 16
@@ -69,35 +70,10 @@ def test_load_scene_rejects_bad_files(tmp_path, text, match):
         load_scene(str(tmp_path / "missing.json"))
 
 
-def _model():
-    weights, meta = make_synthetic_nif(key=5, hidden=32, num_hidden=2, skip_layer=1)
-    return params_from_jax(make_params(weights, meta, jnp.bfloat16))
-
-
 def _grid(scene):
     wl = coherent_order(create_tracing_jobs(W, H), scene, W, H, 90.0)
     work = to_device_batch(wl, "cpu")
     return work.u.float(), work.v.float()
-
-
-@pytest.mark.parametrize("scene_name,atol", [("enclosed", 0.0), ("default", 1e-6)])
-@pytest.mark.parametrize("mode", ["host", "philox"])
-def test_env_skip_matches_no_skip(scene_name, atol, mode):
-    scene = scene_from_dict(ENCLOSED) if scene_name == "enclosed" else default_scene()
-    cols, rows = _grid(scene)
-    rng = np.random.default_rng(21)
-    noise = rng.uniform(0.0, 1.0, (3, 4 + 4 * MAXLEN, cols.shape[0])).astype(np.float32)
-    noise[:, 0:2] = rng.normal(size=(3, 2, cols.shape[0]))
-    args = dict(noise=torch.from_numpy(noise)) if mode == "host" else dict(seed=(4, 5))
-    outs = [megastep.render_megastep(scene, RenderSettings.make(samples_per_step=3), _model(),
-                                     cols, rows, width=W, height=H, max_path_length=MAXLEN,
-                                     env_skip=skip, with_stats=True, **args)
-            for skip in (False, True)]
-    assert torch.equal(outs[0].path_len, outs[1].path_len)
-    for a, b in ((outs[0].radiance.stack(), outs[1].radiance.stack()),
-                 (outs[0].lum2, outs[1].lum2)):
-        torch.testing.assert_close(a, b, rtol=atol, atol=atol)
-    assert float(outs[1].radiance.stack().max()) > 0
 
 
 def test_nothing_escapes_the_enclosed_scene():
@@ -109,10 +85,10 @@ def test_nothing_escapes_the_enclosed_scene():
     assert float(st.radiance.stack().sum()) > 0
 
 
-@pytest.mark.parametrize("block", [64, megastep.ENV_SKIP_TILE, 256])
+@pytest.mark.parametrize("block", [64, nif.WG_RAYS, 256])
 def test_dead_block_fraction(block):
-    """1.0 where nothing escapes, below the auto threshold on the open
-    default scene (its sky is in every coherent block)."""
+    """1.0 where nothing escapes, under 2% on the open default scene (its
+    sky is in nearly every coherent block)."""
     cfg = StaticConfig(width=W, height=H, max_path_length=MAXLEN)
     settings = RenderSettings.make()
     enclosed = scene_from_dict(ENCLOSED)
@@ -136,27 +112,83 @@ def test_dead_block_fraction_counts_tiles():
                                64) == 0.5
 
 
-def _cli(tmp_path, *flags):
-    return cli.main(["-w", str(W), "-H", str(H), "-s", "2", "--samples-per-step", "2",
-                     "--max-path-length", str(MAXLEN), "--assets",
-                     "assets/urban_alley_synth_nif", "-o", str(tmp_path / "x.png"),
-                     "--device", "cpu", *flags])
-
-
-@pytest.mark.parametrize("scene,resolved", [("enclosed", "on"), ("default", "off")])
-def test_cli_env_skip_auto_resolves(tmp_path, caplog, scene, resolved):
-    flags = []
+def _cli_film(tmp_path, scene, *flags) -> np.ndarray:
+    """The exit checkpoint's film of a CLI render of ``scene`` at 24x16
+    with the alley NIF (2 samples, the fused megastep)."""
+    out = tmp_path / "_".join(("run", scene, *flags)).replace("-", "")
+    out.mkdir()
+    argv = ["-w", str(W), "-H", str(H), "-s", "2", "--samples-per-step", "2",
+            "--max-path-length", str(MAXLEN), "--assets", "assets/urban_alley_synth_nif",
+            "--device", "cpu", "--checkpoint", str(out / "state.npz"), *flags]
     if scene == "enclosed":
-        (tmp_path / "enclosed.json").write_text(json.dumps(ENCLOSED))
-        flags = ["--scene", str(tmp_path / "enclosed.json")]
-    with caplog.at_level(logging.INFO):
-        assert _cli(tmp_path, *flags) == 0
-    lines = [r.getMessage() for r in caplog.records if "--env-skip auto" in r.getMessage()]
-    assert len(lines) == 1 and lines[0].endswith(f"-> {resolved}"), lines
+        (out / "enclosed.json").write_text(json.dumps(ENCLOSED))
+        argv += ["--scene", str(out / "enclosed.json")]
+    argv += ["-o", str(out / "x.png")]
+    assert cli.main(argv) == 0
+    step, mode, state = load_checkpoint(str(out / "state.npz"), cli.parse_config(argv))
+    assert (step, mode) == (1, "hdr")
+    return state["hdr"]
 
 
-@pytest.mark.parametrize("flag", ["on", "off"])
-def test_cli_env_skip_forced_runs_no_probe(tmp_path, caplog, flag):
+_FLAGLESS: dict[str, np.ndarray] = {}  # each scene's film without the flag
+
+
+@pytest.mark.parametrize("flag", ["auto", "on", "off"])
+@pytest.mark.parametrize("scene", ["enclosed", "default"])
+def test_cli_env_skip_changes_nothing(tmp_path, caplog, monkeypatch, scene, flag):
+    """--env-skip auto, on and off parse, exit 0, trace no probe sample (no
+    K1 call, no probe line in the log) and render the flagless run's film."""
+    if scene not in _FLAGLESS:
+        _FLAGLESS[scene] = _cli_film(tmp_path, scene)
+    calls = []
+    k1 = trace.trace_sample
+    monkeypatch.setattr(trace, "trace_sample", lambda *a, **k: (calls.append(1), k1(*a, **k))[1])
     with caplog.at_level(logging.INFO):
-        assert _cli(tmp_path, "--env-skip", flag) == 0
-    assert not any("--env-skip auto" in r.getMessage() for r in caplog.records)
+        film = _cli_film(tmp_path, scene, "--env-skip", flag)
+    assert calls == []
+    assert not any("env-skip" in r.getMessage() or "dead-block" in r.getMessage()
+                   for r in caplog.records)
+    assert np.array_equal(film, _FLAGLESS[scene])
+    assert float(film.max()) > 0
+
+
+_ARGV = ["-w", "8", "-H", "8", "--device", "cpu", "--assets", "constant:0.5,0.5,0.5",
+         "-o", "x.png"]
+
+
+@pytest.mark.parametrize("flags,value", [([], "auto"), (["--env-skip"], "on"),
+                                         (["--env-skip", "off"], "off"),
+                                         (["--env-skip", "auto"], "auto")])
+def test_env_skip_option_parses(flags, value):
+    """The option stays for the command lines and traffic files that set it:
+    auto by default, a bare flag is on, and the value reaches Config."""
+    cfg = cli.parse_config([*_ARGV, *flags])
+    assert cfg.env_skip == value
+    cfg.validate()
+
+
+def test_env_skip_option_refuses_other_values(capsys):
+    with pytest.raises(SystemExit):
+        cli.parse_config([*_ARGV, "--env-skip", "maybe"])
+    assert "--env-skip" in capsys.readouterr().err
+    cfg = dataclasses.replace(cli.parse_config(_ARGV), env_skip="maybe")
+    with pytest.raises(ValueError, match="unknown --env-skip 'maybe'"):
+        cfg.validate()
+
+
+@pytest.mark.parametrize("where", ["StaticConfig", "render_step", "adaptive_render_step",
+                                   "render_megastep", "render_megastep_plain"])
+def test_the_step_takes_no_env_skip(where):
+    """No layer below the app carries the option: the step's configuration
+    and every function from the step down to K3."""
+    import inspect
+
+    from ipu_path_trace_tpu_torch.ops import megastep
+    from ipu_path_trace_tpu_torch.render import adaptive, wavefront
+
+    fn = {"StaticConfig": StaticConfig, "render_step": wavefront.render_step,
+          "adaptive_render_step": adaptive.adaptive_render_step,
+          "render_megastep": megastep.render_megastep,
+          "render_megastep_plain": megastep.render_megastep_plain}[where]
+    names = StaticConfig._fields if fn is StaticConfig else inspect.signature(fn).parameters
+    assert "env_skip" not in names and len(names) > 3

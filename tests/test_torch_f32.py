@@ -161,7 +161,7 @@ def test_canonical_f32_plan_bytes():
     assert sum((lay["in_atoms"] + lay["f_atoms"]) * lay["slice_bytes"]
                for lay in plan["layers"]) == 2_222_080
     assert megastep.megastep_wg_plan(model, default_scene())["smem_bytes"] == 232_224
-    assert megastep.env_skip_tile(model) == 64
+    assert megastep.chain_tile(model) == 64
     assert nif_ops.wgmma_lo_slices(model) == [None] * 7
     net = nif_ops.wg_struct(model)
     assert (net.tf32, net.int8) == (1, 0) and not any(net.w_lo[:7])

@@ -51,7 +51,7 @@ def _launch(dev, plain=False, **kw):
 
 @pytest.mark.card
 def test_k3_on_the_cornell_box_matches_plain(cuda):
-    got = _launch(cuda, env_skip=True)
+    got = _launch(cuda)
     ref = _launch(cuda, plain=True)
     assert torch.equal(got.path_len, ref.path_len)
     assert int(ref.path_len.max()) > 3 * SPP  # deep paths ran
@@ -72,10 +72,10 @@ def test_k3_trace_counters_on_the_cornell_box(cuda, monkeypatch):
     keep = tracing.keep_launch
     monkeypatch.setattr(tracing, "keep_launch",
                         lambda stamps, tile_rays: (kept.append(stamps), keep(stamps, tile_rays)))
-    untraced = _launch(cuda, env_skip=True)
+    untraced = _launch(cuda)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts), TraceChannel("t").loop():
-        traced = _launch(cuda, env_skip=True)
+        traced = _launch(cuda)
         torch.cuda.synchronize()
     for x, y in ((untraced.radiance.stack(), traced.radiance.stack()),
                  (untraced.path_len, traced.path_len)):

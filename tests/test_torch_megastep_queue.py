@@ -11,7 +11,7 @@ statistics: the kernel against its plain version, path lengths bit for
 bit, radiance and sqrt(lum2) within chip_smoke.py's limits for the chain
 (bf16: the NIF budget; int8: every sample bit for bit, so the sums within
 their reordering's rounding; tf32: the reference's f32 budget); traced and
-untraced launches, and the env-skip on and off, bit-identical; and each
+untraced launches, and two untraced launches, bit-identical; and each
 block's record showing ceil(escapes / tile rays) tiles shaded.
 """
 
@@ -106,13 +106,13 @@ def test_queue_matches_plain(cuda, monkeypatch, scene_name, chain, budgeted):
     monkeypatch.setattr(tracing, "keep_launch",
                         lambda stamps, tile_rays: (kept.append(stamps), keep(stamps, tile_rays)))
     got = launch()
-    skip_on = launch(env_skip=True)
+    again = launch()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts), TraceChannel("t").loop():
         traced = launch()
         torch.cuda.synchronize()
     ref = launch(plain=True)
-    for other in (skip_on, traced):
+    for other in (again, traced):
         assert all(torch.equal(x, y) for x, y in zip(_stacks(got), _stacks(other)))
     assert torch.equal(got.path_len, ref.path_len)
     assert _close(chain, got.radiance.stack(), ref.radiance.stack(), samples)
@@ -120,7 +120,7 @@ def test_queue_matches_plain(cuda, monkeypatch, scene_name, chain, budgeted):
         assert _close(chain, got.lum2.sqrt()[None], ref.lum2.sqrt()[None], samples)
     (rec,) = tracing.launch_records()
     s = kept[0].cpu()
-    tile = megastep.env_skip_tile(model)
+    tile = megastep.chain_tile(model)
     assert rec.written == rec.blocks == -(-W * H // megastep.RAYS_PER_CUDA_BLOCK)
     assert torch.equal(s[:, 5], -(-s[:, 4] // tile))  # tiles = ceil(escapes / tile rays)
     assert int(s[:, 4].sum()) > 0

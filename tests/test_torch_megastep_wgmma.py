@@ -15,19 +15,17 @@ the kernel is given and what its geometry computes:
     block's 256 rays two 128-ray wgmma tiles;
   * the chain selector: a bf16 model's NifWg and an int8 model's NifWg,
     each with K3's plan; any other struct is refused;
-  * the env-skip tile (the queue's tile): 128 rays for both chains, as
-    the app's auto probe logs it;
+  * the chain's tile (the queue's tile): 128 rays for both chains;
   * the kernel's arithmetic from its operands - per 256-ray block its
     budget of samples, per sample the trace, the escapes of the block's
     samples queued and shaded 128 at a time through the chain of the
     swizzled slices (test_torch_nif_wgmma), the last tile partial -
     against the reference composition (tests/test_megastep.py::_xla_twin)
     with that test's tolerance, equal bit for bit to shading sample by
-    sample with the env-skip, in ceil(escapes / 128) tiles a block.
+    sample with the reference's dead-tile skip, in ceil(escapes / 128)
+    tiles a block, and none on the enclosed scene.
 """
 
-import json
-import logging
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -49,7 +47,6 @@ from ipu_path_trace_tpu_torch.ops import _lib, megastep, trace
 from ipu_path_trace_tpu_torch.ops import nif as nif_ops
 from ipu_path_trace_tpu_torch.ops.nif import equirect_from_dir
 from ipu_path_trace_tpu_torch.render.params import RenderSettings
-from ipu_path_trace_tpu_torch.runtime import cli
 
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
 # Every NIF asset in assets/ but the int8 one (its quant_amax.json).
@@ -137,7 +134,7 @@ def test_budget_and_tile_contract():
     assert megastep.BUDGET_BLOCK % megastep.RAYS_PER_CUDA_BLOCK == 0
     assert megastep.RAYS_PER_CUDA_BLOCK % nif_ops.WG_RAYS == 0
     assert megastep.RAYS_PER_CUDA_BLOCK == 2 * nif_ops.WG_RAYS == 256
-    assert megastep.RAYS_PER_CUDA_BLOCK % megastep.ENV_SKIP_TILE == 0
+    assert megastep.QUEUE_ENTRIES % nif_ops.WG_RAYS == 0  # the queue's slots are whole tiles
 
 
 @pytest.mark.parametrize("asset", BF16_ASSETS)
@@ -181,30 +178,14 @@ def test_f32_model_is_refused():
 
 @pytest.mark.parametrize("asset", BF16_ASSETS)
 def test_env_skip_tile_by_chain(asset):
-    """Both chains run K3's 128-ray wgmma tiles, so the env-skip tile (the
-    guard's granularity, at which the app's auto probe measures) is 128 for
+    """Both chains run K3's 128-ray wgmma tiles, so the chain's tile (the
+    escape queue's tile, which the K3 record counts in) is 128 for
     either."""
     model = _load(asset)
     _, meta, weights = nif.load_nif_assets(str(ASSETS / asset))
-    assert megastep.ENV_SKIP_TILE == nif_ops.WG_RAYS == 128
     for m in (model, quantize_nif(weights, meta)):
+        assert megastep.chain_tile(m) == nif_ops.WG_RAYS == 128
         assert megastep.kernel_net(m, default_scene()).num_layers == m.num_layers
-
-
-@pytest.mark.parametrize("asset, flags, tile", [
-    (CANONICAL, [], 128),
-    ("urban_alley_synth_nif_int8", ["--nif-precision", "int8"], 128),
-])
-def test_cli_probe_uses_the_chains_tile(tmp_path, caplog, asset, flags, tile):
-    """--env-skip auto measures at the tile of the model's kernel."""
-    (tmp_path / "enclosed.json").write_text(json.dumps(ENCLOSED))
-    with caplog.at_level(logging.INFO):
-        assert cli.main(["-w", "16", "-H", "16", "-s", "1", "--samples-per-step", "1",
-                         "--max-path-length", "3", "--assets", str(ASSETS / asset),
-                         "-o", str(tmp_path / "x.png"), "--device", "cpu",
-                         "--scene", str(tmp_path / "enclosed.json"), *flags]) == 0
-    lines = [r.getMessage() for r in caplog.records if "--env-skip auto" in r.getMessage()]
-    assert len(lines) == 1 and f"at block {tile} " in lines[0] and lines[0].endswith("-> on")
 
 
 def _k3_tiles(model, scene, settings, cols, rows, noise, budgets=None, budget_block=256,
@@ -216,8 +197,9 @@ def _k3_tiles(model, scene, settings, cols, rows, noise, budgets=None, budget_bl
     in sample and lane order and shaded 128 at a time through the chain of
     the swizzled slices, the last partial tile after the last sample, its
     rows past the queue at (u, v) = 0; without (the kernel before the
-    queue, its env-skip on): each sample's two 128-ray tiles, a tile
-    skipped where none of its rays is live or escapes.  Each sample's
+    queue): each sample's two 128-ray tiles, a tile
+    skipped where none of its rays is live or escapes (the reference's
+    dead-tile skip).  Each sample's
     radiance, direct + the bgr -> rgb env term times the escape weights,
     summed in sample order (the kernel adds a sample's direct and env
     terms apart, in another order).  (3, P), (P,) and the tiles each
@@ -288,7 +270,7 @@ def test_k3_tiles_match_the_reference(asset):
 @pytest.mark.parametrize("scene_name", ["default", "enclosed"])
 def test_k3_tiles_skip_and_budgets_exact(scene_name):
     """Budgets of 0, 1 and 3 in one launch, at a ragged 576 rays: the queue
-    equals shading sample by sample with the env-skip bit for bit (each
+    equals shading sample by sample with the dead-tile skip bit for bit (each
     sample's terms are the same rows of the same chain, summed in sample
     order), runs ceil(escapes / 128) tiles a block and fewer than before,
     budget 0 leaves zeros, and the result is the plain megastep's
@@ -322,3 +304,25 @@ def test_k3_tiles_skip_and_budgets_exact(scene_name):
     if scene_name == "enclosed":
         assert torch.equal(got, want)  # nothing escapes: the trace alone, bit for bit
         assert not on[2].any()
+
+
+@pytest.mark.parametrize("budgeted", [False, True], ids=["uniform", "budgets"])
+def test_k3_tiles_enclosed_shades_no_tile(budgeted):
+    """On the enclosed scene no ray escapes, so the queue holds nothing and
+    no block shades a tile, with budgets (0, 1 and 3) and without; the
+    result is the trace's alone, the plain megastep's bit for bit."""
+    _, _, _, params, cols, rows, noise = _setup()
+    model = nif.params_from_jax(params)
+    scene = SCENES["enclosed"]()
+    settings = RenderSettings.make(samples_per_step=SAMPLES)
+    cols, rows = torch.from_numpy(np.array(cols)), torch.from_numpy(np.array(rows))
+    noise = torch.from_numpy(noise)
+    kw = dict(budgets=torch.tensor([0, 1, 3], dtype=torch.int32), budget_block=256) \
+        if budgeted else {}
+    rad, plen, tiles = _k3_tiles(model, scene, settings, cols, rows, noise, **kw)
+    assert tiles.shape == (3,) and not tiles.any()
+    ref = megastep.render_megastep_plain(scene, settings, model, cols, rows, noise=noise,
+                                         width=W, height=H, max_path_length=MAXLEN, **kw)
+    assert torch.equal(rad, ref.radiance.stack()) and torch.equal(plen.to(torch.int32),
+                                                                   ref.path_len)
+    assert float(rad.max()) > 0

@@ -311,5 +311,26 @@ def test_launcher_signatures_match_the_sources():
                             if ast.unparse(e) == "wg"}
     assert set(declared) <= set(params) and {"pt_quant_probe", "pt_probe_loop"} <= set(declared)
     assert {k: params[k] for k in declared} == declared
-    assert ("pt_probe_loop", 0) in takes_wg and len(takes_wg) == 8
+    assert ("pt_probe_loop", 0) in takes_wg and len(takes_wg) == 7
     assert declared_wg == takes_wg
+
+
+def test_mega_args_match_the_header():
+    """K3's launch arguments cross the ABI as one struct: ops/_lib.py's
+    MegaArgs names csrc/megastep.cuh::MegaArgs's members in order, a
+    pointer as a pointer and an int as an int, at the C layout (ten
+    pointers, three ints padded to eight bytes, four pointers)."""
+    import re
+    from pathlib import Path
+
+    text = (Path(_lib.__file__).resolve().parent.parent / "csrc" / "megastep.cuh").read_text()
+    body = re.search(r"struct MegaArgs \{(.*?)\n\};", text, re.S)[1]
+    body = re.sub(r"//[^\n]*", "", body)
+    members = []  # (name, is a pointer); each declaration is all pointers or none
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        members += [(re.search(r"(\w+)$", d.strip())[1], "*" in decl) for d in decl.split(",")]
+    fields = [(n, t is ctypes.c_void_p) for n, t in _lib.MegaArgs._fields_]
+    assert fields == members and len(fields) == 17
+    assert {t for _, t in _lib.MegaArgs._fields_} == {ctypes.c_void_p, ctypes.c_int}
+    assert (_lib.MegaArgs.budget_block.offset, _lib.MegaArgs.rad.offset) == (80, 96)
+    assert ctypes.sizeof(_lib.MegaArgs) == 128

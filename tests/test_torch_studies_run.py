@@ -110,8 +110,8 @@ def test_envskip_bench_stats_cpu(tmp_path):
                "envskip_bench.json")
     want = _record("ENVSKIP.json")
     assert set(want) <= set(got) and set(got["scenes"]) == set(want["scenes"])
-    assert got["block"] == 2048 and got["skip_tile"] == 128
+    assert got["block"] == 2048 and got["chain_tile"] == 128
     enclosed = got["scenes"]["enclosed"]
     assert enclosed["escape_fraction"] == 0.0 and enclosed["dead_block_fraction"] == 1.0
-    assert enclosed["dead_block_fraction_skip_tile"] == 1.0
+    assert enclosed["dead_block_fraction_chain_tile"] == 1.0
     assert got["scenes"]["default"]["escape_fraction"] > 0.5

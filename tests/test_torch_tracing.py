@@ -2,12 +2,13 @@
 the controller and the mesh open on it, on the CPU; K3's per-block
 records on the card.
 
-On the CPU: kept spans nest in time, and two threads' spans under a
-profiler that records every thread are all kept; nothing is kept while
-no profiler records; the module-level ``span``
-does nothing without a current channel; a launch's record from
-synthetic stamps (waves, slots, fill, tail, the shares); kept spans map
-onto the profiler trace through the clock anchor; the ``--metrics-file``
+On the CPU: spans are counted and their profiler ranges nest in the
+trace, two threads' spans under a profiler that records every thread are
+all counted; nothing is traced while no profiler records; the
+module-level ``span`` does nothing without a current channel; a launch's
+record from synthetic stamps (waves, slots, fill, tail, the shares);
+each span opens its ``<channel>/<span>`` range in the exported profiler
+trace; the ``--metrics-file``
 summary counts the samples rendered and carries the spans; the
 benchmark's ``record_budgets`` wrapper still sees the controller once a
 step; the mesh's shard and reduction spans.
@@ -63,11 +64,20 @@ def _run(tmp_path, max_steps=None, stop_after=None, **kw) -> PathTracerApp:
     return app
 
 
-def test_kept_spans_nest_and_share_the_step():
-    """Each step's spans are kept as they close, an inner one inside its
-    outer one in time, and the anchor before them all."""
+def _ranges(prof, tmp_path, prefix="t/") -> list[dict]:
+    """The profiler's user ranges named ``prefix...``, in time order."""
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                   if e.get("cat") == "user_annotation" and e["name"].startswith(prefix)),
+                  key=lambda e: (e["ts"], -e["dur"]))  # an outer range first
+
+
+def test_spans_nest_in_the_profiler_trace(tmp_path):
+    """Each step's spans are counted, and their profiler ranges nest: an
+    inner one inside its outer one in time, the next span after both."""
     chan = TraceChannel("t")
-    with _profile(), chan.loop():
+    with _profile() as prof, chan.loop():
         for step in (1, 2):
             chan.step = step
             with tracing.span("outer"):
@@ -75,18 +85,20 @@ def test_kept_spans_nest_and_share_the_step():
                     pass
             with chan.span("after"):
                 pass
-    kept = chan.kept
-    assert [k.name for k in kept] == ["inner", "outer", "after"] * 2
-    for inner, outer, after in (kept[:3], kept[3:]):
-        assert outer.t0 <= inner.t0 <= inner.t1 <= outer.t1 <= after.t0 <= after.t1
-    assert chan.anchor is not None and chan.anchor <= kept[1].t0
-    assert chan.report()["inner"]["count"] == 2
+    assert {k: v["count"] for k, v in chan.report().items()} == {
+        "outer": 2, "inner": 2, "after": 2}
+    ranges = _ranges(prof, tmp_path)
+    assert [e["name"] for e in ranges] == ["t/outer", "t/inner", "t/after"] * 2
+    end = [e["ts"] + e["dur"] for e in ranges]  # us, to the trace's ns (1e-3 us)
+    for k in (0, 3):  # outer, inner, after
+        assert ranges[k]["ts"] <= ranges[k + 1]["ts"] and end[k + 1] <= end[k] + 1e-3
+        assert end[k] <= ranges[k + 2]["ts"] + 1e-3
 
 
-def test_kept_spans_from_two_threads():
+def test_spans_from_two_threads_are_counted():
     """Under a profiler that records every thread (the app's
     --profile-dir), the main loop's and the host task's spans are all
-    kept, none over another."""
+    counted, none over another."""
     from torch._C._profiler import _ExperimentalConfig
 
     chan, n = TraceChannel("t"), 2000
@@ -104,18 +116,22 @@ def test_kept_spans_from_two_threads():
         host.start()
         spans("main")
         host.join()
-    names = [k.name for k in chan.kept]
-    assert names.count("main") == names.count("host") == n
-    assert all(k.t0 <= k.t1 for k in chan.kept)
+    report = chan.report()
+    assert report["main"]["count"] == report["host"]["count"] == n
+    assert report["main"]["total_s"] >= 0 and report["host"]["total_s"] >= 0
 
 
 def test_nothing_kept_without_a_profiler():
+    """Without a profiler tracing is off: a loop keeps no K3 record buffer
+    and leaves the last traced loop's records, and its spans are counted."""
+    before = tracing.launch_records()
     chan = TraceChannel("t")
     with chan.loop():
         assert tracing.tracing_on() is False
         with tracing.span("a"):
             pass
-    assert chan.kept == [] and chan.anchor is None
+        assert chan._pending == []
+    assert tracing.launch_records() == before
     assert chan.report()["a"]["count"] == 1
 
 
@@ -168,29 +184,22 @@ def test_launch_record_tail_shares_and_unwritten():
     assert rec.chain_useful_share == pytest.approx(1900 / (16 * 128))
 
 
-def test_kept_spans_map_through_the_anchor(tmp_path):
-    """The kept spans, mapped through the clock anchor, fall on their
-    profiler ranges (here within 1 ms: a shared CPU; the card's check is
-    0.1 ms)."""
+def test_each_span_opens_its_profiler_range(tmp_path):
+    """Each span opens one ``<channel>/<span>`` range in the profiler's
+    trace, as long as the span (the loop opens no range of its own); the
+    channel's seconds are the ranges' within 1 ms (a shared CPU)."""
     chan = TraceChannel("t")
-    with torch.profiler.record_function("warm"):  # the loop's set-up opens ranges first
-        pass
     with _profile() as prof, chan.loop():
         for step in (1, 2, 3):
             chan.step = step
             with chan.span("ipu_render"):
                 time.sleep(0.002 * step)
-    path = tmp_path / "trace.json"
-    prof.export_chrome_trace(str(path))
-    ranges = [e for e in json.loads(path.read_text())["traceEvents"]
-              if e.get("cat") == "user_annotation"]
-    anchor = [e for e in ranges if e["name"] == f"t/{tracing.ANCHOR}"]
-    steps = [e for e in ranges if e["name"] == "t/ipu_render"]
-    assert len(anchor) == 1 and len(steps) == 3
-    offset = anchor[0]["ts"] * 1e-6 - chan.anchor
-    for e, k in zip(sorted(steps, key=lambda e: e["ts"]), chan.kept):
-        assert abs(e["ts"] * 1e-6 - (k.t0 + offset)) < 1e-3
-        assert abs((e["ts"] + e["dur"]) * 1e-6 - (k.t1 + offset)) < 1e-3
+    ranges = _ranges(prof, tmp_path)
+    assert [e["name"] for e in ranges] == ["t/ipu_render"] * 3
+    for e, step in zip(ranges, (1, 2, 3)):
+        assert e["dur"] * 1e-6 >= 0.002 * step
+    total = chan.report()["ipu_render"]["total_s"]
+    assert abs(sum(e["dur"] for e in ranges) * 1e-6 - total) < 1e-3
 
 
 def test_summary_rate_counts_the_samples_rendered(tmp_path):
@@ -253,7 +262,7 @@ def test_k3_records_on_the_card(cuda):
     budgets = torch.randint(1, 3 * spp, (groups,), generator=torch.Generator().manual_seed(1),
                             dtype=torch.int32).to(cuda)
     kw = dict(width=w, height=h, max_path_length=10)
-    calls = [dict(), dict(budgets=budgets, with_stats=True, env_skip=True)]
+    calls = [dict(), dict(budgets=budgets, with_stats=True)]
 
     def launch(args):
         return render_megastep(scene, RenderSettings.make(samples_per_step=spp), env.model,
